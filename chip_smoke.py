@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line; each prints
+its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-     from csrc/ with nvcc for sm_90a;
-  2. hold each kernel against its plain PyTorch version on the card, on
-     the inputs of the first bounces of an 800x600 programmer-art render
+     from csrc/ with nvcc for sm_90a (one nvcc per source, in parallel);
+  2. hold K1-K4 against their plain PyTorch versions on the card, on the
+     inputs of the first bounces of an 800x600 programmer-art render
      (480,000 camera rays, then scattered and NEE rays), and time both;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
@@ -15,8 +16,20 @@ Phases (any failure exits non-zero before the result line):
      CPU render of the same frame (PSNR > 40 dB);
   4. render the bench workload (800x600, 6 bounces / 4 diffuse, NEE 1+1,
      8 spp as one regenerating wavefront) with every launch counter set to
-     0 just before, and require each kernel to have launched;
-  5. print a JSON line describing the kernels, then the result line.
+     0 just before, and require K1-K4 to have launched;
+  5. the city: build the default procedural city (404,186 triangles,
+     two-level BVH8); hold K6 (the probe) and K5 (the sweep) against their
+     plain versions on the launches of the first bounce of a 1920x1080
+     1-spp render; render it at 1920x1080, bench config, 2 spp as one
+     regenerating chunk, after a warm-up render, with the counters set to
+     0 just before, and require K2-K6 to have launched; hold a 64x36 GPU
+     render against the port's CPU render (PSNR > 40 dB);
+  6. print a JSON line describing the kernels, then the result line.
+
+Each kernel's `bound_ms` is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its float operations over
+67 TFLOP/s (H100 SXM, NVIDIA's data sheet), for the work of the launches
+its `ms` sums.
 
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
@@ -40,7 +53,23 @@ KERNELS = {
                            "rtxpt_tpu/ops/gather_pallas.py:183"),
     "shade_nee": ("shade_nee", "rtxpt_tpu_torch/csrc/shade_kernel.cu",
                   "rtxpt_tpu/pt/shade_kernel.py:1049"),
+    "bvh8_trace": ("bvh8_trace", "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
+                   "rtxpt_tpu/ops/traverse_pallas.py:279"),
+    "bvh8_trace_sub": ("bvh8_trace_sub",
+                       "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
+                       "rtxpt_tpu/ops/traverse_pallas.py:380"),
 }
+# the kernels each main path must launch
+BENCH_PATH = ("mt_dense", "gather_rows", "gather_rows_interp", "shade_nee")
+CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
+             "gather_rows_interp", "shade_nee")
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+# float operations of one unit of work (counted from the kernels' source)
+SLAB_OPS = 25                  # one ray-box slab test
+NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
+TRI_OPS = 45                   # one Möller–Trumbore test
+SHADE_LANE_OPS = 2000          # K4 at NEE 1+1, an estimate from its source
 PSNR_MIN, SMAPE_MAX = 40.0, 0.02            # cross-platform golden gate
 FAST_PSNR, FAST_SMAPE = 45.0, 0.01          # same-platform fast gate
 
@@ -59,10 +88,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
+def bound(nbytes: float, ops: float):
+    """(least ms, "bytes" or "operations") for the work on the H100."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / FP32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def time_ms(fn, iters: int, warmup: bool = True) -> float:
     """Mean device time of fn() over `iters` calls (CUDA events, after
-    one warm-up call)."""
-    fn()
+    one warm-up call unless warmup=False)."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -75,20 +112,22 @@ def time_ms(fn, iters: int) -> float:
 
 
 class Capture:
-    """Records the arguments of the first calls of the kernel wrappers
-    during one render (the inputs the main path gives each kernel): the
-    first three traces (camera rays, their NEE rays, the scattered rays),
-    the gathers and the shade pass of the first bounce."""
-    LIMIT = {"trace_dense": 3, "gather_rows": 16, "gather_rows_interp": 1,
-             "shade_nee": 1}
+    """Records the arguments of the first calls of kernel wrappers during
+    one render (the inputs the main path gives each kernel), up to
+    limits[name] calls per wrapper."""
+    MODULES = {"trace_dense": "rtxpt_tpu_torch.ops.mt_dense",
+               "gather_rows": "rtxpt_tpu_torch.ops.gather",
+               "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
+               "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
+               "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
+               "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8"}
 
-    def __init__(self):
-        from rtxpt_tpu_torch.ops import gather, mt_dense
-        from rtxpt_tpu_torch.pt import shade_kernel
-        self.targets = [(mt_dense, "trace_dense"), (gather, "gather_rows"),
-                        (gather, "gather_rows_interp"),
-                        (shade_kernel, "shade_nee")]
-        self.calls = {name: [] for _, name in self.targets}
+    def __init__(self, limits: dict):
+        import importlib
+        self.limits = limits
+        self.targets = [(importlib.import_module(self.MODULES[name]), name)
+                        for name in limits]
+        self.calls = {name: [] for name in limits}
         self.orig = {}
 
     def __enter__(self):
@@ -97,7 +136,7 @@ class Capture:
             self.orig[name] = (mod, fn)
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
-                if len(self.calls[_name]) < self.LIMIT[_name]:
+                if len(self.calls[_name]) < self.limits[_name]:
                     self.calls[_name].append(
                         ([a.clone() if torch.is_tensor(a) else a
                           for a in args], dict(kw)))
@@ -110,9 +149,45 @@ class Capture:
             setattr(mod, name, fn)
 
 
+FIRST_BOUNCE = {"trace_dense": 3, "gather_rows": 16, "gather_rows_interp": 1,
+                "shade_nee": 1}
+
+
+def k1_work(args, kw, t, slot):
+    """(bytes, ops) of one K1 launch: every active lane slab-tests every
+    cluster, and tests the 64 rows of each cluster its box lets through
+    (up to the lane's final t; for any-hit, up to the cluster of the
+    first hit)."""
+    from rtxpt_tpu_torch.ops import mt_dense
+    from rtxpt_tpu_torch.ops.intersect import safe_inv
+    aabb_c, tri9, o_c, d, tmax, act = args
+    n, nc = o_c.shape[0], aabb_c.shape[0]
+    nbytes = (aabb_c.numel() + tri9.numel()) * 4 + n * (12 + 12 + 4 + 1 + 8)
+    lim = tmax if kw["any_hit"] else t
+    cl = torch.arange(nc, device=o_c.device)
+    passing = 0
+    for c in range(0, n, 1 << 16):
+        sl = slice(c, c + (1 << 16))
+        inv = safe_inv(d[sl])[:, None]
+        t0 = (aabb_c[None, :, 0:3] - o_c[sl, None]) * inv
+        t1 = (aabb_c[None, :, 3:6] - o_c[sl, None]) * inv
+        tn = torch.clamp(torch.amax(torch.minimum(t0, t1), -1), min=0.0)
+        tf = torch.minimum(torch.amin(torch.maximum(t0, t1), -1),
+                           lim[sl, None])
+        m = (tn <= tf) & act[sl, None]
+        if kw["any_hit"]:
+            last = torch.where(slot[sl] >= 0, slot[sl] // mt_dense.CLUSTER,
+                               nc)
+            m &= cl[None] <= last[:, None]
+        passing += int(m.sum())
+    ops = int(act.sum()) * nc * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
+    return nbytes, ops
+
+
 def check_kernels(results: dict):
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.ops import gather, mt_dense
+    from rtxpt_tpu_torch.pt import shade_kernel as SK
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
 
     w, h = 800, 600
@@ -122,7 +197,7 @@ def check_kernels(results: dict):
     r = Renderer(host, procedural.default_camera(w, h), cfg,
                  env_radiance=EM.bake_procedural_sky(height=64),
                  device="cuda")
-    with Capture() as cap:
+    with Capture(FIRST_BOUNCE) as cap:
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
 
@@ -133,6 +208,7 @@ def check_kernels(results: dict):
     require(len(closest) >= 2 and anyhit, "K1: too few traces captured")
     k1_ms = k1_plain_ms = 0.0
     k1_err = 0.0
+    k1_bytes = k1_ops = 0
     for label, (args, kw) in (("camera", closest[0]),
                               ("scattered", closest[1]),
                               ("nee any-hit", anyhit[0])):
@@ -165,15 +241,22 @@ def check_kernels(results: dict):
         if label != "scattered":
             ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw), 20)
             pms = time_ms(lambda: mt_dense.trace_dense_plain(*args, **kw), 2)
-            print(f"K1 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            nb, ops = k1_work(args, kw, t_k, s_k)
+            print(f"K1 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound(nb, ops)[0]:.4f} ms")
             k1_ms += ms
             k1_plain_ms += pms
+            k1_bytes += nb
+            k1_ops += ops
     results["mt_dense"] = dict(max_abs_err=k1_err, ms=k1_ms,
-                               plain_ms=k1_plain_ms)
+                               plain_ms=k1_plain_ms, library_ms=None)
+    results["mt_dense"]["bound_ms"], results["mt_dense"]["bound_by"] = \
+        bound(k1_bytes, k1_ops)
 
     # ---- K2: each distinct row gather of the first (full-width) bounce,
     # bit-equal
-    k2_ms = k2_plain_ms = 0.0
+    k2_ms = k2_plain_ms = k2_lib_ms = 0.0
+    k2_bytes = 0
     seen = set()
     for args, kw in cap.calls["gather_rows"]:
         table, idx = args
@@ -187,13 +270,23 @@ def check_kernels(results: dict):
                 f"K2 gather of a {tuple(table.shape)} table not bit-equal")
         ms = time_ms(lambda: gather.gather_rows(table, idx), 50)
         pms = time_ms(lambda: gather.gather_rows_plain(table, idx), 50)
+        # the library call: torch.index_select on the clamped indices
+        safe = torch.clamp(idx.reshape(-1), 0, table.shape[0] - 1)
+        lms = time_ms(lambda: torch.index_select(table, 0, safe), 50)
+        uniq = torch.unique(safe).numel()
+        k2_bytes += (uniq + idx.numel()) * table.shape[1] \
+            * table.element_size() + idx.numel() * idx.element_size()
         print(f"K2 {tuple(table.shape)} {table.dtype} x {idx.numel()} rows:"
-              f" bit-equal, kernel {ms:.4f} ms, plain {pms:.4f} ms")
+              f" bit-equal, kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"index_select {lms:.4f} ms")
         k2_ms += ms
         k2_plain_ms += pms
+        k2_lib_ms += lms
     require(len(seen) >= 5, "K2: too few gathers captured")
     results["gather_rows"] = dict(max_abs_err=0.0, ms=k2_ms,
-                                  plain_ms=k2_plain_ms)
+                                  plain_ms=k2_plain_ms, library_ms=k2_lib_ms)
+    results["gather_rows"]["bound_ms"], results["gather_rows"]["bound_by"] = \
+        bound(k2_bytes, 0)
 
     # ---- K3: the barycentric vertex blend of the first bounce
     args, kw = cap.calls["gather_rows_interp"][0]
@@ -204,19 +297,31 @@ def check_kernels(results: dict):
             f"K3 outside rtol 1e-6 / atol 1e-6 (max |diff| {err})")
     ms = time_ms(lambda: gather.gather_rows_interp(*args), 50)
     pms = time_ms(lambda: gather.gather_rows_interp_plain(*args), 50)
+    table, i3, w3 = args
+    nb = (torch.unique(i3).numel() + i3.shape[0]) * table.shape[1] * 4 \
+        + i3.numel() * i3.element_size() + w3.numel() * 4
+    b_ms, b_by = bound(nb, i3.shape[0] * table.shape[1] * 5)
     print(f"K3 {args[1].shape[0]} lanes: max |diff| {err:.3g}, kernel "
-          f"{ms:.4f} ms, plain {pms:.4f} ms")
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
     results["gather_rows_interp"] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=pms)
+                                         plain_ms=pms, library_ms=None,
+                                         bound_ms=b_ms, bound_by=b_by)
 
     # ---- K4: the shade pass of the first bounce, at the bench's NEE 1+1
     # and at the goldens' NEE 2+2 (reference_config())
-    err, ms, pms = check_shade(*cap.calls["shade_nee"][0])
-    results["shade_nee"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    args, kw = cap.calls["shade_nee"][0]
+    err, ms, pms = check_shade(args, kw)
+    planes, n = args[0], args[0].shape[1]
+    rows_out = SK.out_layout(kw["nee_distant"], kw["nee_local"]).rows
+    b_ms, b_by = bound((planes.shape[0] + rows_out) * n * 4,
+                       n * SHADE_LANE_OPS)
+    results["shade_nee"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                library_ms=None, bound_ms=b_ms,
+                                bound_by=b_by)
     r = Renderer(host, procedural.default_camera(w, h), reference_config(),
                  env_radiance=EM.bake_procedural_sky(height=64),
                  device="cuda")
-    with Capture() as cap:
+    with Capture(FIRST_BOUNCE) as cap:
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
     check_shade(*cap.calls["shade_nee"][0])
@@ -286,7 +391,8 @@ def check_goldens():
     require(m["psnr"] > PSNR_MIN, f"GPU vs CPU render: {m}")
 
 
-def bench(results: dict, card: str):
+def bench(card: str) -> dict:
+    """The bench workload; returns its launch counts."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.ops import cuda_lib
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
@@ -312,11 +418,173 @@ def bench(results: dict, card: str):
     mpaths = w * h * spp / wall / 1e6
     print(f"bench {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {mpaths:.3f} Mpaths/s on {card}; launches {counts}")
-    for name, (counter, _, _) in KERNELS.items():
-        require(counts[counter] > 0,
-                f"{name} was not launched on the main path")
-        results[name]["launches"] = counts[counter]
-    return wall, mpaths
+    for name in BENCH_PATH:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the bench path")
+    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+
+
+def bvh8_work(args, stats, stacked: bool):
+    """(bytes, ops) of one K5/K6 launch: the active lanes' rays (and
+    subtree index), every lane's t_max and active flag, the outputs, the
+    table once if any lane walks it; operations from the plain version's
+    counts of node rows and leaf triangles."""
+    table, omm = args[0], args[1]
+    o, act = args[3 if stacked else 2], args[-1]
+    n, a = o.shape[0], int(act.sum())
+    nbytes = n * (1 + 4 + 16) + a * (24 + (4 if stacked else 0))
+    if a:
+        nbytes += (table.numel() + omm.numel()) * 4
+    ops = stats["node_rows"] * NODE_ROW_OPS + stats["leaf_tris"] * TRI_OPS
+    return nbytes, ops
+
+
+def check_bvh8(calls, label, stacked):
+    """K6 (stacked) or K5 on the captured launches of one trace: kernel
+    against plain version (agreement, max |diff|), both timed; returns
+    (agreeing lanes, active lanes, max |diff|, ms, plain ms, bytes, ops,
+    launches with no active lane, row-traffic bytes)."""
+    from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
+    kernel = T8.trace_bvh8_sub if stacked else T8.trace_bvh8
+    agree = lanes = empty = 0
+    err = ms = pms = nbytes = ops = traffic = 0.0
+    for args, kw in calls:
+        act = args[-1]
+        n_act = int(act.sum())
+        empty += n_act == 0
+        if stacked:
+            tables, omm, sub, o, d, tmax, _ = args
+            plain_args = (tables, omm, o, d, tmax, act, sub)
+        else:
+            plain_args = tuple(args)
+        stats = {}
+        t_k, s_k, uv_k = kernel(*args, **kw)
+        t_p, s_p, uv_p = T8.trace_bvh8_plain(*plain_args, **kw, stats=stats)
+        torch.cuda.synchronize()
+        if kw["any_hit"]:
+            agree += int(((s_k >= 0) == (s_p >= 0))[act].sum())
+        else:
+            same = s_k == s_p
+            agree += int(same[act].sum())
+            m = same & (s_k >= 0)
+            if bool(m.any()):
+                err = max(err, float((t_k - t_p)[m].abs().max()),
+                          float((uv_k - uv_p)[m].abs().max()))
+                require(torch.allclose(t_k[m], t_p[m], rtol=1e-5, atol=1e-6)
+                        and torch.allclose(uv_k[m], uv_p[m], rtol=1e-5,
+                                           atol=1e-6),
+                        f"{label}: t/u/v outside rtol 1e-5 / atol 1e-6")
+        lanes += n_act
+        ms += time_ms(lambda: kernel(*args, **kw), 20)
+        pms += time_ms(lambda: T8.trace_bvh8_plain(*plain_args, **kw), 1,
+                       warmup=False)
+        nb, op = bvh8_work(args, stats, stacked)
+        nbytes += nb
+        ops += op
+        traffic += stats["node_rows"] * 56 * 4 + stats["leaf_tris"] * 40
+    return agree, lanes, err, ms, pms, nbytes, ops, empty, traffic
+
+
+def city(results: dict, card: str) -> dict:
+    """The city phase (5.); returns the launch counts of its render."""
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.ops import bvh2l, cuda_lib
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import image as IM
+    w, h, spp = 1920, 1080, 2
+    cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
+                           nee_distant_samples=1, nee_local_samples=1)
+    env = EM.bake_procedural_sky(height=64)
+    t0 = time.perf_counter()
+    host = procedural.build_city().finish()
+    r = Renderer(host, procedural.city_camera(w, h), cfg, env_radiance=env,
+                 device="cuda")
+    torch.cuda.synchronize()
+    tl = r.bvh
+    require(isinstance(tl, bvh2l.BVH8TwoLevel) and r.dense is None,
+            "city: not on the two-level tier")
+    k = tl.num_subtrees
+    print(f"city: {host['indices'].shape[0]} triangles, two-level BVH8 "
+          f"K={k} S={tl.rows} ({tl.sub_tables.numel() * 4 / 1e6:.1f} MB), "
+          f"host build {time.perf_counter() - t0:.2f} s", flush=True)
+    require(k >= bvh2l.PROBE_MIN_SUBTREES, "city: the probe does not engage")
+
+    # K6 and K5 on the first bounce of a 1-spp render: the probes and
+    # sweeps of the camera rays, their NEE rays and the scattered rays
+    with Capture({"trace_bvh8_sub": 3, "trace_bvh8": 3 * k}) as cap:
+        r.render_sample(w, h, 0)
+        torch.cuda.synchronize()
+    probes, sweeps = cap.calls["trace_bvh8_sub"], cap.calls["trace_bvh8"]
+    require(len(probes) == 3 and len(sweeps) == 3 * k,
+            "city: too few traces captured")
+    tot = {"bvh8_trace_sub": [0] * 9, "bvh8_trace": [0] * 9}
+    for i, label in enumerate(("camera", "nee any-hit", "scattered")):
+        for name, calls, stacked in (
+                ("bvh8_trace_sub", probes[i:i + 1], True),
+                ("bvh8_trace", sweeps[i * k:(i + 1) * k], False)):
+            res = check_bvh8(calls, f"{name} {label}", stacked)
+            agree, lanes, err, ms, pms, nb, ops, empty, traffic = res
+            frac = agree / max(lanes, 1)
+            what = "occlusion" if calls[0][1]["any_hit"] else "prim"
+            print(f"{name} {label}: {len(calls)} launch(es) over "
+                  f"{calls[0][0][-1].numel()} lanes, {lanes} active lanes "
+                  f"(plain on the full wavefront), {empty} with no active "
+                  f"lane; same {what} on {frac:.6%}, t/u/v max |diff| "
+                  f"{err:.3g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound(nb, ops)[0]:.4f} ms, row traffic "
+                  f"{traffic / 1e9:.3f} GB "
+                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate)",
+                  flush=True)
+            require(frac >= 0.9999, f"{name} {label}: agreement {frac}")
+            if label != "scattered":      # ms sums camera + NEE, as K1's
+                acc = tot[name]
+                for j, v in enumerate((agree, lanes, err, ms, pms, nb, ops,
+                                       empty, traffic)):
+                    acc[j] = max(acc[j], v) if j == 2 else acc[j] + v
+    for name, acc in tot.items():
+        b_ms, b_by = bound(acc[5], acc[6])
+        results[name] = dict(max_abs_err=acc[2], ms=acc[3], plain_ms=acc[4],
+                             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # the main path: 1920x1080, 2 spp as one regenerating chunk
+    r.render(w, h, spp)                      # warm-up
+    torch.cuda.synchronize()
+    r.reset_accumulation()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    hdr = r.render(w, h, spp)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    out = hdr.cpu().numpy()
+    require(out.shape == (h, w, 3) and np.isfinite(out).all()
+            and out.mean() > 0.0, "city render: bad output")
+    print(f"city {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
+          f"wall, {w * h * spp / wall / 1e6:.3f} Mpaths/s on {card}; "
+          f"launches {counts}", flush=True)
+    for name in CITY_PATH:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the city path")
+
+    # the port on the card against the port's plain versions on the CPU
+    imgs = []
+    for device in ("cuda", "cpu"):
+        rs = Renderer(host, procedural.city_camera(64, 36), cfg,
+                      env_radiance=env, device=device)
+        imgs.append(rs.tonemapped(rs.render(64, 36, 1)).cpu().numpy())
+    require(np.isfinite(imgs[0]).all(), "city 64x36: non-finite image")
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"city GPU vs CPU (plain) 64x36 1spp: PSNR {m['psnr']:.2f} dB, "
+          f"SMAPE {m['smape']:.5f}")
+    require(m["psnr"] > PSNR_MIN, f"city GPU vs CPU render: {m}")
+    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+
+
+def phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -338,15 +606,22 @@ def main() -> int:
           f"({cuda_lib.build()})", flush=True)
 
     results = {}
-    check_kernels(results)
-    check_goldens()
-    bench(results, card)
+    phase("kernels K1-K4", check_kernels, results)
+    phase("goldens", check_goldens)
+    launches = {"bench": phase("bench", bench, card),
+                "city": phase("city", city, results, card)}
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=results[name]["launches"],
+                    launches=sum(c[name] for c in launches.values()),
+                    launches_by_path={p: c[name]
+                                      for p, c in launches.items()},
                     max_abs_err=results[name]["max_abs_err"],
                     ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"])
+                    plain_ms=results[name]["plain_ms"],
+                    bound_ms=results[name]["bound_ms"],
+                    bound_by=results[name]["bound_by"],
+                    library_ms=results[name]["library_ms"])
                for name, (_, src, rep) in KERNELS.items()]
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

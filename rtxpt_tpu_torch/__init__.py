@@ -4,15 +4,20 @@ The module layout mirrors ``rtxpt_tpu`` so every file here has one
 counterpart there; the JAX package is the reference the port is tested
 against. This package imports ``torch`` and never ``jax``.
 
-Slice carried so far: the reference-mode accumulation render of the
-``programmer-art`` scene (``Renderer.render`` -> ``integrator.render_paths``
--> the bounce loop), with the four TPU kernels of that path rewritten as
-hand-written CUDA kernels for ``sm_90a`` (``csrc/``):
+Carried so far: the reference-mode accumulation render
+(``Renderer.render`` -> ``integrator.render_paths`` -> the bounce loop) of
+the ``programmer-art`` scene and the procedural city, through the
+reference's three trace tiers (dense, BVH8, two-level BVH8), with the six
+TPU kernels of that path rewritten as hand-written CUDA kernels for
+``sm_90a`` (``csrc/``):
 
-  K1 ops/mt_dense.py      closest/any-hit ray-triangle trace (dense scenes)
-  K2 ops/gather.py        row gather
-  K3 ops/gather.py        barycentric 3-row blend
-  K4 pt/shade_kernel.py   fused shade + NEE bounce
+  K1 ops/mt_dense.py       closest/any-hit ray-triangle trace (dense scenes)
+  K2 ops/gather.py         row gather
+  K3 ops/gather.py         barycentric 3-row blend
+  K4 pt/shade_kernel.py    fused shade + NEE bounce
+  K5 ops/traverse_bvh8.py  BVH8 closest/any-hit traversal
+  K6 ops/traverse_bvh8.py  the same over stacked subtree tables, one
+                           subtree per ray (the two-level probe)
 
 Dispatch rule for every kernel wrapper: a CPU tensor takes the plain
 PyTorch version beside the kernel; a CUDA tensor launches the kernel (or

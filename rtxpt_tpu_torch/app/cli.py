@@ -5,6 +5,9 @@ RTXPT/CommandLine.h:16-34). Reference mode only.
     python -m rtxpt_tpu_torch.app.cli --mode reference \\
         --scene programmer-art --width 800 --height 600 --spp 8 \\
         --output out.png --dump-npy out.npy --device cuda
+
+`--scene city` renders the Bistro-class procedural city (404,186
+triangles, two-level BVH8).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import time
 def build_arg_parser():
     p = argparse.ArgumentParser("rtxpt_tpu_torch headless renderer")
     p.add_argument("--scene", default="programmer-art",
-                   choices=["programmer-art"])
+                   choices=["programmer-art", "city"])
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=600)
     p.add_argument("--spp", type=int, default=16,
@@ -49,6 +52,18 @@ def build_arg_parser():
     return p
 
 
+def load_scene(args):
+    """(host scene dict, camera) for --scene."""
+    from ..scene import procedural
+    if args.scene == "city":
+        # Bistro-class stress scene (BASELINE config 5 fixture)
+        return (procedural.build_city().finish(),
+                procedural.city_camera(args.width, args.height))
+    return (procedural.build_programmer_art(
+        diffuse_only=args.diffuse_only).finish(),
+        procedural.default_camera(args.width, args.height))
+
+
 def _sync(device):
     import torch
     if torch.device(device).type == "cuda":
@@ -61,12 +76,9 @@ def main(argv=None) -> int:
 
     from ..models.renderer import Renderer, reference_config
     from ..scene import envmap as EM
-    from ..scene import procedural
     from ..utils import image as IM
 
-    host = procedural.build_programmer_art(
-        diffuse_only=args.diffuse_only).finish()
-    cam = procedural.default_camera(args.width, args.height)
+    host, cam = load_scene(args)
     cfg = reference_config(max_bounces=args.max_bounces,
                            nee_distant_samples=args.nee_distant_samples,
                            nee_local_samples=args.nee_local_samples)

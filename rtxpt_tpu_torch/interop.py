@@ -1,10 +1,12 @@
 """Build the port's render assets from the reference package's tables.
 
 The parity tests run both packages on identical tables: the reference
-builds its SceneArrays packs, DenseMT planes, EnvMap and LightTable, and
-these functions turn their fields (as numpy arrays) into the port's
-device tables. The port's own host build is checked against the same
-tables separately. Nothing here imports the reference package: every
+builds its SceneArrays packs, DenseMT planes, BVH8 or two-level BVH8
+tables, EnvMap and LightTable, and these functions turn their fields (as
+numpy arrays) into the port's device tables. Of the BVHs only the f32
+tables are carried; the reference's bf16 planes serve its TPU kernel.
+The port's own host build is checked against the same tables
+separately. Nothing here imports the reference package: every
 input is read with ``numpy.asarray``.
 """
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.bvh import BVH8
+from .ops.bvh2l import BVH8TwoLevel
 from .ops.mt_dense import DenseMT
 from .pt.integrator import RenderAssets
 from .scene.envmap import EnvMap
@@ -25,7 +29,7 @@ def _t(a, dtype, device):
 
 def scene_from_arrays(*, positions, indices, vert_pack, tri_pack,
                       tri_geom_pack, mat_pack, material_ior,
-                      volume_absorption, device="cpu") -> SceneArrays:
+                      volume_absorption, device="cuda") -> SceneArrays:
     f32, i32 = torch.float32, torch.int32
     return SceneArrays(
         positions=_t(positions, f32, device), indices=_t(indices, i32, device),
@@ -38,15 +42,48 @@ def scene_from_arrays(*, positions, indices, vert_pack, tri_pack,
 
 
 def dense_from_arrays(*, aabb, tri9, center, num_clusters: int,
-                      device="cpu") -> DenseMT:
+                      device="cuda") -> DenseMT:
     f32 = torch.float32
     return DenseMT(aabb=_t(aabb, f32, device), tri9=_t(tri9, f32, device),
                    center=_t(center, f32, device),
                    num_clusters=int(num_clusters))
 
 
+def bvh8_from_arrays(*, table, leaf_tris, leaf_omm, leaf_size: int,
+                     num_nodes: int, device="cuda") -> BVH8:
+    i32 = torch.int32
+    return BVH8(table=_t(table, torch.float32, device),
+                leaf_tris=_t(leaf_tris, i32, device),
+                leaf_omm=_t(leaf_omm, i32, device),
+                leaf_size=int(leaf_size), num_nodes=int(num_nodes))
+
+
+def two_level_from_arrays(*, sub_tables, sub_leaf_tris, sub_leaf_omm,
+                          sub_aabb, leaf_size: int, rows: int,
+                          device="cuda") -> BVH8TwoLevel:
+    f32, i32 = torch.float32, torch.int32
+    return BVH8TwoLevel(sub_tables=_t(sub_tables, f32, device),
+                        sub_leaf_tris=_t(sub_leaf_tris, i32, device),
+                        sub_leaf_omm=_t(sub_leaf_omm, i32, device),
+                        sub_aabb=_t(sub_aabb, f32, device),
+                        leaf_size=int(leaf_size), rows=int(rows))
+
+
+def bvh_from_reference(bvh, device="cuda"):
+    """The port's BVH8 or BVH8TwoLevel from the reference's (any object
+    with those fields)."""
+    if hasattr(bvh, "sub_aabb"):
+        return two_level_from_arrays(
+            sub_tables=bvh.sub_tables, sub_leaf_tris=bvh.sub_leaf_tris,
+            sub_leaf_omm=bvh.sub_leaf_omm, sub_aabb=bvh.sub_aabb,
+            leaf_size=bvh.leaf_size, rows=bvh.rows, device=device)
+    return bvh8_from_arrays(table=bvh.table, leaf_tris=bvh.leaf_tris,
+                            leaf_omm=bvh.leaf_omm, leaf_size=bvh.leaf_size,
+                            num_nodes=bvh.num_nodes, device=device)
+
+
 def env_from_arrays(*, radiance_quad, alias_pack, height: int, width: int,
-                    intensity=1.0, enabled=True, device="cpu") -> EnvMap:
+                    intensity=1.0, enabled=True, device="cuda") -> EnvMap:
     return EnvMap(radiance_quad=_t(radiance_quad, torch.float32, device),
                   alias_pack=_t(alias_pack, torch.float32, device),
                   height=int(height), width=int(width),
@@ -55,16 +92,17 @@ def env_from_arrays(*, radiance_quad, alias_pack, height: int, width: int,
 
 
 def lights_from_arrays(*, pack, cdf, total_power,
-                       device="cpu") -> LightTable:
+                       device="cuda") -> LightTable:
     return LightTable(pack=_t(pack, torch.float32, device),
                       cdf=_t(cdf, torch.float32, device),
                       total_power=float(np.asarray(total_power, np.float32)))
 
 
-def assets_from_reference(scene, dense, env, lights,
-                          device="cpu") -> RenderAssets:
-    """RenderAssets from the reference's SceneArrays, DenseMT, EnvMap and
-    LightTable objects (any objects with those fields)."""
+def assets_from_reference(scene, dense, env, lights, bvh=None,
+                          device="cuda") -> RenderAssets:
+    """RenderAssets from the reference's SceneArrays, DenseMT (or None),
+    EnvMap and LightTable objects, and optionally its BVH8 or BVH8TwoLevel
+    (any objects with those fields)."""
     return RenderAssets(
         scene=scene_from_arrays(
             positions=scene.positions, indices=scene.indices,
@@ -80,6 +118,7 @@ def assets_from_reference(scene, dense, env, lights,
         lights=None if lights is None else lights_from_arrays(
             pack=lights.pack, cdf=lights.cdf,
             total_power=lights.total_power, device=device),
-        dense=dense_from_arrays(
+        dense=None if dense is None else dense_from_arrays(
             aabb=dense.aabb, tri9=dense.tri9, center=dense.center,
-            num_clusters=dense.num_clusters, device=device))
+            num_clusters=dense.num_clusters, device=device),
+        bvh=None if bvh is None else bvh_from_reference(bvh, device))

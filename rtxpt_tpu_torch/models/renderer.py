@@ -2,15 +2,18 @@
 rtxpt_tpu/models/renderer.py; Sample.cpp Render/PathTrace, accumulation
 Sample.cpp:1530-1566, 2469-2474).
 
-Owns the device scene tables, the dense trace planes, the environment and
+Owns the device scene tables, the trace structure, the environment and
 the light table on one torch device, and drives reference-mode
 accumulation: chunks of up to 8 samples per pixel go through one
 regenerating wavefront (integrator spp > 1), single samples through
 `render_sample`.
 
-The port builds only the dense trace planes (ops/mt_dense.py), which
-serve every trace of scenes up to 8192 triangles; it refuses larger,
-textured or alpha-MASK scenes until the BVH and texture paths are ported.
+The trace structure is the reference's tier for the scene's size, and
+only that one is built: the dense planes (ops/mt_dense.py) up to 8,192
+triangles, a single BVH8 (ops/bvh.py) up to 45,000, the two-level BVH8
+(ops/bvh2l.py) above. (The reference also builds a BVH2 and a triangle
+soup that nothing traces.) Textured and alpha-MASK scenes are refused
+until the texture paths are ported.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import config as C
-from ..ops import mt_dense
+from ..ops import bvh as bvh_mod
+from ..ops import bvh2l, mt_dense
 from ..post import accumulation, tonemap
 from ..pt import integrator
 from ..scene import envmap as EM
@@ -30,6 +34,7 @@ from ..scene.build import to_device
 from ..scene.camera import CameraData
 
 REGEN_CHUNK = 8
+BVH8_MAX_TRIS = 45_000    # above this the two-level BVH8 takes over
 
 
 def reference_config(**overrides) -> C.PTConfig:
@@ -49,11 +54,6 @@ def r2_jitter(index: int):
 
 def check_supported(host_scene: dict):
     """Raise NotImplementedError for scenes the port cannot render yet."""
-    n_tris = host_scene["indices"].shape[0]
-    if not mt_dense.supported(n_tris):
-        raise NotImplementedError(
-            f"{n_tris} triangles: scenes over {mt_dense.MAX_TRIS} need the "
-            "BVH trace paths, which are not ported yet")
     if host_scene.get("texture_images"):
         raise NotImplementedError("textured scenes are not ported yet")
     if (np.asarray(host_scene["materials"]["alpha_mode"]) == 1).any():
@@ -61,10 +61,23 @@ def check_supported(host_scene: dict):
                                   "alpha visibility path (not ported yet)")
 
 
+def build_trace_structure(host_scene: dict, device):
+    """(dense, bvh) of the reference's tier for the scene's triangle count
+    (rtxpt_tpu/models/renderer.py:120-148); the other one is None."""
+    pos, idx = host_scene["positions"], host_scene["indices"]
+    n_tris = idx.shape[0]
+    if mt_dense.supported(n_tris):
+        return mt_dense.build_dense(pos, idx, device=device), None
+    if n_tris <= BVH8_MAX_TRIS:
+        return None, bvh_mod.collapse_bvh8(bvh_mod.build_bvh(pos, idx), pos,
+                                           idx, device=device)
+    return None, bvh2l.build_two_level(pos, idx, device=device)
+
+
 class Renderer:
     def __init__(self, host_scene: dict, camera: CameraData,
                  cfg: Optional[C.PTConfig] = None, env_radiance=None,
-                 device="cpu"):
+                 device="cuda"):
         check_supported(host_scene)
         self.device = torch.device(device)
         self.cfg = cfg or reference_config()
@@ -78,12 +91,11 @@ class Renderer:
                                   device=self.device)
         self.lights = (LI.build_light_table(host_scene, device=self.device)
                        if self.cfg.use_emissive_lights else None)
-        self.dense = mt_dense.build_dense(host_scene["positions"],
-                                          host_scene["indices"],
-                                          device=self.device)
+        self.dense, self.bvh = build_trace_structure(host_scene,
+                                                     self.device)
         self.assets = integrator.RenderAssets(
             scene=self.scene, env=self.env, lights=self.lights,
-            dense=self.dense)
+            dense=self.dense, bvh=self.bvh)
         # accumulation state (resumable: buffer + index are the checkpoint)
         self.accum = None
         self.sample_index = 0

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("gather.cu", "mt_dense.cu", "shade_kernel.cu")
+SOURCES = ("gather.cu", "mt_dense.cu", "shade_kernel.cu", "bvh8_trace.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
@@ -43,6 +43,9 @@ SIGNATURES = {
     "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, P),
     "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
+    "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
+    "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,
+                             P),
 }
 
 _lib = None

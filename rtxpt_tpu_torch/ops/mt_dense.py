@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .intersect import Hit
+from .intersect import Hit, safe_inv
 
 CLUSTER = 64            # triangles per cluster (csrc/mt_dense.cu kCluster)
 MAX_TRIS = 8192         # beyond this the reference switches to BVH paths
@@ -99,16 +99,11 @@ def build_dense_np(positions, indices):
     return aabb, tri9, center.astype(np.float32), nc
 
 
-def build_dense(positions, indices, device="cpu") -> DenseMT:
+def build_dense(positions, indices, device="cuda") -> DenseMT:
     aabb, tri9, center, nc = build_dense_np(positions, indices)
     t = lambda a: torch.as_tensor(a, device=device)
     return DenseMT(aabb=t(aabb), tri9=t(tri9), center=t(center),
                    num_clusters=nc)
-
-
-def _safe_inv(c):
-    tiny = torch.where(c < 0, -1e-12, 1e-12)
-    return 1.0 / torch.where(torch.abs(c) < 1e-12, tiny, c)
 
 
 def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit):
@@ -118,7 +113,7 @@ def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit):
     nc = aabb_c.shape[0]
     best = t_max.clone()
     slot = torch.full((n,), -1, dtype=torch.int32, device=o.device)
-    ix, iy, iz = _safe_inv(d[:, 0]), _safe_inv(d[:, 1]), _safe_inv(d[:, 2])
+    ix, iy, iz = safe_inv(d[:, 0]), safe_inv(d[:, 1]), safe_inv(d[:, 2])
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     rows = torch.arange(CLUSTER, device=o.device, dtype=torch.int32)

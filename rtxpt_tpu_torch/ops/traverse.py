@@ -1,31 +1,53 @@
 """Trace dispatch (counterpart of rtxpt_tpu/ops/traverse.py).
 
-Every trace goes to the dense tier (ops/mt_dense.py). Scenes over
-mt_dense.MAX_TRIS triangles need the BVH8, two-level and instanced
-traversal paths of the reference, which the port does not carry yet.
+In the reference's order: the dense tier (``ops/mt_dense.py``, K1) when
+the scene has one (at most 8,192 triangles); otherwise the acceleration
+structure decides: a `BVH8TwoLevel` (over 45,000 triangles) goes to
+``ops/bvh2l.py`` (K6 probe + K5 sweep), a single `BVH8` to K5
+(``ops/traverse_bvh8.py``), whose leaf slots map to triangle ids through
+the table's `leaf_tris`. The reference's instanced TLAS is not ported.
 """
 from __future__ import annotations
 
-from . import mt_dense
+import torch
+
+from . import bvh2l, mt_dense
+from . import traverse_bvh8 as T8
+from .bvh import BVH8
 from .intersect import Hit
 
 
-def _require_dense(dense):
-    if dense is None:
-        raise NotImplementedError(
-            f"scenes over {mt_dense.MAX_TRIS} triangles need the BVH "
-            "trace paths, which are not ported yet")
+def _require_bvh8(bvh):
+    if not isinstance(bvh, BVH8):
+        raise TypeError(f"no trace path for {type(bvh).__name__}")
 
 
-def trace_closest(dense, origins, dirs, t_max=1e30, active=None) -> Hit:
+def trace_closest(bvh, origins, dirs, t_max=1e30, active=None,
+                  dense=None) -> Hit:
     """Closest-hit trace (Bridge::traceScatterRay equivalent); prim is the
     original scene triangle index."""
-    _require_dense(dense)
-    return mt_dense.trace_closest(dense, origins, dirs, t_max, active)
+    if dense is not None:
+        return mt_dense.trace_closest(dense, origins, dirs, t_max, active)
+    if isinstance(bvh, bvh2l.BVH8TwoLevel):
+        return bvh2l.trace_closest(bvh, origins, dirs, t_max, active)
+    _require_bvh8(bvh)
+    o, d, tm, act = T8.prepare_rays(origins, dirs, t_max, active)
+    t, slot, uv = T8.trace_bvh8(bvh.table, bvh.leaf_omm, o, d, tm, act,
+                                leaf_size=bvh.leaf_size, any_hit=False)
+    prim = torch.where(slot >= 0,
+                       bvh.leaf_tris[torch.clamp(slot, min=0)], -1)
+    return Hit(t, prim, uv)
 
 
-def trace_anyhit(dense, origins, dirs, t_max=1e30, active=None):
+def trace_anyhit(bvh, origins, dirs, t_max=1e30, active=None, dense=None):
     """Visibility trace (Bridge::traceVisibilityRay equivalent): True where
     occluded; inactive rays report unoccluded."""
-    _require_dense(dense)
-    return mt_dense.trace_anyhit(dense, origins, dirs, t_max, active)
+    if dense is not None:
+        return mt_dense.trace_anyhit(dense, origins, dirs, t_max, active)
+    if isinstance(bvh, bvh2l.BVH8TwoLevel):
+        return bvh2l.trace_anyhit(bvh, origins, dirs, t_max, active)
+    _require_bvh8(bvh)
+    o, d, tm, act = T8.prepare_rays(origins, dirs, t_max, active)
+    _, slot, _ = T8.trace_bvh8(bvh.table, bvh.leaf_omm, o, d, tm, act,
+                               leaf_size=bvh.leaf_size, any_hit=True)
+    return slot >= 0

@@ -3,9 +3,10 @@ rtxpt_tpu/pt/integrator.py; Sample.hlsl:245-330 RayGen loop, PathTracer.hlsli
 HandleHit/HandleMiss, PathTracerNEE.hlsli, nested dielectrics).
 
 Each iteration of the bounce loop runs over the whole wavefront: closest
-hit trace (K1) -> env eval of misses -> surface load (K2/K3) -> alpha and
-nested-dielectric rejection -> the fused shade+NEE pass (K4) -> the
-batched NEE visibility trace (K1 any-hit). The reference's
+hit trace (ops/traverse.py: K1, or K5/K6 on the BVH tiers) -> env eval of
+misses -> surface load (K2/K3) -> alpha and nested-dielectric rejection ->
+the fused shade+NEE pass (K4) -> the batched NEE visibility trace (any-hit
+through the same dispatch). The reference's
 `lax.while_loop` with `any(active)` as its condition is a Python loop here,
 with one host sync per bounce.
 
@@ -52,7 +53,8 @@ class RenderAssets:
     scene: SceneArrays
     env: EM.EnvMap
     lights: Optional[LI.LightTable]
-    dense: object               # ops.mt_dense.DenseMT
+    dense: object               # ops.mt_dense.DenseMT, or None
+    bvh: object = None          # ops.bvh.BVH8 / ops.bvh2l.BVH8TwoLevel
 
 
 class PathState(NamedTuple):
@@ -318,8 +320,9 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
         rays = c.rays + torch.stack([path.active.to(torch.float32).sum(),
                                      torch.zeros_like(c.rays[0])])
         hit = traverse.trace_closest(
-            assets.dense, path.origin, path.direction,
-            t_max=mu.K_MAX_RAY_TRAVEL, active=path.active)
+            assets.bvh, path.origin, path.direction,
+            t_max=mu.K_MAX_RAY_TRAVEL, active=path.active,
+            dense=assets.dense)
         is_hit = path.active & hit.valid
         is_miss = path.active & ~hit.valid
 

@@ -114,7 +114,7 @@ def build_tables(radiance: np.ndarray):
 
 
 def make_envmap(radiance, intensity: float = 1.0, enabled: bool = True,
-                device="cpu") -> EnvMap:
+                device="cuda") -> EnvMap:
     radiance = np.asarray(radiance, np.float32)
     quad, alias = build_tables(radiance)
     return EnvMap(radiance_quad=torch.as_tensor(quad, device=device),

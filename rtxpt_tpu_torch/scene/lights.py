@@ -73,8 +73,10 @@ def _build_pack(kind, tri, position, radius, radiance, positions, indices,
 
 
 def build_light_table(host_scene: dict, analytic: Optional[list] = None,
-                      device="cpu") -> Optional[LightTable]:
-    """Host-side (numpy) light table build (PrepareLightsPass::Process).
+                      device="cuda") -> Optional[LightTable]:
+    """Host-side (numpy) light table build (PrepareLightsPass::Process):
+    one row per emissive triangle (whole arrays, no per-triangle Python:
+    the default city has 64,066), then the analytic lights.
     analytic: list of dicts {kind, position/direction, radiance, radius}."""
     pos = host_scene["positions"]
     idx = host_scene["indices"]
@@ -83,37 +85,34 @@ def build_light_table(host_scene: dict, analytic: Optional[list] = None,
     emissive = mats["emissive"]
     excluded = mats["excluded_from_nee"]
 
-    kinds, tris, positions, radii, radiances, powers = [], [], [], [], [], []
     em_lum = (0.2126 * emissive[:, 0] + 0.7152 * emissive[:, 1]
               + 0.0722 * emissive[:, 2])
     is_emissive_mat = (em_lum > 0) & (~excluded)
-    emissive_tris = np.nonzero(is_emissive_mat[tri_mat])[0]
-    if emissive_tris.size:
-        et = emissive_tris
-        p0 = pos[idx[et, 0]]
-        p1 = pos[idx[et, 1]]
-        p2 = pos[idx[et, 2]]
-        area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
-        mids = tri_mat[et]
-        kinds.extend([LIGHT_TRIANGLE] * et.size)
-        tris.extend(et.tolist())
-        positions.extend(((p0 + p1 + p2) / 3.0).astype(np.float32))
-        radii.extend([0.0] * et.size)
-        radiances.extend(emissive[mids].astype(np.float32))
-        # single-sided emissive: power = L * area * pi
-        powers.extend((em_lum[mids] * area * np.pi).tolist())
+    et = np.nonzero(is_emissive_mat[tri_mat])[0]
+    p0 = pos[idx[et, 0]]
+    p1 = pos[idx[et, 1]]
+    p2 = pos[idx[et, 2]]
+    area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=-1)
+    mids = tri_mat[et]
+    kinds = [np.full(et.size, LIGHT_TRIANGLE, np.int32)]
+    tris = [et.astype(np.int32)]
+    positions = [((p0 + p1 + p2) / 3.0).astype(np.float32).reshape(-1, 3)]
+    radii = [np.zeros(et.size, np.float32)]
+    radiances = [emissive[mids].astype(np.float32).reshape(-1, 3)]
+    # single-sided emissive: power = L * area * pi
+    powers = [np.asarray(em_lum[mids] * area * np.pi, np.float64)]
+    axes = [np.tile(np.asarray([[0.0, 0.0, -1.0]], np.float32),
+                    (et.size, 1))]
+    cones = [np.tile(np.asarray([[-1.0, 0.0]], np.float32), (et.size, 1))]
 
-    axes, cones = [[0.0, 0.0, -1.0]] * len(kinds), \
-        [[-1.0, 0.0]] * len(kinds)
     for a in (analytic or []):
-        kinds.append(a["kind"])
-        tris.append(-1)
-        positions.append(np.asarray(a.get("position",
-                                          a.get("direction", (0, 1, 0))),
-                                    np.float32))
-        radii.append(a.get("radius", 0.0))
+        kinds.append(np.asarray([a["kind"]], np.int32))
+        tris.append(np.asarray([-1], np.int32))
+        positions.append(np.asarray(a.get(
+            "position", a.get("direction", (0, 1, 0))), np.float32)[None])
+        radii.append(np.asarray([a.get("radius", 0.0)], np.float32))
         rad = np.asarray(a["radiance"], np.float32)
-        radiances.append(rad)
+        radiances.append(rad[None])
         lum = float(np.float32(0.2126) * rad[0] + np.float32(0.7152) * rad[1]
                     + np.float32(0.0722) * rad[2])
         if a["kind"] == LIGHT_SPOT:
@@ -122,35 +121,33 @@ def build_light_table(host_scene: dict, analytic: Optional[list] = None,
             soft = float(np.clip(1.0 - inner / max(outer, 1e-6), 0, 1))
             ax = np.asarray(a.get("axis", (0, 0, -1)), np.float32)
             ax = ax / max(np.linalg.norm(ax), 1e-9)
-            axes.append(ax.tolist())
-            cones.append([float(np.cos(outer)), soft])
+            axis, cone = ax.tolist(), [float(np.cos(outer)), soft]
         else:
-            axes.append([0.0, 0.0, -1.0])
-            cones.append([-1.0, 0.0])
+            axis, cone = [0.0, 0.0, -1.0], [-1.0, 0.0]
+        axes.append(np.asarray([axis], np.float32))
+        cones.append(np.asarray([cone], np.float32))
         if a["kind"] == LIGHT_POINT:
-            powers.append(lum * 4.0 * np.pi)
+            power = lum * 4.0 * np.pi
         elif a["kind"] == LIGHT_SPOT:
-            powers.append(lum * 4.0 * np.pi * float(shaping_flux_factor(
-                cones[-1][0], cones[-1][1])))
+            power = lum * 4.0 * np.pi * float(shaping_flux_factor(*cone))
         elif a["kind"] == LIGHT_SPHERE:
             r = a.get("radius", 0.1)
-            powers.append(lum * 4.0 * np.pi * np.pi * r * r)
+            power = lum * 4.0 * np.pi * np.pi * r * r
         else:  # directional handled by env-map bake in the reference
-            powers.append(lum)
+            power = lum
+        powers.append(np.asarray([power], np.float64))
 
-    if not kinds:
+    if et.size + len(analytic or []) == 0:
         return None
-    power = np.asarray(powers, np.float32)
+    power = np.concatenate(powers).astype(np.float32)
     cdf = np.cumsum(power)
     total = float(cdf[-1])
     cdf = (cdf / max(total, 1e-20)).astype(np.float32)
-    pack = _build_pack(np.asarray(kinds, np.int32), np.asarray(tris, np.int32),
-                       np.stack(positions).astype(np.float32),
-                       np.asarray(radii, np.float32),
-                       np.stack(radiances).astype(np.float32),
+    pack = _build_pack(np.concatenate(kinds), np.concatenate(tris),
+                       np.concatenate(positions), np.concatenate(radii),
+                       np.concatenate(radiances),
                        np.asarray(pos, np.float32), np.asarray(idx, np.int64),
-                       power, np.asarray(axes, np.float32),
-                       np.asarray(cones, np.float32))
+                       power, np.concatenate(axes), np.concatenate(cones))
     return LightTable(pack=torch.as_tensor(pack, device=device),
                       cdf=torch.as_tensor(cdf, device=device),
                       total_power=float(np.float32(total)))

@@ -3,8 +3,12 @@
 The "programmer-art" scene: a ground plane, boxes and spheres with
 materials that exercise every BSDF lobe (diffuse, rough metal, mirror,
 glass, rough glass, emissive panel). Host-side numpy, identical to the
-reference's builder so both packages render the same tables. The
-Bistro-class `build_city` comes with the large-scene trace paths.
+reference's builder so both packages render the same tables.
+
+`build_city`, the Bistro-class stress scene, builds the same geometry as
+the reference's for the same blocks, seed and subdivisions. One block
+(7,808 triangles) takes the dense trace tier, 2-3 blocks the single BVH8,
+4 and more (the default 10: 404,186 triangles) the two-level BVH8.
 """
 from __future__ import annotations
 
@@ -164,3 +168,109 @@ def default_camera(width: int, height: int):
     import math
     return look_at(width, height, eye=(4.2, 2.6, 4.6),
                    target=(0.0, 0.7, 0.0), fov_y=math.radians(55.0))
+
+
+def build_city(blocks: int = 10, seed: int = 7,
+               subdivisions: int = 3) -> "SceneBuilder":
+    """Bistro-class stress scene (BASELINE config 5 fixture): a city
+    block grid — buildings with window insets, street props, spheres of
+    varied materials, emissive signs/streetlights. The default (10 x 10
+    blocks) has 404,186 triangles and 21 materials."""
+    rng = np.random.default_rng(seed)
+    sb = SceneBuilder()
+
+    asphalt = sb.add_material(base_color=(0.08, 0.08, 0.09),
+                              roughness=0.9)
+    sidewalk = sb.add_material(base_color=(0.45, 0.44, 0.42),
+                               roughness=0.95)
+    glass = sb.add_material(base_color=(0.9, 0.95, 0.97), roughness=0.0,
+                            transmission=1.0, ior=1.5)
+    metal = sb.add_material(base_color=(0.9, 0.9, 0.92), metalness=1.0,
+                            roughness=0.15)
+    facades = [sb.add_material(
+        base_color=tuple(0.25 + 0.6 * rng.random(3)),
+        roughness=float(0.5 + 0.45 * rng.random())) for _ in range(12)]
+    signs = [sb.add_material(base_color=(1, 1, 1),
+                             emissive=tuple(8.0 * rng.random(3) + 1.0))
+             for _ in range(4)]
+    lamp = sb.add_material(base_color=(1, 1, 1),
+                           emissive=(14.0, 12.0, 9.0))
+
+    box = sb.add_mesh(make_box((0.5, 0.5, 0.5)))
+    # dense sphere for triangle count (subdiv 3 = 1280 tris)
+    sphere = sb.add_mesh(make_icosphere(0.5, subdivisions + 1))
+    sphere_lo = sb.add_mesh(make_icosphere(0.5, subdivisions))
+    quad = sb.add_mesh(make_quad((1.0, 1.0)))
+
+    # ground
+    g = trs((0, -0.05, 0), 1.0, 0.0)
+    g[0, 0] = g[2, 2] = blocks * 14.0
+    g[1, 1] = 0.1
+    sb.add_instance(box, g, asphalt)
+
+    step = 12.0
+    half = blocks * step * 0.5
+    for bx in range(blocks):
+        for bz in range(blocks):
+            cx = bx * step - half + step * 0.5
+            cz = bz * step - half + step * 0.5
+            # building: stacked boxes with window-grid insets
+            w = 4.0 + 4.0 * rng.random()
+            d = 4.0 + 4.0 * rng.random()
+            h = 4.0 + 14.0 * rng.random()
+            fm = facades[rng.integers(len(facades))]
+            m = trs((cx, h * 0.5, cz), 1.0, float(rng.random()))
+            m[0, :3] *= w
+            m[1, :3] *= h
+            m[2, :3] *= d
+            sb.add_instance(box, m, fm)
+            # window panes (glass quads on two faces)
+            floors = max(int(h // 1.6), 1)
+            cols = max(int(w // 1.2), 1)
+            for f in range(min(floors, 9)):
+                for c in range(min(cols, 6)):
+                    wx = cx - w * 0.4 + (c + 0.5) * w * 0.8 / max(cols, 1)
+                    wy = 0.8 + f * (h - 1.2) / max(floors, 1)
+                    wm = trs((wx, wy, cz + d * 0.501), 0.45, 0.0)
+                    sb.add_instance(quad, wm, glass)
+            # roof prop (metal sphere or emissive sign)
+            if rng.random() < 0.3:
+                sb.add_instance(
+                    sphere_lo, trs((cx, h + 0.6, cz), 1.2, 0.0), metal)
+            if rng.random() < 0.35:
+                sm = trs((cx, h + 0.4, cz - d * 0.5), 1.0, 0.0)
+                sb.add_instance(quad, sm,
+                                signs[rng.integers(len(signs))])
+            # street: lamp + props
+            if (bx + bz) % 2 == 0:
+                lx = cx + step * 0.45
+                sb.add_instance(
+                    sphere_lo, trs((lx, 3.4, cz), 0.35, 0.0), lamp)
+                pm = trs((lx, 1.7, cz), 1.0, 0.0)
+                pm[0, :3] *= 0.12
+                pm[1, :3] *= 3.4
+                pm[2, :3] *= 0.12
+                sb.add_instance(box, pm, metal)
+            # a detailed sphere every few blocks (tri density)
+            if rng.random() < 0.5:
+                mat = [metal, glass, fm][rng.integers(3)]
+                sb.add_instance(
+                    sphere,
+                    trs((cx + 3.0, 0.8, cz + 3.0),
+                        float(0.8 + rng.random()), 0.0), mat)
+            # sidewalk slab
+            sm2 = trs((cx, 0.02, cz), 1.0, 0.0)
+            sm2[0, :3] *= step * 0.9
+            sm2[1, :3] *= 0.08
+            sm2[2, :3] *= step * 0.9
+            sb.add_instance(box, sm2, sidewalk)
+    return sb
+
+
+def city_camera(width: int, height: int, blocks: int = 10):
+    from .camera import look_at
+    import math
+    half = blocks * 6.0
+    return look_at(width, height,
+                   eye=(half * 0.8, 14.0, half * 0.9),
+                   target=(0.0, 2.0, 0.0), fov_y=math.radians(60.0))

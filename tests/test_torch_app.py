@@ -29,6 +29,19 @@ def test_cli_renders_on_cpu(tmp_path):
     assert int(np.load(ckpt)["sample_index"]) == 4
 
 
+def test_cli_renders_city_on_cpu(tmp_path):
+    """--scene city: the default 404,186-triangle city through the
+    two-level BVH8 tier (about 8 s on one CPU core, most of it the build)."""
+    npy = str(tmp_path / "c.npy")
+    args = ["--scene", "city", "--width", "8", "--height", "6", "--spp",
+            "1", "--device", "cpu", "--max-bounces", "2", "--output",
+            str(tmp_path / "c.png"), "--dump-npy", npy, "--quiet"]
+    assert cli.main(args) == 0
+    hdr = np.load(npy)
+    assert hdr.shape == (6, 8, 3)
+    assert np.isfinite(hdr).all() and hdr.mean() > 0.0
+
+
 def test_png_round_trip(tmp_path):
     img = np.random.RandomState(0).rand(9, 13, 3)
     path = str(tmp_path / "x.png")

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
-from rtxpt_tpu_torch.ops import cuda_lib, gather, mt_dense
+from rtxpt_tpu_torch.ops import bvh2l, cuda_lib, gather, mt_dense
+from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
 from rtxpt_tpu_torch.pt import shade_kernel as SK
 from rtxpt_tpu_torch.scene import envmap as EM
 from rtxpt_tpu_torch.scene import procedural
@@ -101,12 +102,97 @@ def test_shade_kernel_matches_plain(dev):
 
 
 def test_render_launches_every_kernel_and_matches_cpu(dev):
+    """Programmer-art takes the dense tier: K1-K4, and neither K5 nor K6."""
     cuda_lib.reset_launch_counts()
     gpu = _renderer(dev, max_bounces=3).render(32, 24, 2).cpu()
     counts = cuda_lib.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    dense_path = ("mt_dense", "gather_rows", "gather_rows_interp",
+                  "shade_nee")
+    assert all(counts[k] > 0 for k in dense_path), counts
+    assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     cpu = _renderer("cpu", max_bounces=3).render(32, 24, 2)
     torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-3)
+
+
+def _city_rays(n, seed, blocks):
+    r = np.random.RandomState(seed)
+    half = blocks * 3.0
+    o = np.stack([r.uniform(-half, half, n), r.uniform(0.5, 12.0, n),
+                  r.uniform(-half, half, n)], -1).astype(np.float32)
+    d = r.normal(size=(n, 3))
+    d[:, 1] -= 0.5
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def _same_hits(got, ref, active, any_hit):
+    (t, slot, uv), (tp, sp, uvp) = got, ref
+    if any_hit:
+        assert ((slot >= 0) == (sp >= 0))[active].float().mean() >= 0.9999
+        return
+    same = slot == sp
+    assert same[active].float().mean() >= 0.9999
+    torch.testing.assert_close(t[same], tp[same], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(uv[same], uvp[same], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh8_kernels_match_plain(dev, any_hit):
+    """K5 on a single BVH8 (city, 3 blocks) and K6 on the stacked tables
+    of a two-level build (city, 6 blocks, 8+ subtrees) with a per-ray
+    subtree index, against their plain versions on the same tensors."""
+    n = 50000
+    r = np.random.RandomState(2)
+    host = procedural.build_city(blocks=3).finish()
+    from rtxpt_tpu_torch.ops import bvh as bvh_mod
+    b8 = bvh_mod.collapse_bvh8(
+        bvh_mod.build_bvh(host["positions"], host["indices"]),
+        host["positions"], host["indices"], device=dev)
+    o, d = (torch.as_tensor(a, device=dev) for a in _city_rays(n, 3, 3))
+    t_max = torch.as_tensor(np.where(r.rand(n) < 0.5, 1e30,
+                                     r.uniform(1, 20, n)).astype(np.float32),
+                            device=dev)
+    act = torch.as_tensor(r.rand(n) < 0.9, device=dev)
+    args = (b8.table, b8.leaf_omm, o, d, t_max, act)
+    got = T8.trace_bvh8(*args, leaf_size=16, any_hit=any_hit)
+    ref = T8.trace_bvh8_plain(*args, leaf_size=16, any_hit=any_hit)
+    _same_hits(got, ref, act, any_hit)
+
+    host = procedural.build_city(blocks=6).finish()
+    tl = bvh2l.build_two_level(host["positions"], host["indices"],
+                               device=dev)
+    assert tl.num_subtrees >= 8
+    o, d = (torch.as_tensor(a, device=dev) for a in _city_rays(n, 4, 6))
+    sub = torch.as_tensor(r.randint(0, tl.num_subtrees, n).astype(np.int32),
+                          device=dev)
+    args = (tl.sub_tables, tl.sub_leaf_omm, sub, o, d, t_max, act)
+    got = T8.trace_bvh8_sub(*args, leaf_size=16, any_hit=any_hit)
+    ref = T8.trace_bvh8_plain(tl.sub_tables, tl.sub_leaf_omm, o, d, t_max,
+                              act, sub, leaf_size=16, any_hit=any_hit)
+    _same_hits(got, ref, act, any_hit)
+
+
+def test_city_render_launches_k5_k6_and_matches_cpu(dev):
+    """A two-level city (6 blocks, 8+ subtrees) renders through the K6
+    probe and the K5 sweep, and agrees with the CPU render."""
+    host = procedural.build_city(blocks=6).finish()
+    cfg = reference_config(max_bounces=3, nee_distant_samples=1,
+                           nee_local_samples=1)
+
+    def render(device):
+        r = Renderer(host, procedural.city_camera(48, 32, 6), cfg,
+                     env_radiance=EM.bake_procedural_sky(height=32),
+                     device=device)
+        return r.render(48, 32, 2)
+
+    cuda_lib.reset_launch_counts()
+    gpu = render(dev).cpu()
+    counts = cuda_lib.launch_counts()
+    for k in ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
+              "gather_rows_interp", "shade_nee"):
+        assert counts[k] > 0, counts
+    assert counts["mt_dense"] == 0
+    torch.testing.assert_close(gpu, render("cpu"), rtol=1e-3, atol=1e-3)
 
 
 def test_wrappers_reject_bad_arguments(dev):

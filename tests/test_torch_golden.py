@@ -23,7 +23,8 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "..", "assets",
 def test_port_cpu_render_matches_fast_golden():
     r = Renderer(procedural.build_programmer_art().finish(),
                  procedural.default_camera(64, 48), reference_config(),
-                 env_radiance=EM.bake_procedural_sky(height=64))
+                 env_radiance=EM.bake_procedural_sky(height=64),
+                 device="cpu")
     img = r.tonemapped(r.render(64, 48, 2)).numpy()
     assert img.shape == (48, 64, 3) and np.isfinite(img).all()
     m = IM.compare(img, IM.load_png(GOLDEN))

@@ -41,7 +41,8 @@ def _reference(monkeypatch):
 def _port():
     return Renderer(TP.build_programmer_art().finish(),
                     TP.default_camera(W, H), reference_config(max_bounces=3),
-                    env_radiance=TEM.bake_procedural_sky(height=32))
+                    env_radiance=TEM.bake_procedural_sky(height=32),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("spp", [1, 2])
@@ -56,7 +57,8 @@ def test_renderer_matches_reference(monkeypatch, spp):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=5e-5)
     shared = _port()
     shared.assets = interop.assets_from_reference(jr.scene, jr.dense,
-                                                  jr.env, jr.lights)
+                                                  jr.env, jr.lights,
+                                                  device="cpu")
     same_tables = shared.render(W, H, spp).numpy()
     np.testing.assert_allclose(same_tables, ref, rtol=2e-4, atol=5e-5)
     np.testing.assert_allclose(same_tables, got, rtol=1e-5, atol=1e-6)
@@ -101,7 +103,9 @@ def test_width_compaction_is_exact(spp):
     cfg = reference_config(max_bounces=3, nee_distant_samples=1,
                            nee_local_samples=1)
     assert w * h >= cfg.wavefront_compaction_min
-    on = Renderer(host, cam, cfg, env_radiance=env).render(w, h, spp)
+    on = Renderer(host, cam, cfg, env_radiance=env,
+                  device="cpu").render(w, h, spp)
     off = Renderer(host, cam, dataclasses.replace(
-        cfg, wavefront_compaction=False), env_radiance=env).render(w, h, spp)
+        cfg, wavefront_compaction=False), env_radiance=env,
+        device="cpu").render(w, h, spp)
     assert torch.equal(on, off)

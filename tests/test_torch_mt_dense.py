@@ -42,7 +42,7 @@ def test_closest_matches_reference_kernel_and_oracle(seed):
                              jnp.asarray(o), jnp.asarray(d))
     jk = JMT.trace_closest(JMT.build_dense(positions, indices),
                            jnp.asarray(o), jnp.asarray(d), interpret=True)
-    got = TMT.trace_closest(TMT.build_dense(positions, indices),
+    got = TMT.trace_closest(TMT.build_dense(positions, indices, device="cpu"),
                             torch.as_tensor(o), torch.as_tensor(d))
     rp, gp, kp = np.asarray(ref.prim), got.prim.numpy(), np.asarray(jk.prim)
     for other in (rp, kp):
@@ -63,7 +63,7 @@ def test_closest_matches_reference_kernel_and_oracle(seed):
 
 def test_anyhit_and_tmax():
     positions, indices = _random_scene(11)
-    dmt = TMT.build_dense(positions, indices)
+    dmt = TMT.build_dense(positions, indices, device="cpu")
     o, d = _random_rays(13)
     ref = bruteforce_closest(TriSoup.build(positions, indices),
                              jnp.asarray(o), jnp.asarray(d))
@@ -86,7 +86,7 @@ def test_anyhit_and_tmax():
 
 def test_active_mask_and_padding():
     positions, indices = _random_scene(17, n_tris=70)   # forces padding
-    dmt = TMT.build_dense(positions, indices)
+    dmt = TMT.build_dense(positions, indices, device="cpu")
     assert dmt.num_clusters == 2
     o, d = _random_rays(19, n=64)
     act = torch.as_tensor((np.arange(64) % 2) == 0)
@@ -99,7 +99,7 @@ def test_active_mask_and_padding():
 
 def test_plain_chunking_is_seamless(monkeypatch):
     positions, indices = _random_scene(23)
-    dmt = TMT.build_dense(positions, indices)
+    dmt = TMT.build_dense(positions, indices, device="cpu")
     o, d = _random_rays(29, n=300)
     whole = TMT.trace_closest(dmt, torch.as_tensor(o), torch.as_tensor(d))
     monkeypatch.setattr(TMT, "_PLAIN_CHUNK", 64)
@@ -113,7 +113,7 @@ def test_ties_go_to_the_lowest_slot():
     tri = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     positions = np.concatenate([tri, tri]).astype(np.float32)
     indices = np.array([[0, 1, 2], [3, 4, 5]], np.int32)
-    dmt = TMT.build_dense(positions, indices)
+    dmt = TMT.build_dense(positions, indices, device="cpu")
     o = torch.tensor([[0.2, 0.2, 1.0]])
     d = torch.tensor([[0.0, 0.0, -1.0]])
     t, slot = TMT.trace_dense(dmt.aabb_c, dmt.tri9,
@@ -124,10 +124,12 @@ def test_ties_go_to_the_lowest_slot():
 
 def test_dispatch_needs_dense_planes_and_counts_no_cpu_launch():
     positions, indices = _random_scene(31, n_tris=20)
-    dmt = TMT.build_dense(positions, indices)
+    dmt = TMT.build_dense(positions, indices, device="cpu")
     o, d = _random_rays(37, n=16)
     cuda_lib.reset_launch_counts()
-    traverse.trace_closest(dmt, torch.as_tensor(o), torch.as_tensor(d))
+    traverse.trace_closest(None, torch.as_tensor(o), torch.as_tensor(d),
+                           dense=dmt)
     assert cuda_lib.launch_counts()["mt_dense"] == 0
-    with pytest.raises(NotImplementedError):
+    # neither dense planes nor a BVH: no trace path
+    with pytest.raises(TypeError):
         traverse.trace_anyhit(None, torch.as_tensor(o), torch.as_tensor(d))

@@ -49,7 +49,7 @@ def test_scene_packs_exact(diffuse_only):
         positions=js.positions, indices=js.indices, vert_pack=js.vert_pack,
         tri_pack=js.tri_pack, tri_geom_pack=js.tri_geom_pack,
         mat_pack=js.mat_pack, material_ior=js.materials.ior,
-        volume_absorption=js.materials.volume_absorption)
+        volume_absorption=js.materials.volume_absorption, device="cpu")
     for field in ("positions", "indices", "vert_pack", "tri_pack",
                   "tri_geom_pack", "mat_pack", "mat_ior",
                   "volume_absorption"):
@@ -60,10 +60,12 @@ def test_scene_packs_exact(diffuse_only):
 def test_dense_tables_exact():
     host = TP.build_programmer_art().finish()
     jd = JMT.build_dense(host["positions"], host["indices"])
-    td = TMT.build_dense(host["positions"], host["indices"])
+    td = TMT.build_dense(host["positions"], host["indices"],
+                            device="cpu")
     via = interop.dense_from_arrays(aabb=jd.aabb, tri9=jd.tri9,
                                     center=jd.center,
-                                    num_clusters=jd.num_clusters)
+                                    num_clusters=jd.num_clusters,
+                                    device="cpu")
     assert td.num_clusters == via.num_clusters == 81
     for field in ("aabb", "tri9", "center"):
         assert torch.equal(getattr(td, field), getattr(via, field)), field
@@ -80,11 +82,11 @@ def test_sky_bake_matches(height):
 def test_env_tables_match():
     radiance = np.asarray(JEM.bake_procedural_sky(height=64))
     je = JEM.make_envmap(radiance)
-    te = TEM.make_envmap(radiance)
+    te = TEM.make_envmap(radiance, device="cpu")
     via = interop.env_from_arrays(
         radiance_quad=je.radiance_quad, alias_pack=je.alias_pack,
         height=je.height, width=je.width, intensity=je.intensity,
-        enabled=je.enabled)
+        enabled=je.enabled, device="cpu")
     assert (te.height, te.width) == (via.height, via.width) == (64, 128)
     np.testing.assert_allclose(_np(te.radiance_quad), _np(via.radiance_quad),
                                rtol=1e-6, atol=0)
@@ -96,9 +98,10 @@ def test_env_tables_match():
 def test_light_tables_match(analytic):
     host = TP.build_programmer_art().finish()
     jl = JLI.build_light_table(host, analytic)
-    tl = TLI.build_light_table(host, analytic)
+    tl = TLI.build_light_table(host, analytic, device="cpu")
     via = interop.lights_from_arrays(pack=jl.pack, cdf=jl.cdf,
-                                     total_power=jl.total_power)
+                                     total_power=jl.total_power,
+                                     device="cpu")
     np.testing.assert_allclose(_np(tl.pack), _np(via.pack), rtol=1e-6,
                                atol=0)
     np.testing.assert_allclose(_np(tl.cdf), _np(via.cdf), rtol=1e-6, atol=0)

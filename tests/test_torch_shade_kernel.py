@@ -96,9 +96,22 @@ def _planes(nd, nl, seed, min_rough=0.2):
     (1, 1, True, 0.0), (2, 2, True, 0.0), (2, 2, False, 2.0),
     (1, 0, False, 2.0), (0, 2, True, 2.0)])
 def test_plain_matches_reference_kernel(nd, nl, rr, firefly):
-    """Roughness 0 or >= 0.2 (GGX alpha >= 0.04), the range of the
-    programmer-art materials the reference's own test renders."""
-    planes = _planes(nd, nl, seed=10 * nd + nl)
+    """Roughness 0 or >= 0.3 (GGX alpha >= 0.09); the low-roughness test
+    below takes the range under it.
+
+    At roughness 0.2 (alpha 0.04) the bounded-VNDF half vector is already
+    ill-conditioned enough for rtol 2e-4 to fail on some hosts. Lane 296
+    of `_planes(2, 2, seed=22)` (roughness 0.2027, metallic 1, specular
+    transmission 0.5), evaluated with the plain version's formulas in
+    float64, has bs_pdf 25.40108281; the port gives 25.4039955 (+1.15e-4
+    relative) and XLA 25.3967514 (-1.71e-4): both float32 evaluations
+    sit ~1e-4 from the exact value, on opposite sides, and the port is
+    the nearer one, so neither implementation is at fault; one-ulp
+    differences of the hosts' sin/cos/sqrt are amplified ~2000x. Over the
+    five cases the largest |diff| / (atol + rtol |ref|) measured 1.42 at
+    min roughness 0.2, 0.52 at 0.25 and 0.29 at 0.3 (the direction rows
+    0.20 of their atol), so 0.3 holds the tolerance with a 3.4x margin."""
+    planes = _planes(nd, nl, seed=10 * nd + nl, min_rough=0.3)
     consts4 = np.array([firefly, 1.0, 1e-5, 0.002], np.float32)
     kw = dict(nee_distant=nd, nee_local=nl, rr=rr, max_bounces=6,
               max_diffuse_bounces=4, spec_rough_threshold=0.25,
@@ -118,7 +131,8 @@ def test_plain_matches_reference_kernel(nd, nl, rr, firefly):
 
 
 def test_plain_matches_reference_kernel_low_roughness():
-    """Roughness down to 0.05 (alpha 0.0025): the bounded-VNDF half
+    """Roughness down to 0.05 (alpha 0.0025), which covers the range
+    under the main test's 0.3: the bounded-VNDF half
     vector is ill-conditioned there, and one-ulp differences between
     XLA's and PyTorch's sin/cos grow to ~0.5% in the sampled pdf and
     direction (measured 4e-3 at alpha 0.008), hence rtol 1e-2 here."""

@@ -28,7 +28,7 @@ def scenes():
         positions=js.positions, indices=js.indices, vert_pack=js.vert_pack,
         tri_pack=js.tri_pack, tri_geom_pack=js.tri_geom_pack,
         mat_pack=js.mat_pack, material_ior=js.materials.ior,
-        volume_absorption=js.materials.volume_absorption)
+        volume_absorption=js.materials.volume_absorption, device="cpu")
     return js, ts
 
 
