@@ -69,17 +69,22 @@ def two_level_from_arrays(*, sub_tables, sub_leaf_tris, sub_leaf_omm,
                         leaf_size=int(leaf_size), rows=int(rows))
 
 
-def bvh_from_reference(bvh, device="cuda"):
-    """The port's BVH8 or BVH8TwoLevel from the reference's (any object
-    with those fields)."""
-    if hasattr(bvh, "sub_aabb"):
+def accel_from_reference(accel, device="cuda"):
+    """The port's DenseMT, BVH8 or BVH8TwoLevel from the reference's (any
+    object with those fields)."""
+    if hasattr(accel, "tri9"):
+        return dense_from_arrays(aabb=accel.aabb, tri9=accel.tri9,
+                                 center=accel.center,
+                                 num_clusters=accel.num_clusters,
+                                 device=device)
+    if hasattr(accel, "sub_aabb"):
         return two_level_from_arrays(
-            sub_tables=bvh.sub_tables, sub_leaf_tris=bvh.sub_leaf_tris,
-            sub_leaf_omm=bvh.sub_leaf_omm, sub_aabb=bvh.sub_aabb,
-            leaf_size=bvh.leaf_size, rows=bvh.rows, device=device)
-    return bvh8_from_arrays(table=bvh.table, leaf_tris=bvh.leaf_tris,
-                            leaf_omm=bvh.leaf_omm, leaf_size=bvh.leaf_size,
-                            num_nodes=bvh.num_nodes, device=device)
+            sub_tables=accel.sub_tables, sub_leaf_tris=accel.sub_leaf_tris,
+            sub_leaf_omm=accel.sub_leaf_omm, sub_aabb=accel.sub_aabb,
+            leaf_size=accel.leaf_size, rows=accel.rows, device=device)
+    return bvh8_from_arrays(table=accel.table, leaf_tris=accel.leaf_tris,
+                            leaf_omm=accel.leaf_omm, leaf_size=accel.leaf_size,
+                            num_nodes=accel.num_nodes, device=device)
 
 
 def env_from_arrays(*, radiance_quad, alias_pack, height: int, width: int,
@@ -98,11 +103,11 @@ def lights_from_arrays(*, pack, cdf, total_power,
                       total_power=float(np.asarray(total_power, np.float32)))
 
 
-def assets_from_reference(scene, dense, env, lights, bvh=None,
+def assets_from_reference(scene, accel, env, lights,
                           device="cuda") -> RenderAssets:
-    """RenderAssets from the reference's SceneArrays, DenseMT (or None),
-    EnvMap and LightTable objects, and optionally its BVH8 or BVH8TwoLevel
-    (any objects with those fields)."""
+    """RenderAssets from the reference's SceneArrays, trace structure
+    (DenseMT, BVH8 or BVH8TwoLevel), EnvMap and LightTable objects (any
+    objects with those fields)."""
     return RenderAssets(
         scene=scene_from_arrays(
             positions=scene.positions, indices=scene.indices,
@@ -118,7 +123,4 @@ def assets_from_reference(scene, dense, env, lights, bvh=None,
         lights=None if lights is None else lights_from_arrays(
             pack=lights.pack, cdf=lights.cdf,
             total_power=lights.total_power, device=device),
-        dense=None if dense is None else dense_from_arrays(
-            aabb=dense.aabb, tri9=dense.tri9, center=dense.center,
-            num_clusters=dense.num_clusters, device=device),
-        bvh=None if bvh is None else bvh_from_reference(bvh, device))
+        accel=accel_from_reference(accel, device))

@@ -62,16 +62,17 @@ def check_supported(host_scene: dict):
 
 
 def build_trace_structure(host_scene: dict, device):
-    """(dense, bvh) of the reference's tier for the scene's triangle count
-    (rtxpt_tpu/models/renderer.py:120-148); the other one is None."""
+    """The trace structure of the reference's tier for the scene's
+    triangle count (rtxpt_tpu/models/renderer.py:120-148): a DenseMT, a
+    BVH8 or a BVH8TwoLevel."""
     pos, idx = host_scene["positions"], host_scene["indices"]
     n_tris = idx.shape[0]
     if mt_dense.supported(n_tris):
-        return mt_dense.build_dense(pos, idx, device=device), None
+        return mt_dense.build_dense(pos, idx, device=device)
     if n_tris <= BVH8_MAX_TRIS:
-        return None, bvh_mod.collapse_bvh8(bvh_mod.build_bvh(pos, idx), pos,
-                                           idx, device=device)
-    return None, bvh2l.build_two_level(pos, idx, device=device)
+        return bvh_mod.collapse_bvh8(bvh_mod.build_bvh(pos, idx), pos, idx,
+                                     device=device)
+    return bvh2l.build_two_level(pos, idx, device=device)
 
 
 class Renderer:
@@ -91,11 +92,10 @@ class Renderer:
                                   device=self.device)
         self.lights = (LI.build_light_table(host_scene, device=self.device)
                        if self.cfg.use_emissive_lights else None)
-        self.dense, self.bvh = build_trace_structure(host_scene,
-                                                     self.device)
+        self.accel = build_trace_structure(host_scene, self.device)
         self.assets = integrator.RenderAssets(
             scene=self.scene, env=self.env, lights=self.lights,
-            dense=self.dense, bvh=self.bvh)
+            accel=self.accel)
         # accumulation state (resumable: buffer + index are the checkpoint)
         self.accum = None
         self.sample_index = 0

@@ -11,7 +11,7 @@ Host side (numpy), like the reference's BLAS builds:
     child AABBs (48 floats) and 8 child codes stored as exact float values
     (8 floats); a leaf row inlines up to `leaf_size` triangles as
     (p0, e1, e2). Rows are max(56, 9 * leaf_size) floats wide: 144 at the
-    default leaf size of 16.
+    renderer's leaf size, LEAF_SIZE = 16.
 
 The reference also packs the table into bf16 planes for its TPU kernel's
 matrix-unit gathers; the CUDA kernel reads the float32 rows directly, so
@@ -29,6 +29,7 @@ from .. import native
 
 LEAF_MAX = 31          # count bits in the leaf encoding
 EMPTY_LEAF = -1        # start=0, count=0
+LEAF_SIZE = 16         # triangles per BVH8 leaf row: rows of 9 * 16 floats
 STACK_DEPTH = 48       # K5's per-ray traversal stack (csrc/bvh8_trace.cu)
 CODE_LIMIT = 1 << 24   # child codes ride the table as exact f32 values
 
@@ -104,8 +105,8 @@ def node_tri_ranges(bvh: BVH2):
     return start, end
 
 
-def collapse_bvh8_np(bvh: BVH2, positions, indices, leaf_collapse: int = 16,
-                     tri_omm=None):
+def collapse_bvh8_np(bvh: BVH2, positions, indices,
+                     leaf_collapse: int = LEAF_SIZE, tri_omm=None):
     """Collapse a BVH2 into the unified table (host side) ->
     (table (R,W) f32, leaf_tris (R*ls,) i32, leaf_omm (R*ls,) i32,
     num_nodes). Subtrees of at most leaf_collapse triangles become single
@@ -238,12 +239,12 @@ def collapse_bvh8_np(bvh: BVH2, positions, indices, leaf_collapse: int = 16,
     return table, leaf_tris.reshape(-1), leaf_omm.reshape(-1), n_nodes
 
 
-def collapse_bvh8(bvh: BVH2, positions, indices, leaf_collapse: int = 16,
-                  tri_omm=None, device="cuda") -> BVH8:
-    """`collapse_bvh8_np`, uploaded to `device`."""
+def collapse_bvh8(bvh: BVH2, positions, indices, device="cuda") -> BVH8:
+    """`collapse_bvh8_np` at LEAF_SIZE with every opacity mask cell set
+    (no alpha-MASK scene is rendered yet), uploaded to `device`."""
     table, leaf_tris, leaf_omm, n_nodes = collapse_bvh8_np(
-        bvh, positions, indices, leaf_collapse, tri_omm)
+        bvh, positions, indices)
     return BVH8(table=torch.as_tensor(table, device=device),
                 leaf_tris=torch.as_tensor(leaf_tris, device=device),
                 leaf_omm=torch.as_tensor(leaf_omm, device=device),
-                leaf_size=leaf_collapse, num_nodes=n_nodes)
+                leaf_size=LEAF_SIZE, num_nodes=n_nodes)

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from . import traverse_bvh8 as T8
-from .bvh import LEAF_MAX, build_bvh, collapse_bvh8_np, node_tri_ranges
+from .bvh import (LEAF_MAX, LEAF_SIZE, build_bvh, collapse_bvh8_np,
+                  node_tri_ranges)
 from .intersect import Hit, safe_inv
 
 # the reference's subtree cap (4096 rows x 16 triangles / 3, sized there
@@ -52,15 +53,14 @@ class BVH8TwoLevel:
         return self.sub_aabb.shape[0]
 
 
-def build_two_level(positions, indices, *, leaf_size: int = 4,
-                    leaf_collapse: int = 16, tri_omm=None,
-                    cap_tris: int = CAP_TRIS,
+def build_two_level(positions, indices, *, cap_tris: int = CAP_TRIS,
                     device="cuda") -> BVH8TwoLevel:
     """Partition the scene along a cut of its SAH tree and build one BVH8
-    per subtree (host side), then upload the stacked tables."""
+    per subtree (host side, leaves of LEAF_SIZE triangles, every opacity
+    mask cell set), then upload the stacked tables."""
     positions = np.asarray(positions, np.float32)
     indices = np.asarray(indices, np.int32)
-    top = build_bvh(positions, indices, leaf_size=leaf_size)
+    top = build_bvh(positions, indices)
     ci = top.child_idx
     start, end = node_tri_ranges(top)
     order = top.order
@@ -91,10 +91,8 @@ def build_two_level(positions, indices, *, leaf_size: int = 4,
     for lo, hi in merged:
         tri_ids = order[lo:hi]
         sub_idx = indices[tri_ids]
-        sub_omm = None if tri_omm is None else np.asarray(tri_omm)[tri_ids]
         table, lt, lo_omm, _ = collapse_bvh8_np(
-            build_bvh(positions, sub_idx, leaf_size=leaf_size), positions,
-            sub_idx, leaf_collapse=leaf_collapse, tri_omm=sub_omm)
+            build_bvh(positions, sub_idx), positions, sub_idx)
         gl = np.where(lt >= 0, tri_ids[np.maximum(lt, 0)], -1)
         p = positions[sub_idx.reshape(-1)]
         subs.append((table, gl.astype(np.int32), lo_omm,
@@ -103,7 +101,7 @@ def build_two_level(positions, indices, *, leaf_size: int = 4,
     k = len(subs)
     s_rows = max(s[0].shape[0] for s in subs)
     width = subs[0][0].shape[1]
-    ls = leaf_collapse
+    ls = LEAF_SIZE
     tables = np.zeros((k, s_rows, width), np.float32)
     leaf_tris = np.full((k, s_rows * ls), -1, np.int32)
     leaf_omms = np.full((k, s_rows * ls), 0xFFFF, np.int32)

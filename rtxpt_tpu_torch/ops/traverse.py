@@ -1,8 +1,8 @@
 """Trace dispatch (counterpart of rtxpt_tpu/ops/traverse.py).
 
-In the reference's order: the dense tier (``ops/mt_dense.py``, K1) when
-the scene has one (at most 8,192 triangles); otherwise the acceleration
-structure decides: a `BVH8TwoLevel` (over 45,000 triangles) goes to
+The trace structure's type picks the path, in the reference's tier order:
+a `DenseMT` (at most 8,192 triangles) goes to the dense trace
+(``ops/mt_dense.py``, K1), a `BVH8TwoLevel` (over 45,000 triangles) to
 ``ops/bvh2l.py`` (K6 probe + K5 sweep), a single `BVH8` to K5
 (``ops/traverse_bvh8.py``), whose leaf slots map to triangle ids through
 the table's `leaf_tris`. The reference's instanced TLAS is not ported.
@@ -17,37 +17,34 @@ from .bvh import BVH8
 from .intersect import Hit
 
 
-def _require_bvh8(bvh):
-    if not isinstance(bvh, BVH8):
-        raise TypeError(f"no trace path for {type(bvh).__name__}")
+def _trace_bvh8(accel: BVH8, origins, dirs, t_max, active, any_hit):
+    o, d, tm, act = T8.prepare_rays(origins, dirs, t_max, active)
+    return T8.trace_bvh8(accel.table, accel.leaf_omm, o, d, tm, act,
+                         leaf_size=accel.leaf_size, any_hit=any_hit)
 
 
-def trace_closest(bvh, origins, dirs, t_max=1e30, active=None,
-                  dense=None) -> Hit:
+def trace_closest(accel, origins, dirs, t_max=1e30, active=None) -> Hit:
     """Closest-hit trace (Bridge::traceScatterRay equivalent); prim is the
     original scene triangle index."""
-    if dense is not None:
-        return mt_dense.trace_closest(dense, origins, dirs, t_max, active)
-    if isinstance(bvh, bvh2l.BVH8TwoLevel):
-        return bvh2l.trace_closest(bvh, origins, dirs, t_max, active)
-    _require_bvh8(bvh)
-    o, d, tm, act = T8.prepare_rays(origins, dirs, t_max, active)
-    t, slot, uv = T8.trace_bvh8(bvh.table, bvh.leaf_omm, o, d, tm, act,
-                                leaf_size=bvh.leaf_size, any_hit=False)
-    prim = torch.where(slot >= 0,
-                       bvh.leaf_tris[torch.clamp(slot, min=0)], -1)
-    return Hit(t, prim, uv)
+    if isinstance(accel, mt_dense.DenseMT):
+        return mt_dense.trace_closest(accel, origins, dirs, t_max, active)
+    if isinstance(accel, bvh2l.BVH8TwoLevel):
+        return bvh2l.trace_closest(accel, origins, dirs, t_max, active)
+    if isinstance(accel, BVH8):
+        t, slot, uv = _trace_bvh8(accel, origins, dirs, t_max, active, False)
+        prim = torch.where(slot >= 0,
+                           accel.leaf_tris[torch.clamp(slot, min=0)], -1)
+        return Hit(t, prim, uv)
+    raise TypeError(f"no trace path for {type(accel).__name__}")
 
 
-def trace_anyhit(bvh, origins, dirs, t_max=1e30, active=None, dense=None):
+def trace_anyhit(accel, origins, dirs, t_max=1e30, active=None):
     """Visibility trace (Bridge::traceVisibilityRay equivalent): True where
     occluded; inactive rays report unoccluded."""
-    if dense is not None:
-        return mt_dense.trace_anyhit(dense, origins, dirs, t_max, active)
-    if isinstance(bvh, bvh2l.BVH8TwoLevel):
-        return bvh2l.trace_anyhit(bvh, origins, dirs, t_max, active)
-    _require_bvh8(bvh)
-    o, d, tm, act = T8.prepare_rays(origins, dirs, t_max, active)
-    _, slot, _ = T8.trace_bvh8(bvh.table, bvh.leaf_omm, o, d, tm, act,
-                               leaf_size=bvh.leaf_size, any_hit=True)
-    return slot >= 0
+    if isinstance(accel, mt_dense.DenseMT):
+        return mt_dense.trace_anyhit(accel, origins, dirs, t_max, active)
+    if isinstance(accel, bvh2l.BVH8TwoLevel):
+        return bvh2l.trace_anyhit(accel, origins, dirs, t_max, active)
+    if isinstance(accel, BVH8):
+        return _trace_bvh8(accel, origins, dirs, t_max, active, True)[1] >= 0
+    raise TypeError(f"no trace path for {type(accel).__name__}")

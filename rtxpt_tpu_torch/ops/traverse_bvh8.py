@@ -44,7 +44,8 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
     the working set). table (R, W) or (K, S, W) f32; leaf_omm
     (R*leaf_size,) or (K, S*leaf_size) i32; sub (N,) i32 or None.
     Returns (t (N,) f32, slot (N,) i32, uv (N,2) f32). With `stats` a
-    dict, adds the node rows, leaf rows and leaf triangles visited."""
+    dict, adds the node rows, leaf rows and leaf triangles visited, and
+    the distinct node rows and leaf triangles among them."""
     dev = origins.device
     n = origins.shape[0]
     if sub is None:
@@ -73,6 +74,9 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
     sp = torch.ones(lane.shape, dtype=torch.int32, device=dev)
     ks = torch.arange(leaf_size, device=dev)
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
+    if stats is not None:
+        node_seen = torch.zeros(flat.shape[0], dtype=torch.bool, device=dev)
+        leaf_seen = torch.zeros(flat.shape[0], dtype=torch.int64, device=dev)
 
     def retire(m):
         idx = lane[m]
@@ -142,6 +146,9 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
             sp = torch.where(bp >= 0, 0, sp)
         if stats is not None:
             counts += torch.stack([node.sum(), is_leaf.sum(), kmask.sum()])
+            node_seen[(base + fetch)[node]] = True
+            leaf_seen[(base + fetch)[is_leaf]] = lcount[is_leaf].to(
+                torch.int64)
 
         done = sp == 0
         if bool(done.any()):
@@ -153,8 +160,11 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
     if lane.numel():                                   # cut by MAX_ITERS
         retire(torch.ones_like(lane, dtype=torch.bool))
     if stats is not None:
-        for key, c in zip(("node_rows", "leaf_rows", "leaf_tris"),
-                          counts.tolist()):
+        counts = counts.tolist() + [int(node_seen.sum()),
+                                    int(leaf_seen.sum())]
+        for key, c in zip(("node_rows", "leaf_rows", "leaf_tris",
+                           "distinct_node_rows", "distinct_leaf_tris"),
+                          counts):
             stats[key] = stats.get(key, 0) + c
     return t_out, slot_out, uv_out
 
@@ -236,7 +246,7 @@ def trace_bvh8_sub(tables, leaf_omm, sub, origins, dirs, t_max, active, *,
 def _require_width(width: int, leaf_size: int):
     """Rows hold max(56, 9*leaf_size) floats; the kernel reads node rows
     as 16-byte vectors, so the width must be a multiple of 4 (it is 144
-    at collapse_bvh8's default leaf size of 16)."""
+    at the builds' leaf size, bvh.LEAF_SIZE = 16)."""
     if not 1 <= leaf_size <= LEAF_MAX or width < max(56, 9 * leaf_size) \
             or width % 4:
         raise ValueError(f"table width {width} and leaf_size {leaf_size}: "

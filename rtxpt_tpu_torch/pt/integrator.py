@@ -53,8 +53,7 @@ class RenderAssets:
     scene: SceneArrays
     env: EM.EnvMap
     lights: Optional[LI.LightTable]
-    dense: object               # ops.mt_dense.DenseMT, or None
-    bvh: object = None          # ops.bvh.BVH8 / ops.bvh2l.BVH8TwoLevel
+    accel: object   # ops.mt_dense.DenseMT / ops.bvh.BVH8 / ops.bvh2l.BVH8TwoLevel
 
 
 class PathState(NamedTuple):
@@ -320,9 +319,8 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
         rays = c.rays + torch.stack([path.active.to(torch.float32).sum(),
                                      torch.zeros_like(c.rays[0])])
         hit = traverse.trace_closest(
-            assets.bvh, path.origin, path.direction,
-            t_max=mu.K_MAX_RAY_TRAVEL, active=path.active,
-            dense=assets.dense)
+            assets.accel, path.origin, path.direction,
+            t_max=mu.K_MAX_RAY_TRAVEL, active=path.active)
         is_hit = path.active & hit.valid
         is_miss = path.active & ~hit.valid
 

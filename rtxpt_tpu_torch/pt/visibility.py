@@ -12,5 +12,5 @@ from ..ops import traverse
 
 def trace_visibility(assets, origins, dirs, t_max=1e30, active=None):
     """True where the segment (0, t_max) is occluded."""
-    return traverse.trace_anyhit(assets.bvh, origins, dirs, t_max=t_max,
-                                 active=active, dense=assets.dense)
+    return traverse.trace_anyhit(assets.accel, origins, dirs, t_max=t_max,
+                                 active=active)

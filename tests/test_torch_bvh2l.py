@@ -51,7 +51,7 @@ def built(request):
     pos, idx = host["positions"], host["indices"]
     ref = JL.build_two_level(pos, idx, cap_tris=cap)
     own = TL.build_two_level(pos, idx, cap_tris=cap, device="cpu")
-    carried = interop.bvh_from_reference(ref, device="cpu")
+    carried = interop.accel_from_reference(ref, device="cpu")
     return scene, ref, {"own": own, "carried": carried}
 
 

@@ -55,14 +55,14 @@ def renderers(request):
 
 def test_tiers_match_reference(renderers):
     blocks, jr, port = renderers
-    assert jr.dense is None and port.dense is None
+    assert jr.dense is None
     if blocks == 3:
         assert type(jr.bvh).__name__ == "BVH8"
-        assert isinstance(port.bvh, BVH8)
+        assert isinstance(port.accel, BVH8)
     else:
         assert type(jr.bvh).__name__ == "BVH8TwoLevel"
-        assert isinstance(port.bvh, BVH8TwoLevel)
-        assert port.bvh.num_subtrees == jr.bvh.num_subtrees < 8
+        assert isinstance(port.accel, BVH8TwoLevel)
+        assert port.accel.num_subtrees == jr.bvh.num_subtrees < 8
 
 
 @pytest.mark.parametrize("spp", [1, 2])
@@ -78,7 +78,7 @@ def test_city_render_matches_reference(renderers, spp):
     if spp == 1:
         own = port.assets
         port.assets = interop.assets_from_reference(
-            jr.scene, None, jr.env, jr.lights, bvh=jr.bvh, device="cpu")
+            jr.scene, jr.bvh, jr.env, jr.lights, device="cpu")
         port.reset_accumulation()
         shared = port.render(W, H, spp).numpy()
         port.assets = own

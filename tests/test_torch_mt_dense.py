@@ -127,9 +127,8 @@ def test_dispatch_needs_dense_planes_and_counts_no_cpu_launch():
     dmt = TMT.build_dense(positions, indices, device="cpu")
     o, d = _random_rays(37, n=16)
     cuda_lib.reset_launch_counts()
-    traverse.trace_closest(None, torch.as_tensor(o), torch.as_tensor(d),
-                           dense=dmt)
+    traverse.trace_closest(dmt, torch.as_tensor(o), torch.as_tensor(d))
     assert cuda_lib.launch_counts()["mt_dense"] == 0
-    # neither dense planes nor a BVH: no trace path
+    # no trace structure: no trace path
     with pytest.raises(TypeError):
         traverse.trace_anyhit(None, torch.as_tensor(o), torch.as_tensor(d))

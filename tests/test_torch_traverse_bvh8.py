@@ -211,6 +211,10 @@ def test_cpu_takes_plain_version_and_counts_steps(city):
     assert stats["node_rows"] >= 256
     assert stats["leaf_rows"] <= stats["leaf_tris"] \
         <= 16 * stats["leaf_rows"]
+    # the root is one distinct row; no row is fetched fewer times than once
+    assert 1 <= stats["distinct_node_rows"] <= min(stats["node_rows"],
+                                                   bvh.num_nodes)
+    assert 0 < stats["distinct_leaf_tris"] <= stats["leaf_tris"]
 
 
 def test_other_devices_raise():

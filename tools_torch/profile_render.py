@@ -1,6 +1,8 @@
-"""Device-time breakdown of one reference-mode render on a CUDA GPU.
+"""Device-time breakdown of one reference-mode render of the PyTorch port
+(rtxpt_tpu_torch) on a CUDA GPU. A development tool, outside the package;
+from the repo root:
 
-    python -m rtxpt_tpu_torch.app.profile --scene city --width 1920 \\
+    python -m tools_torch.profile_render --scene city --width 1920 \\
         --height 1080 --spp 2
 
 Renders once to warm up, once more timed (host clock, ending in a device
@@ -13,6 +15,9 @@ of the kernels that ran inside the closest-hit and any-hit trace calls
 (K1/K5/K6 and the PyTorch code of the two-level probe and sweep) beside
 the device span of those calls, and the PyTorch kernels that take the
 most device time. Bench config: 6 bounces, 4 diffuse, NEE 1+1.
+
+The trace calls are timed by wrapping the port's `ops.traverse` functions
+in profiler ranges for the length of the run.
 """
 from __future__ import annotations
 
@@ -52,9 +57,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile: needs a CUDA GPU", file=sys.stderr)
         return 1
-    from ..models.renderer import Renderer, reference_config
-    from ..scene import envmap as EM
-    from .cli import load_scene
+    from rtxpt_tpu_torch.app.cli import load_scene
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.scene import envmap as EM
     args.diffuse_only = False
     host, cam = load_scene(args)
     cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
@@ -69,7 +74,7 @@ def main(argv=None) -> int:
         r.render(w, h, spp)
         torch.cuda.synchronize()
 
-    from ..ops import traverse
+    from rtxpt_tpu_torch.ops import traverse
     for fname in RANGES:
         def ranged(*a, _fn=getattr(traverse, fname), _name=fname, **kw):
             with torch.profiler.record_function(_name):
