@@ -26,9 +26,26 @@ its seconds):
      as one regenerating chunk, after a warm-up render, with the counters
      set to 0 just before, and require K2-K6 to have launched; hold a
      64x36 GPU render against the port's CPU render (PSNR > 40 dB);
-  6. print a JSON line describing the kernels (each kernel's numbers on
+  6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
+     + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
+     1920x1080: hold K4's FILL variant against its plain version on the
+     launch of the first FILL bounce of a frame and time both; after the
+     no-history and the history warm-up frames, time 3 frames with the
+     counters set to 0 just before, and require K2, K3, K4 FILL, K5 and
+     K6 to have launched and the frame to be finite and not black. The
+     same on programmer-art at 640x360 (the bench's realtime case),
+     requiring K1. Then the port on the card against the port on the CPU
+     (programmer-art 64x48, 3 frames, PSNR > 40 dB), and the estimator
+     oracle of tests/test_ref_vs_realtime.py on the card: the mean of 32
+     `ref-vs-realtime` frames at 48x32 against the port's 32-spp
+     reference render (median block error < 0.25, means within 10%);
+  7. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
+
+`python3 chip_smoke.py --only realtime` runs the build and the named
+phases alone (a development aid; the result line needs every phase), and
+`--ptxas FILE` writes nvcc's register and spill report to FILE.
 
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
@@ -57,6 +74,9 @@ KERNELS = {
                            "rtxpt_tpu/ops/gather_pallas.py:183"),
     "shade_nee": ("shade_nee", "rtxpt_tpu_torch/csrc/shade_kernel.cu",
                   "rtxpt_tpu/pt/shade_kernel.py:1049"),
+    "shade_nee_fill": ("shade_nee_fill",
+                       "rtxpt_tpu_torch/csrc/shade_kernel.cu",
+                       "rtxpt_tpu/pt/shade_kernel.py:1049"),
     "bvh8_trace": ("bvh8_trace", "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
                    "rtxpt_tpu/ops/traverse_pallas.py:279"),
     "bvh8_trace_sub": ("bvh8_trace_sub",
@@ -67,6 +87,10 @@ KERNELS = {
 BENCH_PATH = ("mt_dense", "gather_rows", "gather_rows_interp", "shade_nee")
 CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
              "gather_rows_interp", "shade_nee")
+RT_CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
+                "gather_rows_interp", "shade_nee_fill")
+RT_ART_PATH = ("mt_dense", "gather_rows", "gather_rows_interp",
+               "shade_nee_fill")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 # float operations of one unit of work (counted from the kernels' source)
@@ -74,6 +98,7 @@ SLAB_OPS = 25                  # one ray-box slab test
 NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
 TRI_OPS = 45                   # one Möller–Trumbore test
 SHADE_LANE_OPS = 2000          # K4 at NEE 1+1, an estimate from its source
+SHADE_NEE_OPS = 600            # each further NEE sample (its fused BSDF eval)
 PSNR_MIN, SMAPE_MAX = 40.0, 0.02            # cross-platform golden gate
 FAST_PSNR, FAST_SMAPE = 45.0, 0.01          # same-platform fast gate
 
@@ -123,6 +148,7 @@ class Capture:
                "gather_rows": "rtxpt_tpu_torch.ops.gather",
                "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
+               "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
                "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8"}
 
@@ -335,23 +361,19 @@ def check_surface_kernels(cap, label, lanes=None) -> dict:
            "gather_rows_interp": check_interp(
                cap.calls["gather_rows_interp"][0][0], label)}
     args, kw = cap.calls["shade_nee"][0]
-    err, ms, pms = check_shade(args, kw, label)
-    planes, n = args[0], args[0].shape[1]
-    rows_out = SK.out_layout(kw["nee_distant"], kw["nee_local"]).rows
-    b_ms, b_by = bound((planes.shape[0] + rows_out) * n * 4,
-                       n * SHADE_LANE_OPS)
-    out["shade_nee"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    out["shade_nee"] = check_shade(args, kw, label)
     return out
 
 
-def check_shade(args, kw, label="bench"):
-    """K4 against its plain version: lobe and flags equal on >= 99.99% of
-    lanes, the rest within rtol 2e-4 / atol 2e-5 on those lanes."""
+def check_shade(args, kw, label="bench", fill=False) -> dict:
+    """K4 (fill: its FILL variant) against its plain version: lobe and
+    flags equal on >= 99.99% of lanes, the rest within rtol 2e-4 / atol
+    2e-5 on those lanes (FILL: max |diff| < 1e-5); both timed."""
     from rtxpt_tpu_torch.pt import shade_kernel as SK
-    got = SK.shade_nee(*args, **kw)
-    ref = SK.shade_nee_plain(*args, **kw)
-    L = SK.out_layout(kw["nee_distant"], kw["nee_local"])
+    kernel = SK.shade_nee_fill if fill else SK.shade_nee
+    got = kernel(*args, **kw)
+    ref = SK.shade_nee_plain(*args, fill=fill, **kw)
+    L = SK.out_layout(kw["nee_distant"], kw["nee_local"], fill)
     flags = ["lobe", "scatter_valid", "will_scatter", "rr_kill",
              "non_delta_scatter"] + [f"nee_need{i}" for i in range(
                  kw["nee_distant"] + kw["nee_local"])]
@@ -360,15 +382,24 @@ def check_shade(args, kw, label="bench"):
     agree = float(same.float().mean())
     err = float((got[:, same] - ref[:, same]).abs().max())
     close = torch.allclose(got[:, same], ref[:, same], rtol=2e-4, atol=2e-5)
-    what = f"K4 {label} NEE {kw['nee_distant']}+{kw['nee_local']}"
+    what = f"K4{' FILL' if fill else ''} {label} NEE " \
+        f"{kw['nee_distant']}+{kw['nee_local']}"
     print(f"{what}, {got.shape[1]} lanes: lobe/flags equal on "
           f"{agree:.6%}, max |diff| {err:.3g}")
     require(agree >= 0.9999, f"{what}: lobe/flag agreement {agree}")
     require(close, f"{what}: outside rtol 2e-4 / atol 2e-5")
-    ms = time_ms(lambda: SK.shade_nee(*args, **kw), 20)
-    pms = time_ms(lambda: SK.shade_nee_plain(*args, **kw), 5)
-    print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms")
-    return err, ms, pms
+    if fill:
+        require(err < 1e-5, f"{what}: max |diff| {err} >= 1e-5")
+    ms = time_ms(lambda: kernel(*args, **kw), 20)
+    pms = time_ms(lambda: SK.shade_nee_plain(*args, fill=fill, **kw), 5)
+    planes, n = args[0], args[0].shape[1]
+    ops = n * (SHADE_LANE_OPS + SHADE_NEE_OPS
+               * (kw["nee_distant"] + kw["nee_local"] - 2))
+    b_ms, b_by = bound((planes.shape[0] + L.rows) * n * 4, ops)
+    print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {planes.shape[0]} + {L.rows} rows)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def render(w, h, spp, device, cfg=None, env_height=64):
@@ -503,7 +534,12 @@ def check_bvh8(calls, label, stacked):
     return agree, lanes, err, ms, pms, nbytes, ops, empty, traffic
 
 
-def city(results: dict, card: str) -> dict:
+def build_city():
+    from rtxpt_tpu_torch.scene import procedural
+    return procedural.build_city().finish()
+
+
+def city(results: dict, card: str, host) -> dict:
     """The city phase (5.); returns the launch counts of its render."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.ops import bvh2l, cuda_lib
@@ -514,7 +550,6 @@ def city(results: dict, card: str) -> dict:
                            nee_distant_samples=1, nee_local_samples=1)
     env = EM.bake_procedural_sky(height=64)
     t0 = time.perf_counter()
-    host = procedural.build_city().finish()
     r = Renderer(host, procedural.city_camera(w, h), cfg, env_radiance=env,
                  device="cuda")
     torch.cuda.synchronize()
@@ -603,6 +638,131 @@ def city(results: dict, card: str) -> dict:
     return {name: counts[KERNELS[name][0]] for name in KERNELS}
 
 
+def realtime_frames(r, w, h, label, card, path, warmups=2,
+                    frames=3) -> dict:
+    """`warmups` frames (the no-history and the history variant: 2 from a
+    new renderer), then `frames` timed frames with the launch counters set
+    to 0 just before, each ending in a device synchronize; requires the
+    kernels of `path` to have launched and the last frame to be finite
+    and not black. Returns the counts."""
+    from rtxpt_tpu_torch.ops import cuda_lib
+    for _ in range(warmups):
+        r.render_frame(w, h)
+        torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    walls = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        img = r.render_frame(w, h)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = cuda_lib.launch_counts()
+    out = img.cpu().numpy()
+    require(out.shape == (h, w, 3) and np.isfinite(out).all()
+            and out.mean() > 0.0, f"realtime {label}: bad frame")
+    ms = [x * 1e3 for x in walls]
+    print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
+          f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms) on {card}; "
+          f"launches over {frames} frames {counts}", flush=True)
+    for name in path:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the realtime {label} path")
+    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+
+
+def realtime(results: dict, card: str, host_city) -> dict:
+    """The realtime phase (6.); returns the launch counts of its timed
+    frames by path."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
+                                                 reference_config)
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import image as IM
+    launches = {}
+    # ---- the city at 1920x1080: K4 FILL on the first FILL bounce, then
+    # the timed frames
+    w, h = 1920, 1080
+    t0 = time.perf_counter()
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h),
+                         device="cuda")
+    torch.cuda.synchronize()
+    print(f"realtime city: renderer built in {time.perf_counter() - t0:.2f}"
+          " s", flush=True)
+    with Capture({"shade_nee_fill": 1}) as cap:
+        r.render_frame(w, h)
+        torch.cuda.synchronize()
+    require(cap.calls["shade_nee_fill"], "realtime city: no FILL launch")
+    args, kw = cap.calls["shade_nee_fill"][0]
+    require(args[0].shape[1] == w * h, "realtime city: the first FILL "
+            f"bounce has {args[0].shape[1]} lanes, not {w * h}")
+    results["realtime_city"]["shade_nee_fill"] = check_shade(
+        args, kw, "realtime city", fill=True)
+    del cap, args
+    # the captured frame was the no-history warm-up
+    launches["realtime_city"] = realtime_frames(r, w, h, "city", card,
+                                                RT_CITY_PATH, warmups=1)
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- programmer-art at 640x360 (the bench's realtime case)
+    host = procedural.build_programmer_art().finish()
+    w, h = 640, 360
+    r = RealtimeRenderer(host, procedural.default_camera(w, h),
+                         device="cuda")
+    with Capture({"shade_nee_fill": 1}) as cap:
+        r.render_frame(w, h)
+        torch.cuda.synchronize()
+    results["realtime_360p"]["shade_nee_fill"] = check_shade(
+        *cap.calls["shade_nee_fill"][0], "realtime 360p", fill=True)
+    del cap
+    launches["realtime_360p"] = realtime_frames(r, w, h, "programmer-art",
+                                                card, RT_ART_PATH, warmups=1)
+
+    # ---- the port on the card against the port on the CPU
+    imgs = []
+    for device in ("cuda", "cpu"):
+        rs = RealtimeRenderer(host, procedural.default_camera(64, 48),
+                              device=device)
+        for _ in range(3):
+            img = rs.render_frame(64, 48)
+        imgs.append(rs.tonemapped(img).cpu().numpy())
+    require(np.isfinite(imgs[0]).all(), "realtime 64x48: non-finite frame")
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"realtime GPU vs CPU (plain) 64x48, frame 3: PSNR "
+          f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}", flush=True)
+    require(m["psnr"] > PSNR_MIN, f"realtime GPU vs CPU: {m}")
+
+    # ---- the estimator oracle (tests/test_ref_vs_realtime.py) on the card
+    w, h, n = 48, 32, 32
+    cam = procedural.default_camera(w, h)
+    env = EM.bake_procedural_sky(height=32, sun_radiance=(40.0, 38.0, 33.0))
+    common = dict(max_bounces=4, max_diffuse_bounces=3,
+                  nee_distant_samples=1, nee_local_samples=1,
+                  enable_russian_roulette=False)
+    ref = Renderer(host, cam, reference_config(**common), env_radiance=env,
+                   device="cuda").render(w, h, n, jitter_aa=False)
+    rt = RealtimeRenderer(host, cam, realtime_config(
+        use_restir_di=False, use_restir_gi=False, denoiser_enabled=False,
+        realtime_noise=False, use_stable_planes=True, **common),
+        env_radiance=env, device="cuda")
+    acc = torch.zeros((h, w, 3), device="cuda")
+    for i in range(n):
+        rt.frame_index = i
+        acc += rt.render_frame(w, h, denoise=False, taa=False)
+    ref, rt_img = ref.cpu().numpy(), (acc / n).cpu().numpy()
+    blocks = lambda a: a.reshape(h // 8, 8, w // 8, 8, 3).mean((1, 3, 4))
+    b_ref, b_rt = blocks(ref), blocks(rt_img)
+    med = float(np.median(np.abs(b_ref - b_rt)
+                          / (0.5 * (b_ref + b_rt) + 5e-2)))
+    rel_mean = abs(ref.mean() - rt_img.mean()) / max(ref.mean(),
+                                                     rt_img.mean())
+    print(f"ref-vs-realtime {w}x{h}, {n} frames vs {n} spp: median block "
+          f"error {med:.4f} (< 0.25), means {ref.mean():.5f} / "
+          f"{rt_img.mean():.5f} ({rel_mean:.3%}, < 10%)", flush=True)
+    require(med < 0.25 and rel_mean < 0.10, "ref-vs-realtime oracle failed")
+    return launches
+
+
 def phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -610,7 +770,15 @@ def phase(name, fn, *args):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser("chip_smoke")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases (kernels, goldens, bench, "
+                    "city, realtime): a development run, no result line")
+    ap.add_argument("--ptxas", default=None,
+                    help="write nvcc's -Xptxas=-v report to this file")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -624,16 +792,40 @@ def main() -> int:
 
     from rtxpt_tpu_torch.ops import cuda_lib
     t0 = time.time()
+    if args.ptxas:
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cuda_lib.build(verbose=True)
+        with open(args.ptxas, "w") as f:
+            f.write(buf.getvalue())
     cuda_lib.lib()
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
           f"({cuda_lib.build()})", flush=True)
 
     # each path's kernel checks, {path: {kernel name: result}}
-    results = {"bench": {}, "city": {}}
-    phase("kernels K1-K4", check_kernels, results)
-    phase("goldens", check_goldens)
-    launches = {"bench": phase("bench", bench, card),
-                "city": phase("city", city, results, card)}
+    results = {"bench": {}, "city": {}, "realtime_city": {},
+               "realtime_360p": {}}
+    only = None if args.only is None else set(args.only.split(","))
+    run = lambda name: only is None or name in only
+    launches = {}
+    if run("kernels"):
+        phase("kernels K1-K4", check_kernels, results)
+    if run("goldens"):
+        phase("goldens", check_goldens)
+    if run("bench"):
+        launches["bench"] = phase("bench", bench, card)
+    host_city = build_city() if run("city") or run("realtime") else None
+    if run("city"):
+        launches["city"] = phase("city", city, results, card, host_city)
+    if run("realtime"):
+        launches.update(phase("realtime", realtime, results, card,
+                              host_city))
+    if only is not None:
+        print(f"phases {sorted(only)} passed (development run: no result "
+              "line)")
+        return 0
     kernels = []
     for name, (_, src, rep) in KERNELS.items():
         # the top-level numbers are those of the first path that checks

@@ -52,6 +52,11 @@ def luminance(rgb):
     return 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
 
 
+def reflect(i, n):
+    """HLSL reflect: i - 2*dot(i,n)*n (i points toward the surface)."""
+    return i - 2.0 * dot(i, n) * n
+
+
 def perp_stark(u):
     """A vector perpendicular to u (Stark 2009; MathHelpers.hlsli)."""
     a = torch.abs(u)
@@ -75,6 +80,34 @@ def sample_disk_concentric(u):
     d = r[..., None] * torch.stack([torch.cos(phi), torch.sin(phi)], dim=-1)
     zero = (ux == 0.0) & (uy == 0.0)
     return torch.where(zero[..., None], u, d)
+
+
+def sample_triangle_uniform(u):
+    """Uniform barycentrics via the sqrt parameterization: (b0, b1, b2)."""
+    su = torch.sqrt(u[..., 0])
+    b1 = 1.0 - su
+    b2 = u[..., 1] * su
+    return torch.stack([1.0 - b1 - b2, b1, b2], dim=-1)
+
+
+def _oct_wrap(v):
+    return (1.0 - torch.abs(v.flip(-1))) * torch.where(v >= 0.0, 1.0, -1.0)
+
+
+def encode_oct(n):
+    """Octahedral encoding of a unit vector into [0,1]^2 (Utils.hlsli:56-77)."""
+    n = n / (torch.abs(n[..., 0:1]) + torch.abs(n[..., 1:2])
+             + torch.abs(n[..., 2:3]))
+    xy = torch.where(n[..., 2:3] >= 0.0, n[..., :2], _oct_wrap(n[..., :2]))
+    return xy * 0.5 + 0.5
+
+
+def decode_oct(f):
+    f = f * 2.0 - 1.0
+    z = 1.0 - torch.abs(f[..., 0:1]) - torch.abs(f[..., 1:2])
+    t = saturate(-z)
+    xy = f + torch.where(f >= 0.0, -t, t)
+    return normalize(torch.cat([xy, z], dim=-1))
 
 
 def compute_ray_origin(pos, face_normal):

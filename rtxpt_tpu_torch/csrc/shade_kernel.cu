@@ -20,6 +20,14 @@
 // and Russian roulette are template parameters (NEE 0..2 each), the bounce
 // limits and thresholds are arguments; the RNG uniforms arrive as input
 // rows, so the kernel is deterministic and needs no generator.
+//
+// The FILL variant (template flag FILL, entry point rtxpt_shade_nee_fill)
+// is the reference kernel's `fill=True` body for the realtime mode's
+// stable-planes FILL pass: emission goes to its own output rows instead of
+// the radiance, the pre-scatter throughput is written out, and each NEE
+// sample writes its diffuse and specular contributions apart (11 rows a
+// sample instead of 8), so the plane routing can happen outside. At NEE
+// 2+2 that is 77 output rows against 59. Same arithmetic otherwise.
 #include <math.h>
 
 #include "common.cuh"
@@ -103,12 +111,19 @@ constexpr int OUT_RR_KILL = 22;
 constexpr int OUT_NON_DELTA_SCATTER = 23;
 constexpr int OUT_VIS_ORIGIN = 24;
 constexpr int OUT_FIXED = 27;
-// per NEE sample k at OUT_FIXED + NEE_OUT_ROWS * k
+// FILL only: two more fixed 3-rows, then the NEE samples
+constexpr int OUT_EMISSION_TERM = 27;
+constexpr int OUT_PRE_SCATTER_THP = 30;
+constexpr int OUT_FIXED_FILL = 33;
+// per NEE sample k at OUT_FIXED(_FILL) + NEE_OUT_ROWS(_FILL) * k
 constexpr int NEE_DIR = 0;
 constexpr int NEE_DIST = 3;
 constexpr int NEE_NEED = 4;
-constexpr int NEE_CONTRIB = 5;
+constexpr int NEE_CONTRIB = 5;       // non-FILL: the sum
+constexpr int NEE_CONTRIB_D = 5;     // FILL: diffuse
+constexpr int NEE_CONTRIB_S = 8;     // FILL: specular
 constexpr int NEE_OUT_ROWS = 8;
+constexpr int NEE_OUT_ROWS_FILL = 11;
 
 // ---- constants (float32 roundings of the Python doubles) ---------------
 constexpr double kPiD = 3.14159265358979323846;
@@ -769,7 +784,7 @@ __device__ __forceinline__ LightSample local_light_sample(const Planes& P,
     return ls;
 }
 
-template <int ND, int NL, bool RR>
+template <int ND, int NL, bool RR, bool FILL>
 __global__ void __launch_bounds__(128)
 shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
                  float* __restrict__ out, int n, int max_bounces,
@@ -792,9 +807,15 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     em = firefly_filter(em, firefly_threshold, firefly_k0);
     em = scale(em, atten);
     V3 addv = mul(thp, em);
-    radiance = mk(radiance.x + (shade ? maxs(addv.x, 0.f) : 0.f),
-                  radiance.y + (shade ? maxs(addv.y, 0.f) : 0.f),
-                  radiance.z + (shade ? maxs(addv.z, 0.f) : 0.f));
+    addv = mk(shade ? maxs(addv.x, 0.f) : 0.f, shade ? maxs(addv.y, 0.f) : 0.f,
+              shade ? maxs(addv.z, 0.f) : 0.f);
+    if (FILL) {
+        // emission on and off the stable branch is routed outside
+        P.p3(OUT_EMISSION_TERM, addv);
+    } else {
+        radiance = mk(radiance.x + addv.x, radiance.y + addv.y,
+                      radiance.z + addv.z);
+    }
 
     const float vertex_index = P.g(IN_VERTEX_INDEX);
     const float diffuse_bounces0 = P.g(IN_DIFFUSE_BOUNCES);
@@ -894,16 +915,25 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
                 : 1.0f;
         V3 dr = firefly_filter(mul(fd, li), firefly_threshold, nee_k);
         V3 sr = firefly_filter(mul(fs, li), firefly_threshold, nee_k);
-        V3 c = scale(add(dr, sr), grazing);
-        c = mul(pre_scatter_thp, c);
-        c = scale(c, atten);
-        int o = OUT_FIXED + NEE_OUT_ROWS * idx;
+        auto finish = [&](V3 sig) {
+            V3 c = scale(sig, grazing);
+            c = mul(pre_scatter_thp, c);
+            c = scale(c, atten);
+            return need ? mk(maxs(c.x, 0.f), maxs(c.y, 0.f), maxs(c.z, 0.f))
+                        : mk(0.f, 0.f, 0.f);
+        };
+        const int o = FILL ? OUT_FIXED_FILL + NEE_OUT_ROWS_FILL * idx
+                           : OUT_FIXED + NEE_OUT_ROWS * idx;
         P.p3(o + NEE_DIR, ls_dir);
         P.p(o + NEE_DIST, ls_dist * (1.0f - 1e-4f));
         P.p(o + NEE_NEED, need ? 1.0f : 0.0f);
-        P.p3(o + NEE_CONTRIB,
-             need ? mk(maxs(c.x, 0.f), maxs(c.y, 0.f), maxs(c.z, 0.f))
-                  : mk(0.f, 0.f, 0.f));
+        if (FILL) {
+            // diffuse and specular apart, for the per-plane channels
+            P.p3(o + NEE_CONTRIB_D, finish(dr));
+            P.p3(o + NEE_CONTRIB_S, finish(sr));
+        } else {
+            P.p3(o + NEE_CONTRIB, finish(add(dr, sr)));
+        }
     };
 
 #pragma unroll
@@ -947,34 +977,49 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     P.p(OUT_RR_KILL, rr_kill ? 1.0f : 0.0f);
     P.p(OUT_NON_DELTA_SCATTER, (shade && non_delta_scatter) ? 1.0f : 0.0f);
     P.p3(OUT_VIS_ORIGIN, vis_origin);
+    if (FILL) P.p3(OUT_PRE_SCATTER_THP, pre_scatter_thp);
 }
 
 using KernelFn = void (*)(const float*, const float*, float*, int, int, int,
                           float, float);
 
-template <int ND, int NL>
+template <int ND, int NL, bool FILL>
 KernelFn pick_rr(bool rr) {
-    return rr ? shade_nee_kernel<ND, NL, true>
-              : shade_nee_kernel<ND, NL, false>;
+    return rr ? shade_nee_kernel<ND, NL, true, FILL>
+              : shade_nee_kernel<ND, NL, false, FILL>;
 }
 
-template <int ND>
+template <int ND, bool FILL>
 KernelFn pick_nl(int nl, bool rr) {
     switch (nl) {
-        case 0: return pick_rr<ND, 0>(rr);
-        case 1: return pick_rr<ND, 1>(rr);
-        case 2: return pick_rr<ND, 2>(rr);
+        case 0: return pick_rr<ND, 0, FILL>(rr);
+        case 1: return pick_rr<ND, 1, FILL>(rr);
+        case 2: return pick_rr<ND, 2, FILL>(rr);
     }
     return nullptr;
 }
 
+template <bool FILL>
 KernelFn pick(int nd, int nl, bool rr) {
     switch (nd) {
-        case 0: return pick_nl<0>(nl, rr);
-        case 1: return pick_nl<1>(nl, rr);
-        case 2: return pick_nl<2>(nl, rr);
+        case 0: return pick_nl<0, FILL>(nl, rr);
+        case 1: return pick_nl<1, FILL>(nl, rr);
+        case 2: return pick_nl<2, FILL>(nl, rr);
     }
     return nullptr;
+}
+
+int launch(KernelFn fn, const float* planes_in, const float* consts4,
+           float* planes_out, int n, int max_bounces,
+           int max_diffuse_bounces, float spec_rough_threshold,
+           float local_pdf_k, cudaStream_t stream) {
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 128;
+    unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
+    fn<<<blocks, threads, 0, stream>>>(planes_in, consts4, planes_out, n,
+                                       max_bounces, max_diffuse_bounces,
+                                       spec_rough_threshold, local_pdf_k);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -985,12 +1030,19 @@ RTXPT_API int rtxpt_shade_nee(const float* planes_in, const float* consts4,
                               int max_diffuse_bounces,
                               float spec_rough_threshold, float local_pdf_k,
                               cudaStream_t stream) {
-    KernelFn fn = pick(nee_distant, nee_local, rr != 0);
-    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 128;
-    unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-    fn<<<blocks, threads, 0, stream>>>(planes_in, consts4, planes_out, n,
-                                       max_bounces, max_diffuse_bounces,
-                                       spec_rough_threshold, local_pdf_k);
-    return static_cast<int>(cudaGetLastError());
+    return launch(pick<false>(nee_distant, nee_local, rr != 0), planes_in,
+                  consts4, planes_out, n, max_bounces, max_diffuse_bounces,
+                  spec_rough_threshold, local_pdf_k, stream);
+}
+
+RTXPT_API int rtxpt_shade_nee_fill(const float* planes_in,
+                                   const float* consts4, float* planes_out,
+                                   int n, int nee_distant, int nee_local,
+                                   int rr, int max_bounces,
+                                   int max_diffuse_bounces,
+                                   float spec_rough_threshold,
+                                   float local_pdf_k, cudaStream_t stream) {
+    return launch(pick<true>(nee_distant, nee_local, rr != 0), planes_in,
+                  consts4, planes_out, n, max_bounces, max_diffuse_bounces,
+                  spec_rough_threshold, local_pdf_k, stream);
 }

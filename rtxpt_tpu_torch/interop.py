@@ -1,9 +1,13 @@
-"""Build the port's render assets from the reference package's tables.
+"""Build the port's render assets and realtime state from the reference
+package's.
 
 The parity tests run both packages on identical tables: the reference
 builds its SceneArrays packs, DenseMT planes, BVH8 or two-level BVH8
 tables, EnvMap and LightTable, and these functions turn their fields (as
-numpy arrays) into the port's device tables. Of the BVHs only the f32
+numpy arrays) into the port's device tables. The realtime converters do
+the same for the state one frame hands the next (stable planes, ReSTIR
+reservoirs, denoiser and TAA histories); the reference's uint32 branch ids
+and nested-dielectric stacks become the port's int64. Of the BVHs only the f32
 tables are carried; the reference's bf16 planes serve its TPU kernel.
 The port's own host build is checked against the same tables
 separately. Nothing here imports the reference package: every
@@ -14,10 +18,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .denoise.relax import DenoiserState
 from .ops.bvh import BVH8
 from .ops.bvh2l import BVH8TwoLevel
 from .ops.mt_dense import DenseMT
+from .post.taa import TAAState
 from .pt.integrator import RenderAssets
+from .pt.stableplanes import StablePlanes
+from .restir.gi import GIReservoir
+from .restir.reservoir import Reservoir
 from .scene.envmap import EnvMap
 from .scene.lights import LightTable
 from .scene.types import SceneArrays
@@ -124,3 +133,37 @@ def assets_from_reference(scene, accel, env, lights,
             pack=lights.pack, cdf=lights.cdf,
             total_power=lights.total_power, device=device),
         accel=accel_from_reference(accel, device))
+
+
+def _fields(obj, cls, dtypes: dict, device):
+    """cls(**fields of obj), each as a tensor of dtypes.get(name, f32);
+    uint32 fields widen to int64 on the host."""
+    def conv(name):
+        a = np.asarray(getattr(obj, name))
+        dt = dtypes.get(name, torch.float32)
+        return _t(a.astype(np.int64) if dt == torch.int64 else a, dt, device)
+    return cls(**{f: conv(f) for f in cls._fields})
+
+
+def reservoir_from_reference(r, device="cuda") -> Reservoir:
+    return _fields(r, Reservoir, {"light": torch.int32}, device)
+
+
+def gi_reservoir_from_reference(r, device="cuda") -> GIReservoir:
+    return _fields(r, GIReservoir, {"valid": torch.bool}, device)
+
+
+def denoiser_state_from_reference(s, device="cuda") -> DenoiserState:
+    return _fields(s, DenoiserState, {}, device)
+
+
+def taa_state_from_reference(s, device="cuda") -> TAAState:
+    return TAAState(history=_t(np.asarray(s.history), torch.float32, device),
+                    valid=bool(np.asarray(s.valid)))
+
+
+def stable_planes_from_reference(sp, device="cuda") -> StablePlanes:
+    i64 = torch.int64
+    return _fields(sp, StablePlanes, dict(
+        branch_id=i64, vertex_index=i64, prim=torch.int32, interior=i64,
+        dominant=i64), device)

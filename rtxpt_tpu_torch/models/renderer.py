@@ -39,8 +39,17 @@ BVH8_MAX_TRIS = 45_000    # above this the two-level BVH8 takes over
 
 def reference_config(**overrides) -> C.PTConfig:
     """Reference (accumulation) mode defaults (SampleUI.h:162-167)."""
-    base = dict(max_bounces=30, max_diffuse_bounces=6,
-                enable_russian_roulette=True)
+    base = dict(mode=C.MODE_REFERENCE, max_bounces=30,
+                max_diffuse_bounces=6, enable_russian_roulette=True)
+    base.update(overrides)
+    return C.PTConfig(**base)
+
+
+def realtime_config(**overrides) -> C.PTConfig:
+    """Real-time mode defaults (SampleUI.h:158-168)."""
+    base = dict(mode=C.MODE_REFERENCE, max_bounces=30,
+                max_diffuse_bounces=3, enable_russian_roulette=True,
+                use_restir_di=False, use_restir_gi=False)
     base.update(overrides)
     return C.PTConfig(**base)
 

@@ -43,6 +43,7 @@ SIGNATURES = {
     "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, P),
     "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
+    "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,
                              P),

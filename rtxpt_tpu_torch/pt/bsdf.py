@@ -375,6 +375,33 @@ def eval_split_pdf(b, wi, wo):
     return diffuse, specular, pdf
 
 
+def eval_split(b, wi, wo):
+    """Diffuse / specular split eval, f*cos (FalcorBSDF::eval with the
+    split of BxDF.hlsli:764-772); the ReSTIR targets and final shading.
+    b: make_bsdf's dict; wi, wo: local-frame component tuples."""
+    wi_z, wo_z = wi[2], wo[2]
+    ok_d = torch.minimum(wi_z, wo_z) >= K_MIN_COS_THETA
+    w_d = frostbite_weight(wi, wo, b["roughness"]) * M_1_PI * wo_z
+    ok_dt = torch.minimum(wi_z, -wo_z) >= K_MIN_COS_THETA
+    w_dt = M_1_PI * -wo_z
+    st, dt = b["spec_trans"], b["diff_trans"]
+    on_d = b["p_diffuse"] > 0.0
+    on_dt = b["p_diffuse_t"] > 0.0
+    f_s = spec_eval(b, wi, wo)
+    f_st = spec_trans_eval(b, wi, wo)
+    diffuse, specular = [], []
+    for i in range(3):
+        d = W(on_d, ((1.0 - st) * (1.0 - dt))
+              * W(ok_d, b["diff_albedo"][i] * w_d, 0.0), 0.0)
+        d = d + W(on_dt, ((1.0 - st) * dt)
+                  * W(ok_dt, b["trans_albedo"][i] * w_dt, 0.0), 0.0)
+        sp = W(b["p_specular"] > 0.0, (1.0 - st) * f_s[i], 0.0)
+        sp = sp + W(b["p_specular_t"] > 0.0, st * f_st[i], 0.0)
+        diffuse.append(d)
+        specular.append(sp)
+    return tuple(diffuse), tuple(specular)
+
+
 def sample_cosine_hemisphere(u0, u1):
     ux = 2.0 * u0 - 1.0
     uy = 2.0 * u1 - 1.0

@@ -17,7 +17,7 @@ K_MATERIAL_MASK = (1 << K_MATERIAL_BITS) - 1
 K_MAX_NESTED_PRIORITY = (1 << 4) - 1
 
 
-def empty(n: int, device="cpu") -> torch.Tensor:
+def empty(n: int, device) -> torch.Tensor:
     return torch.zeros((n, 2), dtype=torch.int64, device=device)
 
 

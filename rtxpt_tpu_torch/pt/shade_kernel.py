@@ -16,8 +16,11 @@ light picks and row fetches stay outside, in the reference's order
 
 K4 is ``csrc/shade_kernel.cu`` (one thread per lane);
 `shade_nee_plain` is the same arithmetic in PyTorch, built on the
-component-form BSDF of pt/bsdf.py. The FILL (stable-planes) variant of the
-reference belongs to the realtime pipeline and is not carried.
+component-form BSDF of pt/bsdf.py. Its FILL variant (`shade_nee_fill`,
+the realtime mode's stable-planes FILL pass) exports the emission term,
+the pre-scatter throughput and each NEE sample's diffuse and specular
+contributions apart, for the plane routing outside the kernel; its lanes
+with `nee_skip` cast no NEE ray.
 """
 from __future__ import annotations
 
@@ -100,8 +103,9 @@ def in_layout(nee_distant: int, nee_local: int) -> Layout:
     return L
 
 
-def out_layout(nee_distant: int, nee_local: int) -> Layout:
-    """Output rows (the reference's non-FILL `_out_layout`)."""
+def out_layout(nee_distant: int, nee_local: int,
+               fill: bool = False) -> Layout:
+    """Output rows (the reference's `_out_layout`)."""
     L = Layout()
     for name in ("radiance", "thp", "origin", "direction"):
         L.add(name, 3)
@@ -111,11 +115,18 @@ def out_layout(nee_distant: int, nee_local: int) -> Layout:
                  "non_delta_scatter"):
         L.add(name)
     L.add("vis_origin", 3)
+    if fill:
+        L.add("emission_term", 3)   # max(thp * em, 0) where shade
+        L.add("pre_scatter_thp", 3)
     for i in range(nee_distant + nee_local):
         L.add(f"nee_dir{i}", 3)
         L.add(f"nee_dist{i}")
         L.add(f"nee_need{i}")
-        L.add(f"nee_contrib{i}", 3)
+        if fill:
+            L.add(f"nee_contrib_d{i}", 3)
+            L.add(f"nee_contrib_s{i}", 3)
+        else:
+            L.add(f"nee_contrib{i}", 3)
     return L
 
 
@@ -271,10 +282,12 @@ def _local_light_sample(g, pos, j: int):
 
 def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
                     rr: bool, max_bounces: int, max_diffuse_bounces: int,
-                    spec_rough_threshold: float, local_pdf_k: float):
-    """Plain version of K4: (C_IN, N) planes -> (C_OUT, N) planes."""
+                    spec_rough_threshold: float, local_pdf_k: float,
+                    fill: bool = False):
+    """Plain version of K4 (fill=True: its FILL variant): (C_IN, N)
+    planes -> (C_OUT, N) planes."""
     Lin = in_layout(nee_distant, nee_local)
-    Lout = out_layout(nee_distant, nee_local)
+    Lout = out_layout(nee_distant, nee_local, fill)
     n = planes_in.shape[1]
     out = torch.empty((Lout.rows, n), dtype=torch.float32,
                       device=planes_in.device)
@@ -302,8 +315,12 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
     em = _firefly_filter3(em, firefly_threshold, firefly_k0)
     em = B.scale3(em, atten)
     add = B.mul3(thp, em)
-    radiance = tuple(radiance[i] + W(shade, B.maxs(add[i], 0.0), 0.0)
-                     for i in range(3))
+    add = tuple(W(shade, B.maxs(add[i], 0.0), 0.0) for i in range(3))
+    if fill:
+        # FILL: emission on and off the stable branch is routed outside
+        po("emission_term", add)
+    else:
+        radiance = tuple(radiance[i] + add[i] for i in range(3))
 
     vertex_index = gi("vertex_index")
     diffuse_bounces0 = gi("diffuse_bounces")
@@ -396,14 +413,22 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
                           / (2.0 * shadow_fade)), 1.0)
         dr = _firefly_filter3(B.mul3(fd, li), firefly_threshold, nee_k)
         sr = _firefly_filter3(B.mul3(fs, li), firefly_threshold, nee_k)
-        c = B.scale3(B.add3(dr, sr), grazing)
-        c = B.mul3(pre_scatter_thp, c)
-        c = B.scale3(c, atten)
+
+        def finish(sig):
+            c = B.scale3(sig, grazing)
+            c = B.mul3(pre_scatter_thp, c)
+            c = B.scale3(c, atten)
+            return tuple(W(need, B.maxs(x, 0.0), 0.0) for x in c)
+
         po(f"nee_dir{idx}", ls_dir)
         po(f"nee_dist{idx}", ls_dist * (1.0 - 1e-4))
         po(f"nee_need{idx}", need.to(torch.float32))
-        po(f"nee_contrib{idx}", tuple(W(need, B.maxs(x, 0.0), 0.0)
-                                      for x in c))
+        if fill:
+            # diffuse and specular apart, for the per-plane channels
+            po(f"nee_contrib_d{idx}", finish(dr))
+            po(f"nee_contrib_s{idx}", finish(sr))
+        else:
+            po(f"nee_contrib{idx}", finish(B.add3(dr, sr)))
 
     idx = 0
     for i in range(nee_distant):
@@ -444,39 +469,54 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
     po("rr_kill", rr_kill.to(torch.float32))
     po("non_delta_scatter", (shade & non_delta_scatter).to(torch.float32))
     po("vis_origin", vis_origin)
+    if fill:
+        po("pre_scatter_thp", pre_scatter_thp)
     return out
 
 
-@cuda_lib.counted("shade_nee")
-def shade_nee(planes_in, consts4, *, nee_distant: int, nee_local: int,
-              rr: bool, max_bounces: int, max_diffuse_bounces: int,
-              spec_rough_threshold: float, local_pdf_k: float):
-    """K4. planes_in: (C_IN, N) f32 per `in_layout`; consts4: (4,) f32
-    [firefly_threshold, atten, nee_min_radiance, pixel_cone_spread].
-    Returns (C_OUT, N) f32 per `out_layout`."""
-    kw = dict(nee_distant=nee_distant, nee_local=nee_local, rr=rr,
-              max_bounces=max_bounces,
-              max_diffuse_bounces=max_diffuse_bounces,
-              spec_rough_threshold=spec_rough_threshold,
-              local_pdf_k=local_pdf_k)
-    if not cuda_lib.on_cuda(planes_in, consts4):
-        return shade_nee_plain(planes_in, consts4, **kw)
+def _launch(name: str, entry: str, planes_in, consts4, fill: bool, kw):
+    """Check the arguments of K4 (or its FILL variant) and launch it."""
+    nee_distant, nee_local = kw["nee_distant"], kw["nee_local"]
     if not (0 <= nee_distant <= MAX_NEE_SAMPLES
             and 0 <= nee_local <= MAX_NEE_SAMPLES):
         raise ValueError(f"shade kernel: NEE {nee_distant}+{nee_local} "
                          f"outside the instantiated 0..{MAX_NEE_SAMPLES}")
     Lin = in_layout(nee_distant, nee_local)
-    Lout = out_layout(nee_distant, nee_local)
+    Lout = out_layout(nee_distant, nee_local, fill)
     n = planes_in.shape[1]
     cuda_lib.check(planes_in, "planes_in", torch.float32, (Lin.rows, n))
     cuda_lib.check(consts4, "consts4", torch.float32, (4,))
     out = torch.empty((Lout.rows, n), dtype=torch.float32,
                       device=planes_in.device)
     if n:
-        cuda_lib.bump("shade_nee")
-        cuda_lib.launch("rtxpt_shade_nee", planes_in.data_ptr(),
-                        consts4.data_ptr(), out.data_ptr(), n, nee_distant,
-                        nee_local, int(rr), int(max_bounces),
-                        int(max_diffuse_bounces),
-                        float(spec_rough_threshold), float(local_pdf_k))
+        cuda_lib.bump(name)
+        cuda_lib.launch(entry, planes_in.data_ptr(), consts4.data_ptr(),
+                        out.data_ptr(), n, nee_distant, nee_local,
+                        int(kw["rr"]), int(kw["max_bounces"]),
+                        int(kw["max_diffuse_bounces"]),
+                        float(kw["spec_rough_threshold"]),
+                        float(kw["local_pdf_k"]))
     return out
+
+
+@cuda_lib.counted("shade_nee")
+def shade_nee(planes_in, consts4, **kw):
+    """K4. planes_in: (C_IN, N) f32 per `in_layout`; consts4: (4,) f32
+    [firefly_threshold, atten, nee_min_radiance, pixel_cone_spread];
+    keywords nee_distant, nee_local, rr, max_bounces, max_diffuse_bounces,
+    spec_rough_threshold, local_pdf_k. Returns (C_OUT, N) f32 per
+    `out_layout`."""
+    if not cuda_lib.on_cuda(planes_in, consts4):
+        return shade_nee_plain(planes_in, consts4, **kw)
+    return _launch("shade_nee", "rtxpt_shade_nee", planes_in, consts4,
+                   False, kw)
+
+
+@cuda_lib.counted("shade_nee_fill")
+def shade_nee_fill(planes_in, consts4, **kw):
+    """K4's FILL variant: as `shade_nee`, with the outputs of
+    `out_layout(..., fill=True)`."""
+    if not cuda_lib.on_cuda(planes_in, consts4):
+        return shade_nee_plain(planes_in, consts4, fill=True, **kw)
+    return _launch("shade_nee_fill", "rtxpt_shade_nee_fill", planes_in,
+                   consts4, True, kw)

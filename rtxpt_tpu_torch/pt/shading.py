@@ -17,6 +17,7 @@ import torch
 from ..core import mathutils as mu
 from ..ops import gather
 from ..scene import types as ST
+from . import bsdf as B
 
 K_MAX_NESTED_PRIORITY = 14  # InteriorList.hlsli kMaxNestedPriority
 
@@ -50,6 +51,12 @@ class ShadingData(NamedTuple):
     shadow_nol_fadeout: torch.Tensor
     thin_surface: torch.Tensor   # (N,) bool
     nested_priority: torch.Tensor  # (N,) i32 in [1, kMaxNestedPriority]
+
+    def to_local(self, v):
+        """World (N,3) -> component tuple in the (t, b, n) frame."""
+        c = v.unbind(-1)
+        return B.to_local(c, self.t.unbind(-1), self.b.unbind(-1),
+                          self.n.unbind(-1))
 
     def compute_new_ray_origin(self, viewside):
         """ShadingData::computeNewRayOrigin (ShadingData.hlsli:95-98)."""
@@ -182,3 +189,16 @@ def update_outside_ior(surface: SurfaceData, outside_ior) -> SurfaceData:
                       surface.interior_ior / outside_ior)
     return surface._replace(sd=sd,
                             bsdf_data=surface.bsdf_data._replace(eta=eta))
+
+
+def make_wavefront_bsdf(surface: SurfaceData) -> dict:
+    """FalcorBSDF::make over a wavefront (the dict of pt/bsdf.make_bsdf,
+    3-vectors as component tuples); cos_v = dot(V, N) in world space."""
+    d = surface.bsdf_data
+    bd = dict(diffuse=d.diffuse.unbind(-1), specular=d.specular.unbind(-1),
+              rough=d.roughness, metallic=d.metallic, eta=d.eta,
+              trans=d.transmission.unbind(-1),
+              dtrans=d.diffuse_transmission,
+              strans=d.specular_transmission)
+    cos_v = torch.sum(surface.sd.v * surface.sd.n, dim=-1)
+    return B.make_bsdf(bd, cos_v, surface.sd.thin_surface)

@@ -4,7 +4,9 @@ rtxpt_tpu/scene/lights.py; PrepareLightsPass, PolymorphicLight.hlsli).
 The table is built host-side (numpy) and packed into one 24-column row
 per light, so a sampled light costs one row fetch (`ops/gather.py`). The
 per-light geometry of a local NEE sample is evaluated inside the shade
-kernel (pt/shade_kernel.py); this module picks lights and fetches rows.
+kernel (pt/shade_kernel.py); this module picks lights, fetches rows and
+re-evaluates a reservoir's (light, uv) sample at a shading point for
+ReSTIR (`eval_sample_at`).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import mathutils as mu
 from ..ops import gather
 
 LIGHT_TRIANGLE = 0
@@ -46,6 +49,16 @@ class LightTable:
     @property
     def count(self) -> int:
         return self.pack.shape[0]
+
+
+def shaping_factor(axis, cos_cone, softness, light_to_surface):
+    """evaluateLightShaping (LightShaping.hlsli:67-85): smoothstep of the
+    angle between the shaping axis and the light->surface direction."""
+    cos_theta = torch.sum(axis * light_to_surface, -1)
+    t = torch.clamp((cos_theta - cos_cone) / torch.clamp(softness, min=1e-6),
+                    0.0, 1.0)
+    return torch.where(softness > 1e-6, t * t * (3.0 - 2.0 * t),
+                       (cos_theta >= cos_cone).to(torch.float32))
 
 
 def shaping_flux_factor(cos_cone, softness):
@@ -167,3 +180,59 @@ def pick_light(lt: LightTable, u):
 def fetch_rows(lt: LightTable, idx):
     """(N, LP_COLS) packed light rows (row gather kernel)."""
     return gather.gather_rows(lt.pack, idx)
+
+
+def eval_sample_at(lt: LightTable, li_idx, uv, shading_pos):
+    """Re-evaluate a polymorphic light sample (light index + 2D uv) at a
+    shading point (PolymorphicLight.hlsli calcSample, for the ReSTIR
+    targets). Area lights (triangle, sphere) give li = radiance * cos_l /
+    dist^2 for an area-measure sample, so pick_pdf * inv_area is the
+    matching source pdf; delta lights give intensity / dist^2 (point,
+    spot) or radiance (directional). Returns (direction, distance, li,
+    inv_area, valid)."""
+    row = fetch_rows(lt, li_idx)
+    kind = row[..., LP_KIND].to(torch.int32)
+    rad = row[..., LP_RAD:LP_RAD + 3]
+    p0 = row[..., LP_P0:LP_P0 + 3]
+    e1 = row[..., LP_E1:LP_E1 + 3]
+    e2 = row[..., LP_E2:LP_E2 + 3]
+    pos_l = row[..., LP_POS:LP_POS + 3]
+    r_s = row[..., LP_RADIUS]
+    inv_area = row[..., LP_INV_AREA]
+
+    bary = mu.sample_triangle_uniform(uv)
+    lp_t = p0 + bary[..., 1:2] * e1 + bary[..., 2:3] * e2
+    n_t = mu.safe_normalize(mu.cross(e1, e2))
+    # sphere: uniform point on the surface, independent of the receiver
+    z = 1.0 - 2.0 * uv[..., 0]
+    s_ = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * mu.M_PI * uv[..., 1]
+    n_s = torch.stack([s_ * torch.cos(phi), s_ * torch.sin(phi), z], -1)
+    lp_s = pos_l + r_s[..., None] * n_s
+
+    is_tri = kind == LIGHT_TRIANGLE
+    is_sph = kind == LIGHT_SPHERE
+    is_pt = (kind == LIGHT_POINT) | (kind == LIGHT_SPOT)
+    is_area = is_tri | is_sph
+    lp = torch.where(is_tri[..., None], lp_t,
+                     torch.where(is_sph[..., None], lp_s, pos_l))
+    nrm = torch.where(is_tri[..., None], n_t, n_s)
+    to_l = lp - shading_pos
+    dist_sq = torch.clamp(torch.sum(to_l * to_l, -1), min=1e-9)
+    dist = torch.sqrt(dist_sq)
+    dir_l = to_l / dist[..., None]
+    cos_l = torch.sum(nrm * (-dir_l), -1)
+    dir_d = -mu.safe_normalize(pos_l)
+    direction = torch.where((is_area | is_pt)[..., None], dir_l, dir_d)
+    distance = torch.where(is_area | is_pt, dist,
+                           torch.full_like(dist, mu.K_MAX_RAY_TRAVEL))
+    li_area = rad * (torch.clamp(cos_l, min=0.0) / dist_sq)[..., None]
+    shape = torch.where(
+        kind == LIGHT_SPOT,
+        shaping_factor(row[..., LP_AXIS:LP_AXIS + 3], row[..., LP_COS_CONE],
+                       row[..., LP_SOFT], -dir_l), 1.0)
+    li_point = rad / dist_sq[..., None] * shape[..., None]
+    li = torch.where(is_area[..., None], li_area,
+                     torch.where(is_pt[..., None], li_point, rad))
+    valid = torch.where(is_area, cos_l > 1e-6, True)
+    return direction, distance, li, inv_area, valid

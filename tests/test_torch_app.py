@@ -6,6 +6,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from rtxpt_tpu_torch.app import cli
 from rtxpt_tpu_torch.utils import image as IM
@@ -40,6 +41,29 @@ def test_cli_renders_city_on_cpu(tmp_path):
     hdr = np.load(npy)
     assert hdr.shape == (6, 8, 3)
     assert np.isfinite(hdr).all() and hdr.mean() > 0.0
+
+
+@pytest.mark.parametrize("preset", [[], ["--preset", "ref-vs-realtime"]],
+                         ids=["default", "ref-vs-realtime"])
+def test_cli_realtime_on_cpu(tmp_path, preset):
+    """--mode realtime: 2 frames of the realtime pipeline, the last saved."""
+    npy = str(tmp_path / "r.npy")
+    args = ["--mode", "realtime", "--width", "16", "--height", "12",
+            "--spp", "2", "--device", "cpu", "--max-bounces", "2",
+            "--output", str(tmp_path / "r.png"), "--dump-npy", npy,
+            "--quiet"] + preset
+    assert cli.main(args) == 0
+    hdr = np.load(npy)
+    assert hdr.shape == (12, 16, 3)
+    assert np.isfinite(hdr).all() and hdr.mean() > 0.0
+
+
+def test_cli_realtime_refuses_psr_lite(tmp_path):
+    """--no-stable-planes asks for the PSR-lite pipeline, not ported yet."""
+    with pytest.raises(NotImplementedError):
+        cli.main(["--mode", "realtime", "--no-stable-planes", "--width", "8",
+                  "--height", "6", "--spp", "1", "--device", "cpu",
+                  "--output", str(tmp_path / "r.png"), "--quiet"])
 
 
 def test_png_round_trip(tmp_path):

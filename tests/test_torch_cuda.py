@@ -101,6 +101,62 @@ def test_shade_kernel_matches_plain(dev):
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
 
 
+def _realtime(device, w=32, h=24):
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    return RealtimeRenderer(procedural.build_programmer_art().finish(),
+                            procedural.default_camera(w, h),
+                            env_radiance=EM.bake_procedural_sky(height=32),
+                            device=device)
+
+
+def test_shade_fill_kernel_matches_plain(dev):
+    """K4's FILL variant on the launches of a realtime frame (NEE 2+2,
+    ReSTIR DI lanes marked nee_skip): lobe and flags equal on >= 99.99%
+    of lanes, the rest within rtol 2e-4 / atol 2e-5 on those lanes."""
+    calls = []
+    orig = SK.shade_nee_fill
+
+    def capture(planes, consts4, **kw):
+        calls.append((planes.clone(), consts4.clone(), kw))
+        return orig(planes, consts4, **kw)
+
+    SK.shade_nee_fill = capture
+    try:
+        _realtime(dev).render_frame(32, 24)
+    finally:
+        SK.shade_nee_fill = orig
+    assert calls
+    for planes, consts4, kw in calls[:3]:
+        got = SK.shade_nee_fill(planes, consts4, **kw)
+        ref = SK.shade_nee_plain(planes, consts4, fill=True, **kw)
+        L = SK.out_layout(kw["nee_distant"], kw["nee_local"], fill=True)
+        flags = [L.map[k][0] for k in ("lobe", "scatter_valid",
+                                       "will_scatter", "rr_kill")]
+        same = (got[flags] == ref[flags]).all(0)
+        assert same.float().mean() >= 0.9999
+        torch.testing.assert_close(got[:, same], ref[:, same], rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_realtime_frame_launches_fill_and_matches_cpu(dev):
+    """A default realtime frame on the card goes through K1-K3 and K4's
+    FILL variant (not the non-FILL K4), and its second frame agrees with
+    the CPU port's."""
+    cuda_lib.reset_launch_counts()
+    r = _realtime(dev)
+    r.render_frame(32, 24)
+    gpu = r.render_frame(32, 24).cpu()
+    counts = cuda_lib.launch_counts()
+    for k in ("mt_dense", "gather_rows", "gather_rows_interp",
+              "shade_nee_fill"):
+        assert counts[k] > 0, counts
+    assert counts["shade_nee"] == 0, counts
+    c = _realtime("cpu")
+    c.render_frame(32, 24)
+    torch.testing.assert_close(gpu, c.render_frame(32, 24), rtol=1e-3,
+                               atol=1e-3)
+
+
 def test_render_launches_every_kernel_and_matches_cpu(dev):
     """Programmer-art takes the dense tier: K1-K4, and neither K5 nor K6."""
     cuda_lib.reset_launch_counts()

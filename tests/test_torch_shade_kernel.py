@@ -130,6 +130,38 @@ def test_plain_matches_reference_kernel(nd, nl, rr, firefly):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("nd,nl", [(1, 1), (2, 2)])
+def test_fill_plain_matches_reference_kernel(nd, nl):
+    """The FILL variant (`shade_nee_fill` on CPU planes: the plain
+    version with fill=True) against the reference's fill=True body, with
+    a fifth of the lanes marked nee_skip; tolerances as the non-FILL
+    test's."""
+    planes = _planes(nd, nl, seed=50 + 10 * nd + nl, min_rough=0.3)
+    skip_row = TSK.in_layout(nd, nl).map["nee_skip"][0]
+    planes[skip_row] = torch.as_tensor(
+        (np.random.RandomState(7).rand(N) < 0.2).astype(np.float32))
+    consts4 = np.array([0.0, 1.0, 1e-5, 0.002], np.float32)
+    kw = dict(nee_distant=nd, nee_local=nl, rr=True, max_bounces=6,
+              max_diffuse_bounces=4, spec_rough_threshold=0.25,
+              local_pdf_k=1.0)
+    ref = np.asarray(JSK.shade_nee_pallas(
+        jnp.asarray(planes.numpy()), jnp.asarray(consts4), fill=True,
+        interpret=True, **kw))
+    got = TSK.shade_nee_fill(planes, torch.as_tensor(consts4),
+                             **kw).numpy()
+    L = TSK.out_layout(nd, nl, fill=True)
+    assert got.shape == ref.shape == (L.rows, N)
+    assert np.isfinite(got).all()
+    skipped = planes[skip_row].numpy() != 0
+    for i in range(nd + nl):
+        assert not got[L.map[f"nee_need{i}"][0], skipped].any()
+    d0 = L.map["direction"][0]
+    rest = np.r_[0:d0, d0 + 3:L.rows]
+    np.testing.assert_allclose(got[rest], ref[rest], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got[d0:d0 + 3], ref[d0:d0 + 3], rtol=0,
+                               atol=1e-4)
+
+
 def test_plain_matches_reference_kernel_low_roughness():
     """Roughness down to 0.05 (alpha 0.0025), which covers the range
     under the main test's 0.3: the bounded-VNDF half
@@ -187,6 +219,27 @@ def test_layouts_match_reference_and_kernel(nd, nl):
     assert c["OUT_FIXED"] + c["NEE_OUT_ROWS"] * (nd + nl) == t_out.rows
 
 
+@pytest.mark.parametrize("nd,nl", [(1, 1), (2, 2), (0, 1)])
+def test_fill_layouts_match_reference_and_kernel(nd, nl):
+    """The FILL output layout equals the reference's, and the .cu file's
+    FILL offsets match it."""
+    t_out = TSK.out_layout(nd, nl, fill=True)
+    assert t_out.map == JSK.out_layout(nd, nl, True).map
+    assert t_out.rows == TSK.out_layout(nd, nl).rows + 6 + 3 * (nd + nl)
+    c = {k: int(v) for k, v in re.findall(
+        r"constexpr int ([A-Z0-9_]+) = (\d+);", open(CU).read())}
+    for name, (row, _) in t_out.map.items():
+        m = re.fullmatch(r"nee_(dir|dist|need|contrib_d|contrib_s)(\d)",
+                         name)
+        if m is None:
+            assert c["OUT_" + name.upper()] == row, name
+        else:
+            assert c["OUT_FIXED_FILL"] + c["NEE_OUT_ROWS_FILL"] * int(
+                m.group(2)) + c["NEE_" + m.group(1).upper()] == row, name
+    assert c["OUT_FIXED_FILL"] + c["NEE_OUT_ROWS_FILL"] * (nd + nl) \
+        == t_out.rows
+
+
 def test_cpu_planes_take_plain_version_without_launch():
     planes = _planes(1, 1, seed=3)
     cuda_lib.reset_launch_counts()
@@ -194,4 +247,9 @@ def test_cpu_planes_take_plain_version_without_launch():
                   nee_distant=1, nee_local=1, rr=True, max_bounces=6,
                   max_diffuse_bounces=4, spec_rough_threshold=0.25,
                   local_pdf_k=1.0)
-    assert cuda_lib.launch_counts()["shade_nee"] == 0
+    TSK.shade_nee_fill(planes, torch.tensor([0.0, 1.0, 1e-5, 0.002]),
+                       nee_distant=1, nee_local=1, rr=True, max_bounces=6,
+                       max_diffuse_bounces=4, spec_rough_threshold=0.25,
+                       local_pdf_k=1.0)
+    counts = cuda_lib.launch_counts()
+    assert counts["shade_nee"] == 0 and counts["shade_nee_fill"] == 0
