@@ -28,24 +28,24 @@ its seconds):
      64x36 GPU render against the port's CPU render (PSNR > 40 dB);
   6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
-     1920x1080: hold K4's FILL variant against its plain version on the
-     launch of the first FILL bounce of a frame and time both; after the
-     no-history and the history warm-up frames, time 3 frames with the
-     counters set to 0 just before, and require K2, K3, K4 FILL, K5 and
-     K6 to have launched and the frame to be finite and not black. The
-     same on programmer-art at 640x360 (the bench's realtime case),
-     requiring K1. Then the port on the card against the port on the CPU
-     (programmer-art 64x48, 3 frames, PSNR > 40 dB), and the estimator
-     oracle of tests/test_ref_vs_realtime.py on the card: the mean of 32
+     1920x1080 and on programmer-art at 640x360 (the bench's realtime
+     case): capture the first launches of each kernel in one frame (the
+     BUILD pass's camera trace, the first FILL bounce's gathers and K4
+     FILL, the first FILL NEE trace that casts a ray, the fused ReSTIR
+     final shade's visibility trace) and hold each kernel of the path
+     against its plain version on them (city: K2, K3, K4 FILL, K5, K6;
+     360p: K1, K2, K3, K4 FILL); after the no-history and the history
+     warm-up frames, time 3 frames with the
+     counters set to 0 just before, and require the path's kernels to
+     have launched and the frame to be finite and not black. Then the
+     port on the card against the port on the CPU (programmer-art 64x48,
+     3 frames, PSNR > 40 dB), and the estimator oracle of
+     tests/test_ref_vs_realtime.py on the card: the mean of 32
      `ref-vs-realtime` frames at 48x32 against the port's 32-spp
      reference render (median block error < 0.25, means within 10%);
   7. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
-
-`python3 chip_smoke.py --only realtime` runs the build and the named
-phases alone (a development aid; the result line needs every phase), and
-`--ptxas FILE` writes nvcc's register and spill report to FILE.
 
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
@@ -91,6 +91,8 @@ RT_CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
                 "gather_rows_interp", "shade_nee_fill")
 RT_ART_PATH = ("mt_dense", "gather_rows", "gather_rows_interp",
                "shade_nee_fill")
+PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
+         "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 # float operations of one unit of work (counted from the kernels' source)
@@ -143,7 +145,8 @@ def time_ms(fn, iters: int, warmup: bool = True) -> float:
 class Capture:
     """Records the arguments of the first calls of kernel wrappers during
     one render (the inputs the main path gives each kernel), up to
-    limits[name] calls per wrapper."""
+    limits[name] calls per wrapper; with `during` (keys of STAGES), only
+    the calls made inside all of those stages' functions. Captures nest."""
     MODULES = {"trace_dense": "rtxpt_tpu_torch.ops.mt_dense",
                "gather_rows": "rtxpt_tpu_torch.ops.gather",
                "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
@@ -151,22 +154,50 @@ class Capture:
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
                "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8"}
+    # (module, function, which calls count: None for all): the realtime
+    # frame's stages, as models/realtime.py calls them, and the visibility
+    # traces that cast at least one ray
+    STAGES = {"build": ("rtxpt_tpu_torch.pt.stableplanes",
+                        "build_stable_planes", None),
+              "fill": ("rtxpt_tpu_torch.pt.integrator", "render_paths",
+                       None),
+              "restir": ("rtxpt_tpu_torch.restir.di", "fused_final_shade",
+                         None),
+              "busy_anyhit": ("rtxpt_tpu_torch.ops.traverse", "trace_anyhit",
+                              lambda kw: kw.get("active") is None
+                              or bool(kw["active"].any()))}
 
-    def __init__(self, limits: dict):
+    def __init__(self, limits: dict, during=()):
         import importlib
         self.limits = limits
-        self.targets = [(importlib.import_module(self.MODULES[name]), name)
+        self.kernels = [(importlib.import_module(self.MODULES[name]), name)
                         for name in limits]
+        self.stages = [(importlib.import_module(self.STAGES[s][0]),
+                        *self.STAGES[s][1:]) for s in during]
+        self.inside = {name: False for _, name, _ in self.stages}
         self.calls = {name: [] for name in limits}
-        self.orig = {}
+        self.orig = []
 
     def __enter__(self):
-        for mod, name in self.targets:
+        for mod, name, when in self.stages:
             fn = getattr(mod, name)
-            self.orig[name] = (mod, fn)
+            self.orig.append((mod, name, fn))
+
+            def staged(*args, _fn=fn, _name=name, _when=when, **kw):
+                was = self.inside[_name]
+                self.inside[_name] = _when is None or _when(kw)
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.inside[_name] = was
+            setattr(mod, name, staged)
+        for mod, name in self.kernels:
+            fn = getattr(mod, name)
+            self.orig.append((mod, name, fn))
 
             def wrapped(*args, _fn=fn, _name=name, **kw):
-                if len(self.calls[_name]) < self.limits[_name]:
+                if all(self.inside.values()) and \
+                        len(self.calls[_name]) < self.limits[_name]:
                     self.calls[_name].append(
                         ([a.clone() if torch.is_tensor(a) else a
                           for a in args], dict(kw)))
@@ -175,7 +206,7 @@ class Capture:
         return self
 
     def __exit__(self, *exc):
-        for name, (mod, fn) in self.orig.items():
+        for mod, name, fn in reversed(self.orig):
             setattr(mod, name, fn)
 
 
@@ -216,7 +247,6 @@ def k1_work(args, kw, t, slot):
 
 def check_kernels(results: dict):
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
-    from rtxpt_tpu_torch.ops import mt_dense
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
 
     w, h = 800, 600
@@ -235,52 +265,10 @@ def check_kernels(results: dict):
     closest = [c for c in cap.calls["trace_dense"] if not c[1]["any_hit"]]
     anyhit = [c for c in cap.calls["trace_dense"] if c[1]["any_hit"]]
     require(len(closest) >= 2 and anyhit, "K1: too few traces captured")
-    k1_ms = k1_plain_ms = 0.0
-    k1_err = 0.0
-    k1_bytes = k1_ops = 0
-    for label, (args, kw) in (("camera", closest[0]),
-                              ("scattered", closest[1]),
-                              ("nee any-hit", anyhit[0])):
-        aabb_c, tri9, o_c, d, tmax, act = args
-        t_k, s_k = mt_dense.trace_dense(*args, **kw)
-        t_p, s_p = mt_dense.trace_dense_plain(*args, **kw)
-        torch.cuda.synchronize()
-        lanes = int(act.sum())
-        if kw["any_hit"]:
-            agree = float(((s_k >= 0) == (s_p >= 0))[act].float().mean())
-            print(f"K1 {label}: {act.numel()} lanes ({lanes} active), "
-                  f"occlusion flag equal on {agree:.6%}")
-            require(agree >= 0.9999, f"K1 any-hit agreement {agree}")
-        else:
-            same = (s_k == s_p) & act
-            agree = float(same[act].float().mean())
-            hk = mt_dense.resolve_hits(r.accel, o_c, d, t_k, s_k)
-            hp = mt_dense.resolve_hits(r.accel, o_c, d, t_p, s_p)
-            m = same & (s_k >= 0)
-            err = max(float((hk.t - hp.t)[m].abs().max()),
-                      float((hk.bary - hp.bary)[m].abs().max()))
-            k1_err = max(k1_err, err)
-            ok_tuv = torch.allclose(hk.t[m], hp.t[m], rtol=1e-5, atol=1e-6) \
-                and torch.allclose(hk.bary[m], hp.bary[m], rtol=1e-5,
-                                   atol=1e-6)
-            print(f"K1 {label}: {act.numel()} lanes ({lanes} active), same "
-                  f"winner on {agree:.6%}, t/u/v max |diff| {err:.3g}")
-            require(agree >= 0.9999, f"K1 winner agreement {agree}")
-            require(ok_tuv, "K1 t/u/v outside rtol 1e-5 / atol 1e-6")
-        if label != "scattered":
-            ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw), 20)
-            pms = time_ms(lambda: mt_dense.trace_dense_plain(*args, **kw), 2)
-            nb, ops = k1_work(args, kw, t_k, s_k)
-            print(f"K1 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bound(nb, ops)[0]:.4f} ms")
-            k1_ms += ms
-            k1_plain_ms += pms
-            k1_bytes += nb
-            k1_ops += ops
-    b_ms, b_by = bound(k1_bytes, k1_ops)
-    results["bench"]["mt_dense"] = dict(
-        max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, library_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
+    results["bench"]["mt_dense"] = check_dense(
+        r.accel, [("camera", closest[0], True),
+                  ("scattered", closest[1], False),
+                  ("nee any-hit", anyhit[0], True)], "bench")
 
     # ---- K2-K4 on the gathers and the shade pass of the first bounce;
     # K4 also at the goldens' NEE 2+2 (reference_config())
@@ -292,6 +280,58 @@ def check_kernels(results: dict):
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
     check_shade(*cap.calls["shade_nee"][0], "reference_config()")
+
+
+def check_dense(accel, traces, label) -> dict:
+    """K1 on captured traces [(what, (args, kw), timed)]: the same winner
+    (closest) or occlusion flag (any-hit) on >= 99.99% of the active lanes
+    and t/u/v within rtol 1e-5 / atol 1e-6 where the winners agree; kernel
+    and plain times and the bound summed over the timed traces."""
+    from rtxpt_tpu_torch.ops import mt_dense
+    k1_ms = k1_plain_ms = k1_err = 0.0
+    k1_bytes = k1_ops = 0
+    for what, (args, kw), timed in traces:
+        what = f"K1 {label} {what}"
+        aabb_c, tri9, o_c, d, tmax, act = args
+        t_k, s_k = mt_dense.trace_dense(*args, **kw)
+        t_p, s_p = mt_dense.trace_dense_plain(*args, **kw)
+        torch.cuda.synchronize()
+        lanes = int(act.sum())
+        require(lanes > 0, f"{what}: no active lane")
+        if kw["any_hit"]:
+            agree = float(((s_k >= 0) == (s_p >= 0))[act].float().mean())
+            print(f"{what}: {act.numel()} lanes ({lanes} active), "
+                  f"occlusion flag equal on {agree:.6%}")
+            require(agree >= 0.9999, f"{what}: agreement {agree}")
+        else:
+            same = (s_k == s_p) & act
+            agree = float(same[act].float().mean())
+            hk = mt_dense.resolve_hits(accel, o_c, d, t_k, s_k)
+            hp = mt_dense.resolve_hits(accel, o_c, d, t_p, s_p)
+            m = same & (s_k >= 0)
+            err = max(float((hk.t - hp.t)[m].abs().max()),
+                      float((hk.bary - hp.bary)[m].abs().max()))
+            k1_err = max(k1_err, err)
+            ok_tuv = torch.allclose(hk.t[m], hp.t[m], rtol=1e-5, atol=1e-6) \
+                and torch.allclose(hk.bary[m], hp.bary[m], rtol=1e-5,
+                                   atol=1e-6)
+            print(f"{what}: {act.numel()} lanes ({lanes} active), same "
+                  f"winner on {agree:.6%}, t/u/v max |diff| {err:.3g}")
+            require(agree >= 0.9999, f"{what}: winner agreement {agree}")
+            require(ok_tuv, f"{what}: t/u/v outside rtol 1e-5 / atol 1e-6")
+        if timed:
+            ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw), 20)
+            pms = time_ms(lambda: mt_dense.trace_dense_plain(*args, **kw), 2)
+            nb, ops = k1_work(args, kw, t_k, s_k)
+            print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound(nb, ops)[0]:.4f} ms", flush=True)
+            k1_ms += ms
+            k1_plain_ms += pms
+            k1_bytes += nb
+            k1_ops += ops
+    b_ms, b_by = bound(k1_bytes, k1_ops)
+    return dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_gathers(calls, label, lanes=None) -> dict:
@@ -352,16 +392,19 @@ def check_interp(args, label) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_surface_kernels(cap, label, lanes=None) -> dict:
-    """K2, K3 and K4 on the calls a Capture(FIRST_BOUNCE) recorded ->
-    {kernel name: result}; raises where a kernel disagrees."""
-    from rtxpt_tpu_torch.pt import shade_kernel as SK
+def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
+    """K2, K3 and K4 (fill: K4 FILL) on the calls a Capture of one first
+    bounce recorded -> {kernel name: result}; raises where a kernel
+    disagrees."""
+    shade = "shade_nee_fill" if fill else "shade_nee"
+    require(cap.calls["gather_rows_interp"] and cap.calls[shade],
+            f"{label}: no K3 or {shade} launch captured")
     out = {"gather_rows": check_gathers(cap.calls["gather_rows"], label,
                                         lanes),
            "gather_rows_interp": check_interp(
                cap.calls["gather_rows_interp"][0][0], label)}
-    args, kw = cap.calls["shade_nee"][0]
-    out["shade_nee"] = check_shade(args, kw, label)
+    args, kw = cap.calls[shade][0]
+    out[shade] = check_shade(args, kw, label, fill=fill)
     return out
 
 
@@ -534,13 +577,53 @@ def check_bvh8(calls, label, stacked):
     return agree, lanes, err, ms, pms, nbytes, ops, empty, traffic
 
 
+def check_two_level(traces, label) -> dict:
+    """K6 and K5 on captured two-level traces [(what, probe call, sweep
+    calls, timed)]: the same prim (closest) or occlusion flag (any-hit) on
+    >= 99.99% of the active lanes -> {kernel name: result}, times and
+    bound summed over the timed traces."""
+    tot = {"bvh8_trace_sub": [0] * 9, "bvh8_trace": [0] * 9}
+    for what, probe, sweeps, timed in traces:
+        for name, calls, stacked in (("bvh8_trace_sub", [probe], True),
+                                     ("bvh8_trace", sweeps, False)):
+            tag = f"{name} {label} {what}"
+            res = check_bvh8(calls, tag, stacked)
+            agree, lanes, err, ms, pms, nb, ops, empty, traffic = res
+            frac = agree / max(lanes, 1)
+            same = "occlusion" if calls[0][1]["any_hit"] else "prim"
+            print(f"{tag}: {len(calls)} launch(es) over "
+                  f"{calls[0][0][-1].numel()} lanes, {lanes} active lanes "
+                  f"(plain on the full wavefront), {empty} with no active "
+                  f"lane; same {same} on {frac:.6%}, t/u/v max |diff| "
+                  f"{err:.3g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bound(nb, ops)[0]:.4f} ms, row traffic "
+                  f"{traffic / 1e9:.3f} GB "
+                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate)",
+                  flush=True)
+            require(lanes == 0 or frac >= 0.9999,
+                    f"{tag}: agreement {frac}")
+            if timed:
+                acc = tot[name]
+                for j, v in enumerate((agree, lanes, err, ms, pms, nb, ops,
+                                       empty, traffic)):
+                    acc[j] = max(acc[j], v) if j == 2 else acc[j] + v
+    out = {}
+    for name, acc in tot.items():
+        require(acc[1] > 0, f"{label}: no active lane for {name}")
+        b_ms, b_by = bound(acc[5], acc[6])
+        out[name] = dict(max_abs_err=acc[2], ms=acc[3], plain_ms=acc[4],
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
 def build_city():
     from rtxpt_tpu_torch.scene import procedural
     return procedural.build_city().finish()
 
 
-def city(results: dict, card: str, host) -> dict:
-    """The city phase (5.); returns the launch counts of its render."""
+def city(results: dict, card: str, host, geometry_s: float) -> dict:
+    """The city phase (5.) on the host geometry build_city() made in
+    `geometry_s` seconds; returns the launch counts of its render."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.ops import bvh2l, cuda_lib
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
@@ -553,18 +636,20 @@ def city(results: dict, card: str, host) -> dict:
     r = Renderer(host, procedural.city_camera(w, h), cfg, env_radiance=env,
                  device="cuda")
     torch.cuda.synchronize()
+    renderer_s = time.perf_counter() - t0
     tl = r.accel
     require(isinstance(tl, bvh2l.BVH8TwoLevel),
             "city: not on the two-level tier")
     k = tl.num_subtrees
     print(f"city: {host['indices'].shape[0]} triangles, two-level BVH8 "
           f"K={k} S={tl.rows} ({tl.sub_tables.numel() * 4 / 1e6:.1f} MB), "
-          f"host build {time.perf_counter() - t0:.2f} s", flush=True)
+          f"host build {geometry_s + renderer_s:.2f} s (geometry "
+          f"{geometry_s:.2f} s, Renderer {renderer_s:.2f} s)", flush=True)
     require(k >= bvh2l.PROBE_MIN_SUBTREES, "city: the probe does not engage")
 
     # K6 and K5 on the first bounce of a 1-spp render: the probes and
-    # sweeps of the camera rays, their NEE rays and the scattered rays;
-    # K2-K4 on its gathers and shade pass
+    # sweeps of the camera rays, their NEE rays and the scattered rays
+    # (ms sums camera + NEE, as K1's); K2-K4 on its gathers and shade pass
     with Capture(dict(FIRST_BOUNCE, trace_bvh8_sub=3,
                       trace_bvh8=3 * k)) as cap:
         r.render_sample(w, h, 0)
@@ -572,35 +657,10 @@ def city(results: dict, card: str, host) -> dict:
     probes, sweeps = cap.calls["trace_bvh8_sub"], cap.calls["trace_bvh8"]
     require(len(probes) == 3 and len(sweeps) == 3 * k,
             "city: too few traces captured")
-    tot = {"bvh8_trace_sub": [0] * 9, "bvh8_trace": [0] * 9}
-    for i, label in enumerate(("camera", "nee any-hit", "scattered")):
-        for name, calls, stacked in (
-                ("bvh8_trace_sub", probes[i:i + 1], True),
-                ("bvh8_trace", sweeps[i * k:(i + 1) * k], False)):
-            res = check_bvh8(calls, f"{name} {label}", stacked)
-            agree, lanes, err, ms, pms, nb, ops, empty, traffic = res
-            frac = agree / max(lanes, 1)
-            what = "occlusion" if calls[0][1]["any_hit"] else "prim"
-            print(f"{name} {label}: {len(calls)} launch(es) over "
-                  f"{calls[0][0][-1].numel()} lanes, {lanes} active lanes "
-                  f"(plain on the full wavefront), {empty} with no active "
-                  f"lane; same {what} on {frac:.6%}, t/u/v max |diff| "
-                  f"{err:.3g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bound(nb, ops)[0]:.4f} ms, row traffic "
-                  f"{traffic / 1e9:.3f} GB "
-                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate)",
-                  flush=True)
-            require(frac >= 0.9999, f"{name} {label}: agreement {frac}")
-            if label != "scattered":      # ms sums camera + NEE, as K1's
-                acc = tot[name]
-                for j, v in enumerate((agree, lanes, err, ms, pms, nb, ops,
-                                       empty, traffic)):
-                    acc[j] = max(acc[j], v) if j == 2 else acc[j] + v
-    for name, acc in tot.items():
-        b_ms, b_by = bound(acc[5], acc[6])
-        results["city"][name] = dict(max_abs_err=acc[2], ms=acc[3],
-                                     plain_ms=acc[4], library_ms=None,
-                                     bound_ms=b_ms, bound_by=b_by)
+    results["city"].update(check_two_level(
+        [(what, probes[i], sweeps[i * k:(i + 1) * k], what != "scattered")
+         for i, what in enumerate(("camera", "nee any-hit", "scattered"))],
+        "city"))
     results["city"].update(check_surface_kernels(cap, "city"))
     del cap, probes, sweeps          # the captured inputs
 
@@ -638,6 +698,61 @@ def city(results: dict, card: str, host) -> dict:
     return {name: counts[KERNELS[name][0]] for name in KERNELS}
 
 
+def capture_realtime_frame(r, w, h):
+    """Render one frame of the realtime renderer `r` with the first
+    launches of each stage captured -> (trace limits, the first FILL
+    bounce's Capture, [(trace, Capture, any-hit)]): the first FILL bounce
+    (its gathers and K4 FILL), the BUILD pass's first trace (the camera
+    rays), the first FILL NEE trace that casts a ray (the first bounce's
+    casts none where ReSTIR DI owns the base) and the fused ReSTIR DI + GI
+    final shade's visibility trace. A two-level trace is one K6 probe and
+    one K5 sweep per subtree."""
+    from rtxpt_tpu_torch.ops import bvh2l
+    if isinstance(r.accel, bvh2l.BVH8TwoLevel):
+        traces = {"trace_bvh8_sub": 1, "trace_bvh8": r.accel.num_subtrees}
+    else:
+        traces = {"trace_dense": 1}
+    with Capture(traces, during=("build",)) as build, \
+            Capture(dict(gather_rows=16, gather_rows_interp=1,
+                         shade_nee_fill=1), during=("fill",)) as fill, \
+            Capture(traces, during=("fill", "busy_anyhit")) as nee, \
+            Capture(traces, during=("restir", "busy_anyhit")) as restir:
+        r.render_frame(w, h)
+        torch.cuda.synchronize()
+    return traces, fill, [("BUILD camera", build, False),
+                          ("FILL NEE", nee, True),
+                          ("ReSTIR visibility", restir, True)]
+
+
+def check_realtime_kernels(r, w, h, label) -> dict:
+    """Every kernel of a realtime path against its plain version on the
+    launches capture_realtime_frame() records (K4 FILL on all w*h lanes of
+    the first FILL bounce) -> {kernel name: result}."""
+    traces, fill, stages = capture_realtime_frame(r, w, h)
+    for what, cap, any_hit in stages:
+        for name, n in traces.items():
+            require(len(cap.calls[name]) == n,
+                    f"{label} {what}: {len(cap.calls[name])} {name} calls "
+                    f"captured, not {n}")
+            require(cap.calls[name][0][1]["any_hit"] == any_hit,
+                    f"{label} {what}: the first trace is not "
+                    f"{'any-hit' if any_hit else 'closest-hit'}")
+    require(fill.calls["shade_nee_fill"], f"{label}: no FILL launch")
+    lanes = fill.calls["shade_nee_fill"][0][0][0].shape[1]
+    require(lanes == w * h, f"{label}: the first FILL bounce has {lanes} "
+            f"lanes, not {w * h}")
+    if "trace_dense" in traces:
+        out = {"mt_dense": check_dense(
+            r.accel, [(what, cap.calls["trace_dense"][0], True)
+                      for what, cap, _ in stages], label)}
+    else:
+        out = check_two_level(
+            [(what, cap.calls["trace_bvh8_sub"][0], cap.calls["trace_bvh8"],
+              True) for what, cap, _ in stages], label)
+    out.update(check_surface_kernels(fill, label, fill=True))
+    return out
+
+
 def realtime_frames(r, w, h, label, card, path, warmups=2,
                     frames=3) -> dict:
     """`warmups` frames (the no-history and the history variant: 2 from a
@@ -650,20 +765,23 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
         r.render_frame(w, h)
         torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
-    walls = []
+    walls, fills = [], []
     for _ in range(frames):
         t0 = time.perf_counter()
         img = r.render_frame(w, h)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        fills.append(cuda_lib.launch_counts()["shade_nee_fill"]
+                     - sum(fills))
     counts = cuda_lib.launch_counts()
     out = img.cpu().numpy()
     require(out.shape == (h, w, 3) and np.isfinite(out).all()
             and out.mean() > 0.0, f"realtime {label}: bad frame")
     ms = [x * 1e3 for x in walls]
     print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
-          f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms) on {card}; "
-          f"launches over {frames} frames {counts}", flush=True)
+          f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms; FILL bounces "
+          f"{fills}) on {card}; launches over {frames} frames {counts}",
+          flush=True)
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
@@ -688,16 +806,9 @@ def realtime(results: dict, card: str, host_city) -> dict:
     torch.cuda.synchronize()
     print(f"realtime city: renderer built in {time.perf_counter() - t0:.2f}"
           " s", flush=True)
-    with Capture({"shade_nee_fill": 1}) as cap:
-        r.render_frame(w, h)
-        torch.cuda.synchronize()
-    require(cap.calls["shade_nee_fill"], "realtime city: no FILL launch")
-    args, kw = cap.calls["shade_nee_fill"][0]
-    require(args[0].shape[1] == w * h, "realtime city: the first FILL "
-            f"bounce has {args[0].shape[1]} lanes, not {w * h}")
-    results["realtime_city"]["shade_nee_fill"] = check_shade(
-        args, kw, "realtime city", fill=True)
-    del cap, args
+    results["realtime_city"].update(
+        check_realtime_kernels(r, w, h, "realtime city"))
+    torch.cuda.empty_cache()
     # the captured frame was the no-history warm-up
     launches["realtime_city"] = realtime_frames(r, w, h, "city", card,
                                                 RT_CITY_PATH, warmups=1)
@@ -709,12 +820,8 @@ def realtime(results: dict, card: str, host_city) -> dict:
     w, h = 640, 360
     r = RealtimeRenderer(host, procedural.default_camera(w, h),
                          device="cuda")
-    with Capture({"shade_nee_fill": 1}) as cap:
-        r.render_frame(w, h)
-        torch.cuda.synchronize()
-    results["realtime_360p"]["shade_nee_fill"] = check_shade(
-        *cap.calls["shade_nee_fill"][0], "realtime 360p", fill=True)
-    del cap
+    results["realtime_360p"].update(
+        check_realtime_kernels(r, w, h, "realtime 360p"))
     launches["realtime_360p"] = realtime_frames(r, w, h, "programmer-art",
                                                 card, RT_ART_PATH, warmups=1)
 
@@ -770,15 +877,7 @@ def phase(name, fn, *args):
     return out
 
 
-def main(argv=None) -> int:
-    import argparse
-    ap = argparse.ArgumentParser("chip_smoke")
-    ap.add_argument("--only", default=None,
-                    help="comma-separated phases (kernels, goldens, bench, "
-                    "city, realtime): a development run, no result line")
-    ap.add_argument("--ptxas", default=None,
-                    help="write nvcc's -Xptxas=-v report to this file")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs a CUDA GPU", file=sys.stderr)
@@ -792,45 +891,31 @@ def main(argv=None) -> int:
 
     from rtxpt_tpu_torch.ops import cuda_lib
     t0 = time.time()
-    if args.ptxas:
-        import contextlib
-        import io
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            cuda_lib.build(verbose=True)
-        with open(args.ptxas, "w") as f:
-            f.write(buf.getvalue())
     cuda_lib.lib()
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
           f"({cuda_lib.build()})", flush=True)
 
     # each path's kernel checks, {path: {kernel name: result}}
-    results = {"bench": {}, "city": {}, "realtime_city": {},
-               "realtime_360p": {}}
-    only = None if args.only is None else set(args.only.split(","))
-    run = lambda name: only is None or name in only
+    results = {p: {} for p in PATHS}
     launches = {}
-    if run("kernels"):
-        phase("kernels K1-K4", check_kernels, results)
-    if run("goldens"):
-        phase("goldens", check_goldens)
-    if run("bench"):
-        launches["bench"] = phase("bench", bench, card)
-    host_city = build_city() if run("city") or run("realtime") else None
-    if run("city"):
-        launches["city"] = phase("city", city, results, card, host_city)
-    if run("realtime"):
-        launches.update(phase("realtime", realtime, results, card,
-                              host_city))
-    if only is not None:
-        print(f"phases {sorted(only)} passed (development run: no result "
-              "line)")
-        return 0
+    phase("kernels K1-K4", check_kernels, results)
+    phase("goldens", check_goldens)
+    launches["bench"] = phase("bench", bench, card)
+    t0 = time.perf_counter()
+    host_city = build_city()
+    geometry_s = time.perf_counter() - t0
+    launches["city"] = phase("city", city, results, card, host_city,
+                             geometry_s)
+    launches.update(phase("realtime", realtime, results, card, host_city))
+    for p, names in PATHS.items():
+        missing = [n for n in names if n not in results[p]]
+        require(not missing, f"{p}: {missing} not checked at this path's "
+                "shapes")
     kernels = []
     for name, (_, src, rep) in KERNELS.items():
         # the top-level numbers are those of the first path that checks
-        # the kernel (K1-K4: the bench; K5, K6: the city); by_path holds
-        # every path's
+        # the kernel (K1-K4: the bench; K5, K6: the city; K4 FILL: the
+        # realtime city); by_path holds every path's
         path = next(p for p in results if name in results[p])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
