@@ -7,17 +7,23 @@ Phases (any failure exits non-zero before the result line; each prints
 its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from csrc/ with nvcc for sm_90a (one nvcc per source, in parallel);
-  2. hold K1-K4 against their plain PyTorch versions on the card, on the
-     inputs of the first bounces of an 800x600 programmer-art render
+  2. hold K1-K4 and K7 against their plain PyTorch versions on the card,
+     on the inputs of the first bounces of an 800x600 programmer-art render
      (480,000 camera rays, then scattered and NEE rays), and time both
-     (and K2 against torch.index_select);
+     (and K2 against torch.index_select); K7's worklist keys must be
+     bit-equal on every captured K1 trace, and its visits per tile are
+     printed;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
      cross-platform gate); hold the 64x48 GPU render against the port's
      CPU render of the same frame (PSNR > 40 dB);
   4. render the bench workload (800x600, 6 bounces / 4 diffuse, NEE 1+1,
      8 spp as one regenerating wavefront) with every launch counter set to
-     0 just before, and require K1-K4 to have launched;
+     0 just before, and require K1-K4 and K7 to have launched; then render
+     it once more unsorted and once with wavefront_sort="raystream", print
+     both walls and visits per tile, require K1 and K7 to have launched in
+     the sorted render and its image to equal the unsorted one (rtol 1e-5,
+     atol 1e-6, tests/test_raystream_sort.py);
   5. the city: build the default procedural city (404,186 triangles,
      two-level BVH8); hold K6 (the probe), K5 (the sweep) and K2-K4 (the
      gathers from the city's tables, the shade pass) against their plain
@@ -34,7 +40,7 @@ its seconds):
      FILL, the first FILL NEE trace that casts a ray, the fused ReSTIR
      final shade's visibility trace) and hold each kernel of the path
      against its plain version on them (city: K2, K3, K4 FILL, K5, K6;
-     360p: K1, K2, K3, K4 FILL); after the no-history and the history
+     360p: K1, K2, K3, K4 FILL, K7); after the no-history and the history
      warm-up frames, time 3 frames with the
      counters set to 0 just before, and require the path's kernels to
      have launched and the frame to be finite and not black. Then the
@@ -43,7 +49,13 @@ its seconds):
      tests/test_ref_vs_realtime.py on the card: the mean of 32
      `ref-vs-realtime` frames at 48x32 against the port's 32-spp
      reference render (median block error < 0.25, means within 10%);
-  7. print a JSON line describing the kernels (each kernel's numbers on
+  7. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+     tools_torch/kernel_lab.py) against its plain version at 16
+     iterations, and its microseconds per iteration at 2,000; each mode of
+     the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
+     bench camera rays, the "gate" mode's visit counts equal to its plain
+     version and the others' winners against the plain K1;
+  8. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
 
@@ -82,14 +94,17 @@ KERNELS = {
     "bvh8_trace_sub": ("bvh8_trace_sub",
                        "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
                        "rtxpt_tpu/ops/traverse_pallas.py:380"),
+    "tile_keys": ("tile_keys", "rtxpt_tpu_torch/csrc/mt_dense.cu",
+                  "rtxpt_tpu/ops/mt_dense.py:490"),
 }
 # the kernels each main path must launch
-BENCH_PATH = ("mt_dense", "gather_rows", "gather_rows_interp", "shade_nee")
+BENCH_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
+              "shade_nee")
 CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
              "gather_rows_interp", "shade_nee")
 RT_CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
                 "gather_rows_interp", "shade_nee_fill")
-RT_ART_PATH = ("mt_dense", "gather_rows", "gather_rows_interp",
+RT_ART_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
                "shade_nee_fill")
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
@@ -214,35 +229,82 @@ FIRST_BOUNCE = {"trace_dense": 3, "gather_rows": 16, "gather_rows_interp": 1,
                 "shade_nee": 1}
 
 
-def k1_work(args, kw, t, slot):
-    """(bytes, ops) of one K1 launch: every active lane slab-tests every
-    cluster, and tests the 64 rows of each cluster its box lets through
-    (up to the lane's final t; for any-hit, up to the cluster of the
-    first hit)."""
+def k1_work(args, kw, t, slot, worklists):
+    """(bytes, ops) of one K1 launch: every active lane slab-tests the
+    clusters of its tile's worklist, and tests the 64 rows of each cluster
+    its box lets through (up to the lane's final t; for any-hit, up to the
+    cluster of the first hit, in worklist order)."""
     from rtxpt_tpu_torch.ops import mt_dense
     from rtxpt_tpu_torch.ops.intersect import safe_inv
     aabb_c, tri9, o_c, d, tmax, act = args
+    counts, order = worklists
     n, nc = o_c.shape[0], aabb_c.shape[0]
-    nbytes = (aabb_c.numel() + tri9.numel()) * 4 + n * (12 + 12 + 4 + 1 + 8)
+    nbytes = (aabb_c.numel() + tri9.numel() + counts.numel()
+              + order.numel()) * 4 + n * (12 + 12 + 4 + 1 + 8)
     lim = tmax if kw["any_hit"] else t
-    cl = torch.arange(nc, device=o_c.device)
+    # rank[tile, c]: cluster c's place on the tile's list
+    rank = torch.empty_like(order).scatter_(
+        1, order.long(), torch.arange(nc, dtype=order.dtype,
+                                      device=order.device).expand_as(order)
+        .contiguous())
     passing = 0
     for c in range(0, n, 1 << 16):
         sl = slice(c, c + (1 << 16))
+        lanes = torch.arange(c, min(c + (1 << 16), n), device=o_c.device)
+        r = rank[lanes // mt_dense.TILE]
         inv = safe_inv(d[sl])[:, None]
         t0 = (aabb_c[None, :, 0:3] - o_c[sl, None]) * inv
         t1 = (aabb_c[None, :, 3:6] - o_c[sl, None]) * inv
         tn = torch.clamp(torch.amax(torch.minimum(t0, t1), -1), min=0.0)
         tf = torch.minimum(torch.amin(torch.maximum(t0, t1), -1),
                            lim[sl, None])
-        m = (tn <= tf) & act[sl, None]
+        m = (tn <= tf) & act[sl, None] \
+            & (r < counts[lanes // mt_dense.TILE, None])
         if kw["any_hit"]:
-            last = torch.where(slot[sl] >= 0, slot[sl] // mt_dense.CLUSTER,
+            hit_c = torch.clamp(slot[sl], min=0).long() // mt_dense.CLUSTER
+            last = torch.where(slot[sl] >= 0, r.gather(1, hit_c[:, None])[:, 0],
                                nc)
-            m &= cl[None] <= last[:, None]
+            m &= r <= last[:, None]
         passing += int(m.sum())
-    ops = int(act.sum()) * nc * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
+    tiles = torch.arange(n, device=o_c.device) // mt_dense.TILE
+    slabs = int(counts.long()[tiles][act].sum())
+    ops = slabs * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
     return nbytes, ops
+
+
+def check_k7(args, what) -> tuple:
+    """K7 on one captured K1 trace's inputs: keys bit-equal to the plain
+    version's, and counts/order equal to a stable argsort of them; the
+    plain version is the keys and that sort -> (worklists, ms, plain ms,
+    bytes, ops)."""
+    from rtxpt_tpu_torch.ops import mt_dense as M
+    from tools_torch.profile_mt_kernel import visits
+    aabb_c, _, o_c, d, tmax, act = args
+
+    def plain():
+        keys = M.tile_keys_plain(aabb_c, o_c, d, tmax, act)
+        return (keys, *M.worklists_from_keys(keys))
+
+    k, counts, order = M.tile_keys(aabb_c, o_c, d, tmax, act)
+    p, counts_p, order_p = plain()
+    require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+            f"K7 {what}: keys not bit-equal to the plain version")
+    require(torch.equal(counts, counts_p) and torch.equal(order, order_p),
+            f"K7 {what}: counts/order differ from the plain version's")
+    ms = time_ms(lambda: M.tile_keys(aabb_c, o_c, d, tmax, act), 20)
+    pms = time_ms(plain, 3)
+    n, nc = o_c.shape[0], aabb_c.shape[0]
+    nbytes = n * (12 + 12 + 4 + 1) + nc * 24 + (2 * k.numel()
+                                                + counts.numel()) * 4
+    # slab tests, and the bitonic sort's compare-exchanges (4 operations)
+    steps = (nc - 1).bit_length()
+    ops = int(act.sum()) * nc * SLAB_OPS \
+        + k.shape[0] * (1 << steps) // 2 * steps * (steps + 1) // 2 * 4
+    print(f"K7 {what}: keys bit-equal, worklists equal ({k.shape[0]} tiles "
+          f"of {M.TILE} x {nc}), visits/tile {visits(counts)}; kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bound(nbytes, ops)[0]:.4f} ms", flush=True)
+    return (counts, order), ms, pms, nbytes, ops
 
 
 def check_kernels(results: dict):
@@ -265,10 +327,10 @@ def check_kernels(results: dict):
     closest = [c for c in cap.calls["trace_dense"] if not c[1]["any_hit"]]
     anyhit = [c for c in cap.calls["trace_dense"] if c[1]["any_hit"]]
     require(len(closest) >= 2 and anyhit, "K1: too few traces captured")
-    results["bench"]["mt_dense"] = check_dense(
+    results["bench"].update(check_dense(
         r.accel, [("camera", closest[0], True),
                   ("scattered", closest[1], False),
-                  ("nee any-hit", anyhit[0], True)], "bench")
+                  ("nee any-hit", anyhit[0], True)], "bench"))
 
     # ---- K2-K4 on the gathers and the shade pass of the first bounce;
     # K4 also at the goldens' NEE 2+2 (reference_config())
@@ -283,17 +345,24 @@ def check_kernels(results: dict):
 
 
 def check_dense(accel, traces, label) -> dict:
-    """K1 on captured traces [(what, (args, kw), timed)]: the same winner
-    (closest) or occlusion flag (any-hit) on >= 99.99% of the active lanes
-    and t/u/v within rtol 1e-5 / atol 1e-6 where the winners agree; kernel
-    and plain times and the bound summed over the timed traces."""
+    """K7 and K1 on captured traces [(what, (args, kw), timed)]: K7 as
+    check_k7 says; K1 (walking K7's worklists) against the plain version
+    over all clusters: the same winner (closest) or occlusion flag
+    (any-hit) on >= 99.99% of the active lanes and t/u/v within rtol 1e-5
+    / atol 1e-6 where the winners agree; kernel and plain times and the
+    bound summed over the timed traces -> {"mt_dense": ..., "tile_keys":
+    ...}."""
     from rtxpt_tpu_torch.ops import mt_dense
     k1_ms = k1_plain_ms = k1_err = 0.0
     k1_bytes = k1_ops = 0
+    k7 = [0.0, 0.0, 0, 0]                    # ms, plain ms, bytes, ops
     for what, (args, kw), timed in traces:
+        wl, *k7_res = check_k7(args, f"{label} {what}")
+        if timed:
+            k7 = [a + b for a, b in zip(k7, k7_res)]
         what = f"K1 {label} {what}"
         aabb_c, tri9, o_c, d, tmax, act = args
-        t_k, s_k = mt_dense.trace_dense(*args, **kw)
+        t_k, s_k = mt_dense.trace_dense(*args, **kw, worklists=wl)
         t_p, s_p = mt_dense.trace_dense_plain(*args, **kw)
         torch.cuda.synchronize()
         lanes = int(act.sum())
@@ -320,9 +389,10 @@ def check_dense(accel, traces, label) -> dict:
             require(agree >= 0.9999, f"{what}: winner agreement {agree}")
             require(ok_tuv, f"{what}: t/u/v outside rtol 1e-5 / atol 1e-6")
         if timed:
-            ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw), 20)
+            ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw,
+                                                      worklists=wl), 20)
             pms = time_ms(lambda: mt_dense.trace_dense_plain(*args, **kw), 2)
-            nb, ops = k1_work(args, kw, t_k, s_k)
+            nb, ops = k1_work(args, kw, t_k, s_k, wl)
             print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                   f"bound {bound(nb, ops)[0]:.4f} ms", flush=True)
             k1_ms += ms
@@ -330,8 +400,13 @@ def check_dense(accel, traces, label) -> dict:
             k1_bytes += nb
             k1_ops += ops
     b_ms, b_by = bound(k1_bytes, k1_ops)
-    return dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms,
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    k7_b, k7_by = bound(k7[2], k7[3])
+    return {"mt_dense": dict(max_abs_err=k1_err, ms=k1_ms,
+                             plain_ms=k1_plain_ms, library_ms=None,
+                             bound_ms=b_ms, bound_by=b_by),
+            "tile_keys": dict(max_abs_err=0.0, ms=k7[0], plain_ms=k7[1],
+                              library_ms=None, bound_ms=k7_b,
+                              bound_by=k7_by)}
 
 
 def check_gathers(calls, label, lanes=None) -> dict:
@@ -512,7 +587,124 @@ def bench(card: str) -> dict:
     for name in BENCH_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the bench path")
-    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+
+
+class VisitCount:
+    """Counts the tiles and worklist visits of every dense trace while
+    active (wraps mt_dense.tile_worklists; the sums stay on the device)."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.ops import mt_dense as M
+        self.mod, self.orig = M, M.tile_worklists
+        self.visits, self.tiles = 0, 0
+
+        def counted(*args, **kw):
+            counts, order = self.orig(*args, **kw)
+            self.visits = self.visits + counts.sum()
+            self.tiles += counts.numel()
+            return counts, order
+        M.tile_worklists = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tile_worklists = self.orig
+
+    def per_tile(self) -> float:
+        return float(self.visits) / max(self.tiles, 1)
+
+
+def sorted_bench(card: str):
+    """The bench workload unsorted and under wavefront_sort="raystream"
+    (each with its launch counts set to 0 just before): both walls and
+    visits per tile; the sorted render must launch K1 and K7 and equal the
+    unsorted one to the tolerance of tests/test_raystream_sort.py."""
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.ops import cuda_lib
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    w, h, spp = 800, 600, 8
+    host = procedural.build_programmer_art().finish()
+    imgs = {}
+    for sort in ("none", "raystream"):
+        cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
+                               nee_distant_samples=1, nee_local_samples=1,
+                               wavefront_sort=sort)
+        r = Renderer(host, procedural.default_camera(w, h), cfg,
+                     env_radiance=EM.bake_procedural_sky(height=64),
+                     device="cuda")
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        with VisitCount() as vc:
+            t0 = time.perf_counter()
+            hdr = r.render(w, h, spp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = cuda_lib.launch_counts()
+        imgs[sort] = hdr.cpu().numpy()
+        print(f"bench wavefront_sort={sort}: {wall * 1e3:.1f} ms wall "
+              f"({w * h * spp / wall / 1e6:.3f} Mpaths/s) on {card}; "
+              f"visits/tile {vc.per_tile():.3f} over {vc.tiles} tiles; K1 "
+              f"{counts['mt_dense']}, K7 {counts['tile_keys']} launches",
+              flush=True)
+        for name in ("mt_dense", "tile_keys"):
+            require(counts[name] > 0, f"{name} was not launched under "
+                    f"wavefront_sort={sort}")
+    a, b = imgs["none"], imgs["raystream"]
+    diff = np.abs(a - b)
+    print(f"raystream vs unsorted: max |diff| {diff.max():.3g}, pixels "
+          f"outside rtol 1e-5 / atol 1e-6: "
+          f"{int((diff > 1e-6 + 1e-5 * np.abs(a)).any(-1).sum())} of "
+          f"{w * h}", flush=True)
+    require(np.isfinite(b).all() and np.allclose(b, a, rtol=1e-5, atol=1e-6),
+            "raystream render differs from the unsorted one")
+
+
+def labs(results: dict) -> dict:
+    """The labs phase (7.): K9's modes on the bench camera rays and every
+    K8 micro-kernel against its plain version -> results["labs"]; returns
+    the labs' kernels (no main path runs them) as KERNELS describes
+    kernels."""
+    from rtxpt_tpu_torch.ops import mt_dense as M
+    from tools_torch import kernel_lab as KL
+    from tools_torch import profile_mt_kernel as PM
+    args, _ = PM.capture_traces()["camera"]
+    aabb_c, _, o_c, d, tmax, act = args
+    modes = PM.run_modes(args)
+    print("K9 modes on the bench camera rays (ms, agreement with the plain "
+          "version): " + ", ".join(f"{m} {ms:.4f} ({agree:.6%})"
+                                   for m, (ms, agree) in modes.items()),
+          flush=True)
+    wl = M.tile_worklists(aabb_c, o_c, d, tmax, act)
+    pms = time_ms(lambda: PM.gate_visits_plain(aabb_c, o_c, d, tmax, act,
+                                               wl), 3)
+    tiles = torch.arange(o_c.shape[0], device=o_c.device) // M.TILE
+    nb = o_c.shape[0] * (12 + 12 + 4 + 1 + 4) + aabb_c.numel() * 4 \
+        + (wl[0].numel() + wl[1].numel()) * 4
+    b_ms, b_by = bound(nb, int(wl[0].long()[tiles][act].sum()) * SLAB_OPS)
+    kernels = {"mt_dense_gate": ("mt_dense_variant", PM.SOURCE,
+                                 PM.REPLACES)}
+    results["labs"]["mt_dense_gate"] = dict(
+        max_abs_err=0.0, ms=modes["gate"][0], plain_ms=pms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        modes_ms={m: ms for m, (ms, _) in modes.items()})
+    table = KL.make_table("cuda")
+    for name in KL.KERNELS:
+        err = KL.check(name, table)
+        ms = KL.time_ms(lambda: KL.run(name, table, KL.CHECK_ITERS))
+        pms = KL.time_ms(lambda: KL.plain(name, table, KL.CHECK_ITERS), 1)
+        full = KL.time_ms(lambda: KL.run(name, table, KL.ITERS))
+        nb = KL.LANES * 4 + (table.numel() * 4 if name == "row_fetch" else 0)
+        b_ms, b_by = bound(nb, KL.OPS[name] * KL.LANES * KL.CHECK_ITERS)
+        print(f"K8 {name}: max |diff| {err:.3g} at {KL.CHECK_ITERS} "
+              f"iterations (kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{b_ms:.4f} ms); {full * 1e3 / KL.ITERS:.4f} us/iter over "
+              f"{KL.LANES} lanes at {KL.ITERS} iterations", flush=True)
+        kernels[f"lab_{name}"] = ("kernel_lab", KL.SOURCE, KL.REPLACES[name])
+        results["labs"][f"lab_{name}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by,
+            us_per_iter=full * 1e3 / KL.ITERS)
+    return kernels
 
 
 def bvh8_work(args, stats, stacked: bool):
@@ -695,7 +887,7 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     print(f"city GPU vs CPU (plain) 64x36 1spp: PSNR {m['psnr']:.2f} dB, "
           f"SMAPE {m['smape']:.5f}")
     require(m["psnr"] > PSNR_MIN, f"city GPU vs CPU render: {m}")
-    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
 def capture_realtime_frame(r, w, h):
@@ -742,9 +934,8 @@ def check_realtime_kernels(r, w, h, label) -> dict:
     require(lanes == w * h, f"{label}: the first FILL bounce has {lanes} "
             f"lanes, not {w * h}")
     if "trace_dense" in traces:
-        out = {"mt_dense": check_dense(
-            r.accel, [(what, cap.calls["trace_dense"][0], True)
-                      for what, cap, _ in stages], label)}
+        out = check_dense(r.accel, [(what, cap.calls["trace_dense"][0], True)
+                                    for what, cap, _ in stages], label)
     else:
         out = check_two_level(
             [(what, cap.calls["trace_bvh8_sub"][0], cap.calls["trace_bvh8"],
@@ -785,7 +976,7 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
-    return {name: counts[KERNELS[name][0]] for name in KERNELS}
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
 def realtime(results: dict, card: str, host_city) -> dict:
@@ -897,30 +1088,34 @@ def main() -> int:
 
     # each path's kernel checks, {path: {kernel name: result}}
     results = {p: {} for p in PATHS}
+    results["labs"] = {}
     launches = {}
-    phase("kernels K1-K4", check_kernels, results)
+    phase("kernels K1-K4, K7", check_kernels, results)
     phase("goldens", check_goldens)
     launches["bench"] = phase("bench", bench, card)
+    phase("bench raystream", sorted_bench, card)
     t0 = time.perf_counter()
     host_city = build_city()
     geometry_s = time.perf_counter() - t0
     launches["city"] = phase("city", city, results, card, host_city,
                              geometry_s)
     launches.update(phase("realtime", realtime, results, card, host_city))
+    lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]
         require(not missing, f"{p}: {missing} not checked at this path's "
                 "shapes")
     kernels = []
-    for name, (_, src, rep) in KERNELS.items():
+    for name, (_, src, rep) in {**KERNELS, **lab_kernels}.items():
         # the top-level numbers are those of the first path that checks
-        # the kernel (K1-K4: the bench; K5, K6: the city; K4 FILL: the
-        # realtime city); by_path holds every path's
+        # the kernel (K1-K4, K7: the bench; K5, K6: the city; K4 FILL: the
+        # realtime city; K8, K9: the labs); by_path holds every path's
         path = next(p for p in results if name in results[p])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=sum(c[name] for c in launches.values()),
-            launches_by_path={p: c[name] for p, c in launches.items()},
+            launches=sum(c.get(name, 0) for c in launches.values()),
+            launches_by_path={p: c.get(name, 0)
+                              for p, c in launches.items()},
             measured_on=path, **{key: results[path][name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")},

@@ -4,10 +4,9 @@
 constants (SampleConstantBuffer.h PathTracerConstants), both plain
 dataclasses of python scalars. The port carries the reference-mode and
 realtime fields its render modes read, with the reference's defaults; it
-always samples the
-environment with the MIP-descent distribution, low-discrepancy sample
-streams and the fused shade+NEE pass, and never re-sorts the wavefront
-(the reference's defaults for those switches).
+always samples the environment with the MIP-descent distribution,
+low-discrepancy sample streams and the fused shade+NEE pass (the
+reference's defaults for those switches).
 """
 from __future__ import annotations
 
@@ -39,6 +38,15 @@ class PTConfig:
     denoiser_enabled: bool = False
     realtime_noise: bool = True           # Sample.cpp:1572 determinism switch
     denoiser_method: str = "relax"        # NRD slot: "relax" (or "reblur")
+    # per-bounce wavefront reorder (SER's coherence reorder; the sort keys
+    # of pt/integrator.py `wavefront_sort_key`): "none" keeps the morton
+    # primary order; "octant" sorts live lanes by direction octant;
+    # "material" by the last shaded material id; "raystream" by the
+    # morton code of the new ray's origin cell and its octant, so that
+    # the dense trace's tiles (whose cost is the union of their rays'
+    # cluster worklists) hold rays from one scene cell heading one way.
+    # Compaction runs only under "none".
+    wavefront_sort: str = "none"
     # width compaction of wide wavefronts (pt/integrator.py): tail
     # compaction of single-sample waves, staged compaction of regenerating
     # waves, for wavefronts at least wavefront_compaction_min lanes wide

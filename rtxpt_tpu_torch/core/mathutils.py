@@ -153,3 +153,21 @@ def morton2d(px, py):
     """Z-order key from 16-bit pixel coords (int64 tensors)."""
     return _spread_bits16(px.to(torch.int64)) | (
         _spread_bits16(py.to(torch.int64)) << 1)
+
+
+def _spread_bits10(x):
+    """Spread the low 10 bits of x so bit i lands at bit 3i."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton3d(qx, qy, qz):
+    """Z-order key from 10-bit quantized 3D coords (int64 tensors; a
+    30-bit key): orders secondary wavefront lanes by ray origin cell."""
+    return (_spread_bits10(qx.to(torch.int64))
+            | (_spread_bits10(qy.to(torch.int64)) << 1)
+            | (_spread_bits10(qz.to(torch.int64)) << 2))

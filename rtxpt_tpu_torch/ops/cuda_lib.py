@@ -41,7 +41,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rtxpt_gather_rows": (P, I, I, P, P, I, P),
     "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, P),
-    "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, I, I, P),
+    "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
+    "rtxpt_mt_dense_variant": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
+    "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
@@ -113,26 +115,27 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
-def source_hash() -> str:
+def source_hash(sources=SOURCES) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
+    for name in HEADERS + tuple(sources):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu (one nvcc process per file, in parallel) and
-    link them into one .so; returns its path. Reuses a library already
-    built from the same sources and flags."""
-    so = BUILD_DIR / f"librtxpt_kernels_{source_hash()}.so"
+def build(verbose: bool = False, stem: str = "rtxpt_kernels",
+          sources=SOURCES) -> Path:
+    """Compile `sources` from csrc/ (one nvcc process per file, in
+    parallel) and link them into one .so; returns its path. Reuses a
+    library already built from the same sources and flags."""
+    so = BUILD_DIR / f"lib{stem}_{source_hash(sources)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs, procs = [], []
-        for src in SOURCES:
+        for src in sources:
             obj = Path(tmp) / (src + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
             if verbose:
@@ -157,25 +160,32 @@ def build(verbose: bool = False) -> Path:
     return so
 
 
+def load(stem: str, sources, signatures: dict) -> ctypes.CDLL:
+    """Build (on first use) and load library `stem` from `sources`, with
+    the C signatures of its entry points."""
+    handle = ctypes.CDLL(str(build(stem=stem, sources=sources)))
+    for name, args in signatures.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+    return handle
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, args in SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = load("rtxpt_kernels", SOURCES, SIGNATURES)
     return _lib
 
 
-def launch(name: str, *args):
-    """Call C entry point `name` on the current CUDA stream (appended as
-    the last argument); raises on a refused launch. Tensors passed in may
-    be freed when the wrapper returns: PyTorch's caching allocator hands
-    their memory out again only in stream order, after the launch."""
+def launch(name: str, *args, library: ctypes.CDLL = None):
+    """Call C entry point `name` of `library` (default: `lib()`) on the
+    current CUDA stream (appended as the last argument); raises on a
+    refused launch. Tensors passed in may be freed when the wrapper
+    returns: PyTorch's caching allocator hands their memory out again
+    only in stream order, after the launch."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+    err = getattr(library or lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")

@@ -3,14 +3,18 @@ MAX_TRIS triangles (counterpart of rtxpt_tpu/ops/mt_dense.py).
 
 Triangles are morton-ordered and chunked into clusters of CLUSTER rows of
 the recentered (p0, e1, e2) table `tri9` (column 9: original triangle
-id). The trace kernel K1 (``csrc/mt_dense.cu``) runs one thread per ray:
-it walks the clusters in order, slab-gates each cluster AABB against the
-lane's running closest t, and runs Möller–Trumbore on the cluster's rows.
-The TPU expressed the same test as a W(RC,16) @ x(16,TILE) matmul over
-[o (x) d, d, o, 1] features and picked winners on a quantized t; the port
-tests triangles directly and selects exactly: smallest t, ties to the
-lowest slot. `trace_closest` then re-solves t/u/v from the winning
-triangle in float32, as the reference does.
+id). Before each trace, the prepass K7 (``csrc/mt_dense.cu``
+`rtxpt_tile_keys`) builds a worklist per tile of TILE lanes: the clusters
+that some active lane of the tile can enter, nearest slab entry first
+(`tile_worklists`). The trace kernel K1 runs one thread per ray and one
+block per tile: it walks its tile's worklist, slab-gates each cluster
+AABB against the lane's running closest t, and runs Möller–Trumbore on
+the cluster's rows. The TPU expressed the same test as a W(RC,16) @
+x(16,TILE) matmul over [o (x) d, d, o, 1] features and picked winners on
+a quantized t; the port tests triangles directly and selects exactly:
+smallest t, ties to the lowest slot, whatever the visit order.
+`trace_closest` then re-solves t/u/v from the winning triangle in
+float32, as the reference does.
 
 Origins are recentered on the scene center before the trace (precision of
 the products with far-away origins), as in the reference.
@@ -27,6 +31,7 @@ from .intersect import Hit, safe_inv
 
 CLUSTER = 64            # triangles per cluster (csrc/mt_dense.cu kCluster)
 MAX_TRIS = 8192         # beyond this the reference switches to BVH paths
+TILE = 128              # lanes per K1 block and worklist (kBlock)
 _PLAIN_CHUNK = 1 << 16  # rays per step of the plain version
 
 
@@ -106,9 +111,166 @@ def build_dense(positions, indices, device="cuda") -> DenseMT:
                    num_clusters=nc)
 
 
-def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit):
-    """K1's arithmetic on one chunk of rays, cluster by cluster. Only the
-    lanes that pass a cluster's slab gate are tested against its rows."""
+def _pad_lanes(origins, dirs, t_max, active, tile: int):
+    """Lanes padded to a multiple of `tile` as the reference's
+    `_trace_dense` pads them: origin 0, direction 1, t_max 0, inactive."""
+    pad = -origins.shape[0] % tile
+    if pad == 0:
+        return origins, dirs, t_max, active
+    z = lambda a, v: torch.cat([a, torch.full((pad,) + a.shape[1:], v,
+                                              dtype=a.dtype,
+                                              device=a.device)])
+    return z(origins, 0.0), z(dirs, 1.0), z(t_max, 0.0), z(active, False)
+
+
+def tile_keys_plain(aabb, origins, dirs, t_max, active, tile: int = TILE):
+    """Plain version of K7 (the reference's `_tile_worklists_exact` keys):
+    cluster AABBs (NC,6), origins and directions (N,3), t_max (N,), active
+    (N,) bool -> keys (ceil(N/tile), NC) f32. A key is the smallest slab
+    entry t (not clamped at 0: negative for an origin inside the box) over
+    the tile's active lanes whose slab test max(tn, 0) <= min(tf, t_max)
+    passes, +inf where none does; -0.0 entries count as +0.0."""
+    o, d, tm, act = _pad_lanes(origins, dirs, t_max, active, tile)
+    inv = safe_inv(d)
+    ox, oy, oz = (o[:, k].contiguous() for k in range(3))
+    ix, iy, iz = (inv[:, k].contiguous() for k in range(3))
+    keys = torch.empty((o.shape[0] // tile, aabb.shape[0]),
+                       dtype=torch.float32, device=aabb.device)
+    for c, b in enumerate(aabb.tolist()):
+        t0x, t1x = (b[0] - ox) * ix, (b[3] - ox) * ix
+        t0y, t1y = (b[1] - oy) * iy, (b[4] - oy) * iy
+        t0z, t1z = (b[2] - oz) * iz, (b[5] - oz) * iz
+        tn = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                         torch.minimum(t0y, t1y)),
+                           torch.minimum(t0z, t1z))
+        tf = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                         torch.maximum(t0y, t1y)),
+                           torch.minimum(torch.maximum(t0z, t1z), tm))
+        hit = (torch.clamp(tn, min=0.0) <= tf) & act
+        keys[:, c] = torch.where(hit, tn + 0.0, torch.inf).reshape(
+            -1, tile).amin(1)
+    return keys
+
+
+@cuda_lib.counted("tile_keys")
+def tile_keys(aabb, origins, dirs, t_max, active, tile: int = TILE):
+    """K7: (keys, counts, order): the keys of `tile_keys_plain` and the
+    worklists `worklists_from_keys` makes of them, one block per tile
+    (`tile` a multiple of 32, at most 1024; at most MAX_TRIS / CLUSTER
+    clusters)."""
+    if not cuda_lib.on_cuda(aabb, origins, dirs, t_max, active):
+        keys = tile_keys_plain(aabb, origins, dirs, t_max, active, tile)
+        return (keys, *worklists_from_keys(keys))
+    n, nc = origins.shape[0], aabb.shape[0]
+    cuda_lib.check(aabb, "aabb", torch.float32, (nc, 6))
+    cuda_lib.check(origins, "origins", torch.float32, (n, 3))
+    cuda_lib.check(dirs, "dirs", torch.float32, (n, 3))
+    cuda_lib.check(t_max, "t_max", torch.float32, (n,))
+    cuda_lib.check(active, "active", torch.bool, (n,))
+    if not 1 <= nc <= MAX_TRIS // CLUSTER:
+        raise ValueError(f"tile_keys: {nc} clusters, at most "
+                         f"{MAX_TRIS // CLUSTER}")
+    if tile % 32 or not 32 <= tile <= 1024:
+        raise ValueError(f"tile_keys: tile {tile} is not a multiple of 32 "
+                         "in [32, 1024]")
+    tiles = (n + tile - 1) // tile
+    keys = torch.empty((tiles, nc), dtype=torch.float32, device=aabb.device)
+    counts = torch.empty((tiles,), dtype=torch.int32, device=aabb.device)
+    order = torch.empty((tiles, nc), dtype=torch.int32, device=aabb.device)
+    if n:
+        cuda_lib.bump("tile_keys")
+        cuda_lib.launch("rtxpt_tile_keys", aabb.data_ptr(), nc,
+                        origins.data_ptr(), dirs.data_ptr(), t_max.data_ptr(),
+                        active.data_ptr(), keys.data_ptr(), counts.data_ptr(),
+                        order.data_ptr(), n, tile)
+    return keys, counts, order
+
+
+def worklists_from_keys(keys):
+    """(counts (T,) i32, order (T, NC) i32) from K7's keys: a tile's
+    clusters with a finite key, nearest entry first (stable argsort, as
+    the reference's jnp.argsort; K7 sorts in the kernel)."""
+    counts = torch.isfinite(keys).sum(1).to(torch.int32)
+    order = torch.argsort(keys, dim=1, stable=True).to(torch.int32)
+    return counts, order
+
+
+def tile_worklists(aabb, origins, dirs, t_max, active, tile: int = TILE):
+    """Per-tile near-to-far cluster worklists (counts, order) of the
+    reference's exact prepass (`_tile_worklists_exact`, fused form
+    `_tile_worklists_pallas`) for tiles of `tile` lanes."""
+    return tile_keys(aabb, origins, dirs, t_max, active, tile)[1:]
+
+
+def worklist_mask(worklists):
+    """(T, NC) bool: cluster c is on tile t's worklist (counts, order)."""
+    counts, order = worklists
+    rank = torch.arange(order.shape[1], device=order.device)[None, :]
+    return torch.zeros(order.shape, dtype=torch.bool,
+                       device=order.device).scatter_(
+        1, order.long(), rank < counts[:, None])
+
+
+def tile_worklists_interval(aabb, origins, dirs, t_max, active,
+                            tile: int = TILE):
+    """The reference's conservative prepass (`_tile_worklists_interval`,
+    plain only): each tile reduced to its active lanes' origin box,
+    direction interval and largest t_max, slab-tested per (tile, cluster)
+    in interval arithmetic; ordered by entry t plus the distance from the
+    tile's origin centroid to the cluster center. A superset of
+    `tile_worklists`; the dense-trace lab compares the two."""
+    o, d, tm, act = _pad_lanes(origins, dirs, t_max, active, tile)
+    t = o.shape[0] // tile
+    big = 1e30
+    o_t, d_t = o.reshape(t, tile, 3), d.reshape(t, tile, 3)
+    tm_t = tm.reshape(t, tile)
+    ac = act.reshape(t, tile)[..., None]
+    o_lo = torch.where(ac, o_t, big).amin(1)               # (T,3)
+    o_hi = torch.where(ac, o_t, -big).amax(1)
+    d_lo = torch.where(ac, d_t, big).amin(1)
+    d_hi = torch.where(ac, d_t, -big).amax(1)
+    tmx = torch.where(ac[..., 0], tm_t, 0.0).amax(1)       # (T,)
+    any_act = ac[..., 0].any(1)
+    lo, hi = aabb[None, :, 0:3], aabb[None, :, 3:6]        # (1,NC,3)
+    nl_lo, nl_hi = lo - o_hi[:, None], lo - o_lo[:, None]  # (T,NC,3)
+    nh_lo, nh_hi = hi - o_hi[:, None], hi - o_lo[:, None]
+    dl, dh = d_lo[:, None], d_hi[:, None]                  # (T,1,3)
+    sign_def = (dl > 1e-12) | (dh < -1e-12)
+    dl_s = torch.where(torch.abs(dl) < 1e-12, 1e-12, dl)
+    dh_s = torch.where(torch.abs(dh) < 1e-12, 1e-12, dh)
+
+    def qmin(num_lo, num_hi):
+        return torch.minimum(torch.minimum(num_lo / dl_s, num_lo / dh_s),
+                             torch.minimum(num_hi / dl_s, num_hi / dh_s))
+
+    def qmax(num_lo, num_hi):
+        return torch.maximum(torch.maximum(num_lo / dl_s, num_lo / dh_s),
+                             torch.maximum(num_hi / dl_s, num_hi / dh_s))
+
+    # a zero-spanning direction interval puts no bound on its axis
+    ax_lo = torch.where(sign_def, torch.minimum(qmin(nl_lo, nl_hi),
+                                                qmin(nh_lo, nh_hi)), -big)
+    ax_hi = torch.where(sign_def, torch.maximum(qmax(nl_lo, nl_hi),
+                                                qmax(nh_lo, nh_hi)), big)
+    tn, tf = ax_lo.amax(-1), ax_hi.amin(-1)                # (T,NC)
+    hit = (torch.clamp(tn, min=0.0) <= torch.minimum(tf, tmx[:, None])) \
+        & any_act[:, None]
+    o_c = torch.where(any_act[:, None], 0.5 * (o_lo + o_hi), 0.0)
+    c_c = 0.5 * (aabb[:, 0:3] + aabb[:, 3:6])
+    v = c_c[None, :, :] - o_c[:, None, :]
+    dist = torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+                      + v[..., 2] * v[..., 2])
+    key = torch.where(hit, torch.clamp(tn, min=0.0) + dist, torch.inf)
+    return (hit.sum(1).to(torch.int32),
+            torch.argsort(key, dim=1, stable=True).to(torch.int32))
+
+
+def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit,
+                       member=None):
+    """K1's arithmetic on one chunk of rays, cluster by cluster in slot
+    order. Only the lanes that pass a cluster's slab gate (and, with
+    `member` (NC, n) bool, have it on their tile's worklist) are tested
+    against its rows."""
     n = o.shape[0]
     nc = aabb_c.shape[0]
     best = t_max.clone()
@@ -121,6 +283,8 @@ def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit):
     tris = tri9[:, 0:9].reshape(nc, CLUSTER, 9)
     for c in range(nc):
         live = active & (slot < 0) if any_hit else active
+        if member is not None:
+            live = live & member[c]
         b = box[c]
         t0x, t1x = (b[0] - ox) * ix, (b[3] - ox) * ix
         t0y, t1y = (b[1] - oy) * iy, (b[4] - oy) * iy
@@ -180,13 +344,22 @@ def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit):
 
 
 def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
-                      any_hit: bool):
-    """Plain version of K1 (chunked over rays)."""
+                      any_hit: bool, worklists=None, tile: int = TILE):
+    """Plain version of K1 (chunked over rays). With `worklists` =
+    (counts, order) of tiles of `tile` lanes, a lane tests cluster c only
+    if c is among its tile's first counts entries; the winners are those
+    of the call without worklists, since a tile's list holds every cluster
+    whose slab gate one of its lanes can pass."""
+    n = origins_c.shape[0]
+    member = None if worklists is None else worklist_mask(worklists)
     ts, slots = [], []
-    for s in range(0, origins_c.shape[0], _PLAIN_CHUNK):
+    for s in range(0, n, _PLAIN_CHUNK):
         sl = slice(s, s + _PLAIN_CHUNK)
+        m = None if member is None else member[
+            torch.arange(s, min(s + _PLAIN_CHUNK, n),
+                         device=aabb_c.device) // tile].T.contiguous()
         t, slot = _trace_plain_chunk(aabb_c, tri9, origins_c[sl], dirs[sl],
-                                     t_max[sl], active[sl], any_hit)
+                                     t_max[sl], active[sl], any_hit, m)
         ts.append(t)
         slots.append(slot)
     if not ts:
@@ -197,15 +370,22 @@ def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
 
 @cuda_lib.counted("mt_dense")
 def trace_dense(aabb_c, tri9, origins_c, dirs, t_max, active,
-                any_hit: bool):
+                any_hit: bool, worklists=None):
     """K1: recentered cluster AABBs (NC,6), tri9 (NC*CLUSTER,10),
     recentered origins (N,3), directions (N,3), t_max (N,), active (N,)
     bool -> (t (N,) f32, slot (N,) i32). slot is the winning tri9 row
     (-1: no hit) and t its distance (t_max where none); any_hit stops at
-    the first hit in slot order."""
-    if not cuda_lib.on_cuda(aabb_c, tri9, origins_c, dirs, t_max, active):
+    the first hit it finds. The tiles' worklists (`worklists`: those
+    tile_worklists() gives for these inputs, built here when None) come
+    from K7 on the same recentered inputs, so every (lane, cluster) pair
+    K1's gate lets through is on its tile's list."""
+    cuda = cuda_lib.on_cuda(aabb_c, tri9, origins_c, dirs, t_max, active)
+    if worklists is None:
+        worklists = tile_worklists(aabb_c, origins_c, dirs, t_max, active)
+    counts, order = worklists
+    if not cuda:
         return trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max,
-                                 active, any_hit)
+                                 active, any_hit, (counts, order))
     n = origins_c.shape[0]
     nc = aabb_c.shape[0]
     cuda_lib.check(aabb_c, "aabb_c", torch.float32, (nc, 6))
@@ -214,12 +394,16 @@ def trace_dense(aabb_c, tri9, origins_c, dirs, t_max, active,
     cuda_lib.check(dirs, "dirs", torch.float32, (n, 3))
     cuda_lib.check(t_max, "t_max", torch.float32, (n,))
     cuda_lib.check(active, "active", torch.bool, (n,))
+    tiles = (n + TILE - 1) // TILE
+    cuda_lib.check(counts, "counts", torch.int32, (tiles,))
+    cuda_lib.check(order, "order", torch.int32, (tiles, nc))
     t = torch.empty((n,), dtype=torch.float32, device=dirs.device)
     slot = torch.empty((n,), dtype=torch.int32, device=dirs.device)
     if n:
         cuda_lib.bump("mt_dense")
         cuda_lib.launch("rtxpt_mt_dense", aabb_c.data_ptr(), tri9.data_ptr(),
-                        nc, origins_c.data_ptr(), dirs.data_ptr(),
+                        nc, counts.data_ptr(), order.data_ptr(),
+                        origins_c.data_ptr(), dirs.data_ptr(),
                         t_max.data_ptr(), active.data_ptr(), t.data_ptr(),
                         slot.data_ptr(), n, int(any_hit))
     return t, slot

@@ -15,7 +15,10 @@ pixel's next accumulation sample in place), with staged width compaction
 (n -> n/2 -> n/4 -> n/8 once the live set fits) and a positional merge
 back; wide single-sample wavefronts get the reference's tail compaction.
 Both use the reference's stable `argsort(~active)` order, so images
-match the reference's lane order.
+match the reference's lane order. cfg.wavefront_sort other than "none"
+instead re-sorts the wavefront after each bounce by the reference's key
+(`wavefront_sort_key`); the per-lane math is the same, so the image is
+too.
 
 The RNG streams are drawn in the reference's order outside the kernel, so
 renders reproduce the reference's sample sequences bit for bit.
@@ -37,7 +40,7 @@ import torch
 from ..config import MODE_FILL_STABLE_PLANES, PTConfig, PTConstants
 from ..core import mathutils as mu
 from ..core import rng
-from ..ops import traverse
+from ..ops import mt_dense, traverse
 from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene.camera import CameraData, compute_rays
@@ -54,6 +57,8 @@ K_SPECULAR_ROUGHNESS_THRESHOLD = 0.25  # PathTracer.hlsli:29
 LOCAL_PDF_ESTIMATE_K = 1.0     # PathTracerNEE.hlsli:197 (half-MIS constant)
 _R2_A1 = 0.7548776662466927    # R2 jitter sequence constants
 _R2_A2 = 0.5698402909980532
+SORT_MODES = ("none", "octant", "material", "raystream")
+_SORT_LAST = 1 << 30           # key of the lanes a sort puts last
 
 
 @dataclasses.dataclass
@@ -359,6 +364,51 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
     return res
 
 
+def sort_bounds(assets: RenderAssets):
+    """(lo, hi) (3,) world bounds in which the raystream key quantizes ray
+    origins: the dense cluster boxes', or the triangle soup's (p0, p0 +
+    e1, p0 + e2) on the BVH tiers, as the reference computes them."""
+    accel = assets.accel
+    if isinstance(accel, mt_dense.DenseMT):
+        return accel.aabb[:, 0:3].amin(0), accel.aabb[:, 3:6].amax(0)
+    p, i = assets.scene.positions, assets.scene.indices.long()
+    p0 = p[i[:, 0]]
+    p1, p2 = p0 + (p[i[:, 1]] - p0), p0 + (p[i[:, 2]] - p0)
+    return (torch.minimum(p0, torch.minimum(p1, p2)).amin(0),
+            torch.maximum(p0, torch.maximum(p1, p2)).amax(0))
+
+
+def _octant(d):
+    return ((d[..., 0] < 0).to(torch.int64) + 2 * (d[..., 1] < 0).to(
+        torch.int64) + 4 * (d[..., 2] < 0).to(torch.int64))
+
+
+def wavefront_sort_key(mode: str, active, direction, material_id,
+                       new_path: PathState, bounds=None):
+    """The reference's per-bounce sort key (rtxpt_tpu/pt/integrator.py
+    :1053-1110), int64 (N,). `active`, `direction` and `material_id` are
+    the bounce's own (before path regeneration), `new_path` the state the
+    next bounce starts from; `bounds` = sort_bounds() for "raystream".
+
+    "octant": the scatter direction's octant, inactive lanes last;
+    "raystream": morton3d of the new ray origin's cell in a 32^3 grid over
+    `bounds`, times 8, plus the new direction's octant, inactive lanes
+    last; "material": the shaded material id, inactive lanes last."""
+    if mode == "octant":
+        return torch.where(active, _octant(direction), 8)
+    if mode == "raystream":
+        lo, hi = bounds
+        scale = 31.999 / torch.clamp(hi - lo, min=1e-6)
+        q = torch.clamp((new_path.origin - lo) * scale, 0.0, 31.999).to(
+            torch.int64)
+        key = mu.morton3d(q[..., 0], q[..., 1], q[..., 2]) * 8 \
+            + _octant(new_path.direction)
+        return torch.where(new_path.active, key, _SORT_LAST)
+    if mode == "material":
+        return torch.where(active, material_id.to(torch.int64), _SORT_LAST)
+    raise ValueError(f"wavefront_sort {mode!r} is not one of {SORT_MODES}")
+
+
 class _Carry(NamedTuple):
     path: PathState
     it: int
@@ -367,6 +417,7 @@ class _Carry(NamedTuple):
     rays: torch.Tensor       # (2,) [closest-hit rays, visibility rays]
     first: tuple             # (pos (N,3), normal (N,3), found (N,)) of the
     #                          first true hit (capture_first_hit)
+    lane0: torch.Tensor      # (N,) original lane of each position
 
 
 def render_wavefront(assets: RenderAssets, cam: CameraData, px, py,
@@ -413,6 +464,10 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
     nee_distant = cfg.nee_distant_samples if cfg.use_env_lights else 0
     fill = cfg.mode == MODE_FILL_STABLE_PLANES and path0.sp_branch is not None
     regen = spp > 1
+    sort = cfg.wavefront_sort
+    if sort not in SORT_MODES:
+        raise ValueError(f"wavefront_sort {sort!r} is not one of {SORT_MODES}")
+    bounds = sort_bounds(assets) if sort == "raystream" else None
     if regen and (fill or capture_first_hit or injected_hit is not None):
         raise ValueError("path regeneration serves plain reference renders")
     max_iters = spp * (cfg.max_bounces + 2) + K_MAX_REJECTED_HITS + 2 \
@@ -609,7 +664,17 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
                 emissive_mis=rz(new_path.emissive_mis, emissive_mis0),
                 env_mis=rz(new_path.env_mis, env_mis0))
             s_arr = s_new
-        return _Carry(new_path, c.it + 1, s_arr, accum, rays, first)
+        lane0 = c.lane0
+        if sort != "none":
+            perm = torch.argsort(wavefront_sort_key(
+                sort, active, ks["direction"], sd.material_id, new_path,
+                bounds), stable=True)
+            new_path = _map(new_path, lambda a: a[perm])
+            first = tuple(a[perm] for a in first)
+            lane0 = lane0[perm]
+            if regen:
+                s_arr, accum = s_arr[perm], accum[perm]
+        return _Carry(new_path, c.it + 1, s_arr, accum, rays, first, lane0)
 
     def run(c: _Carry, stop_width=None, k_min: int = 4) -> _Carry:
         """Iterate while any lane is live and the cap is not reached; with
@@ -630,17 +695,19 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
                              stable=True)[:width]
         return perm, _Carry(_map(c.path, lambda a: a[perm]), c.it,
                             c.s_arr[perm], c.accum[perm], c.rays,
-                            tuple(a[perm] for a in c.first))
+                            tuple(a[perm] for a in c.first), c.lane0[perm])
 
     def merge(full: _Carry, perm, nar: _Carry) -> _Carry:
-        """The narrow carry's lanes written back into the full one."""
+        """The narrow carry's lanes written back into the full one (the
+        narrow loop never re-sorts: compaction runs only under "none")."""
         return _Carry(_put(full.path, perm, nar.path), nar.it, full.s_arr,
                       _put_rows(full.accum, perm, nar.accum), nar.rays,
                       tuple(_put_rows(f, perm, a)
-                            for f, a in zip(full.first, nar.first)))
+                            for f, a in zip(full.first, nar.first)),
+                      full.lane0)
 
     # morton-order the wavefront so neighbouring lanes hold spatially
-    # coherent rays; the permutation is undone at the end
+    # coherent rays; the permutation (and any re-sort) is undone at the end
     perm0 = torch.argsort(mu.morton2d(path0.px, path0.py), stable=True)
     zf = lambda *shape: torch.zeros((n,) + shape, dtype=torch.float32,
                                     device=dev)
@@ -648,14 +715,14 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
                    torch.zeros((n,), dtype=torch.int32, device=dev),
                    zf(3), torch.zeros((2,), dtype=torch.float32, device=dev),
                    (zf(3), zf(3),
-                    torch.zeros((n,), dtype=torch.bool, device=dev)))
+                    torch.zeros((n,), dtype=torch.bool, device=dev)), perm0)
     if injected_hit is not None:
         # FILL resumes from the BUILD-stored plane-0 base hit without
         # re-tracing the camera -> base chain (firstHitFromBasePlane,
         # Sample.hlsl:67): the first iteration takes the stored hit
         carry = body(carry, hit_override=type(injected_hit)(
             *(a[perm0] for a in injected_hit)))
-    compact = (cfg.wavefront_compaction
+    compact = (cfg.wavefront_compaction and sort == "none"
                and n >= cfg.wavefront_compaction_min)
     if compact and not regen:
         # tail compaction: continue the last bounces over the survivors
@@ -683,7 +750,7 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
 
     def unperm(a):
         out = torch.empty_like(a)
-        out[perm0] = a
+        out[carry.lane0] = a
         return out
 
     path = carry.path

@@ -52,31 +52,95 @@ def test_gather_kernels_match_plain(dev):
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("any_hit", [False, True])
-def test_trace_kernel_matches_plain(dev, any_hit):
-    r = np.random.RandomState(1)
+def _dense_rays(dev, n, seed=1):
+    """A 1000-triangle dense table and n rays through it: origins inside
+    and around it (some at cluster centers), finite and infinite t_max,
+    10% inactive lanes."""
+    r = np.random.RandomState(seed)
     n_tris = 1000
     c = r.uniform(-4, 4, (n_tris, 3))
     pos = np.concatenate([c + r.uniform(-0.4, 0.4, (n_tris, 3))
                           for _ in range(3)]).astype(np.float32)
     idx = np.arange(3 * n_tris, dtype=np.int32).reshape(3, n_tris).T
     dmt = mt_dense.build_dense(pos, idx, device=dev)
-    n = 20000
-    o = torch.as_tensor(r.uniform(-8, 8, (n, 3)).astype(np.float32),
-                        device=dev) - dmt.center
+    o = r.uniform(-8, 8, (n, 3))
+    aabb = dmt.aabb.cpu().numpy()
+    inside = r.rand(n) < 0.2
+    k = r.randint(0, aabb.shape[0], n)
+    o[inside] = (0.5 * (aabb[k, 0:3] + aabb[k, 3:6]))[inside]
+    o = torch.as_tensor(o.astype(np.float32), device=dev) - dmt.center
     d = torch.nn.functional.normalize(torch.as_tensor(
         r.normal(size=(n, 3)).astype(np.float32), device=dev), dim=-1)
-    tmax = torch.full((n,), 1e30, device=dev)
+    tmax = torch.as_tensor(np.where(r.rand(n) < 0.5, 1e30, r.uniform(
+        1, 12, n)).astype(np.float32), device=dev)
     act = torch.as_tensor(r.rand(n) < 0.9, device=dev)
-    args = (dmt.aabb_c, dmt.tri9, o.contiguous(), d.contiguous(), tmax, act)
+    return dmt, (dmt.aabb_c, dmt.tri9, o.contiguous(), d.contiguous(), tmax,
+                 act)
+
+
+@pytest.mark.parametrize("tile", [128, 1024])
+def test_tile_keys_kernel_bit_equal_to_plain(dev, tile):
+    """K7's keys (a tile size that does not divide N; negative keys from
+    origins inside boxes) equal the plain version's bit for bit, and its
+    in-kernel worklists those of a stable argsort of them."""
+    _, (aabb_c, _, o, d, tmax, act) = _dense_rays(dev, 20037)
+    cuda_lib.reset_launch_counts()
+    got, counts, order = mt_dense.tile_keys(aabb_c, o, d, tmax, act, tile)
+    assert cuda_lib.launch_counts()["tile_keys"] == 1
+    ref = mt_dense.tile_keys_plain(aabb_c, o, d, tmax, act, tile)
+    assert got.shape == ref.shape == ((20037 + tile - 1) // tile,
+                                      aabb_c.shape[0])
+    assert (ref < 0).any()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    c_ref, o_ref = mt_dense.worklists_from_keys(ref)
+    assert torch.equal(counts, c_ref) and torch.equal(order, o_ref)
+    # tiles whose lanes are all inactive: +inf keys, empty lists, the
+    # clusters in index order
+    half = act & (torch.arange(act.shape[0], device=dev) >= 10000)
+    got, counts, order = mt_dense.tile_keys(aabb_c, o, d, tmax, half, tile)
+    ref = mt_dense.tile_keys_plain(aabb_c, o, d, tmax, half, tile)
+    assert torch.isinf(ref).any() and (counts == 0).any()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    c_ref, o_ref = mt_dense.worklists_from_keys(ref)
+    assert torch.equal(counts, c_ref) and torch.equal(order, o_ref)
+
+
+@pytest.mark.parametrize("n", [20000, 20037])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_trace_kernel_matches_plain(dev, any_hit, n):
+    """K1 walking K7's worklists (N not a multiple of the 128-lane tile)
+    against the plain version over all clusters in slot order."""
+    _, args = _dense_rays(dev, n)
     t_k, s_k = mt_dense.trace_dense(*args, any_hit=any_hit)
     t_p, s_p = mt_dense.trace_dense_plain(*args, any_hit=any_hit)
-    assert ((s_k >= 0) == (s_p >= 0)).float().mean() >= 0.9999
+    act = args[-1]
+    assert ((s_k >= 0) == (s_p >= 0))[act].float().mean() >= 0.9999
     if not any_hit:
         same = s_k == s_p
-        assert same.float().mean() >= 0.9999
+        assert same[act].float().mean() >= 0.9999
         torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5,
                                    atol=1e-6)
+
+
+def test_trace_kernel_tie_goes_to_lower_slot_visited_later(dev):
+    """Slots 0 and 64 hold the same triangle (t = 1); cluster 1's box is
+    nearer, so the worklist visits it first, and slot 0 must still win."""
+    tri9 = torch.zeros((2 * mt_dense.CLUSTER, 10))
+    tri9[:, 9] = -1.0
+    tri = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    tri9[0, 0:9] = tri9[mt_dense.CLUSTER, 0:9] = tri
+    aabb_c = torch.tensor([[-1.0, -1.0, -5.0, 1.0, 1.0, 0.0],
+                           [-1.0, -1.0, 0.0, 1.0, 1.0, 0.5]])
+    n = 300
+    o = torch.tensor([[0.2, 0.2, 1.0]]).repeat(n, 1)
+    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(n, 1)
+    args = [a.to(dev) for a in (aabb_c, tri9, o, d, torch.full((n,), 1e30),
+                                torch.ones(n, dtype=torch.bool))]
+    counts, order = mt_dense.tile_worklists(args[0], *args[2:])
+    assert counts.tolist() == [2, 2, 2]
+    assert order[:, :2].tolist() == [[1, 0]] * 3
+    t, slot = mt_dense.trace_dense(*args, any_hit=False)
+    assert (slot == 0).all() and (t == 1.0).all()
 
 
 def test_shade_kernel_matches_plain(dev):
@@ -147,7 +211,7 @@ def test_realtime_frame_launches_fill_and_matches_cpu(dev):
     r.render_frame(32, 24)
     gpu = r.render_frame(32, 24).cpu()
     counts = cuda_lib.launch_counts()
-    for k in ("mt_dense", "gather_rows", "gather_rows_interp",
+    for k in ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
               "shade_nee_fill"):
         assert counts[k] > 0, counts
     assert counts["shade_nee"] == 0, counts
@@ -162,8 +226,8 @@ def test_render_launches_every_kernel_and_matches_cpu(dev):
     cuda_lib.reset_launch_counts()
     gpu = _renderer(dev, max_bounces=3).render(32, 24, 2).cpu()
     counts = cuda_lib.launch_counts()
-    dense_path = ("mt_dense", "gather_rows", "gather_rows_interp",
-                  "shade_nee")
+    dense_path = ("mt_dense", "tile_keys", "gather_rows",
+                  "gather_rows_interp", "shade_nee")
     assert all(counts[k] > 0 for k in dense_path), counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     cpu = _renderer("cpu", max_bounces=3).render(32, 24, 2)
