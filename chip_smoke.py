@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero before the result line; each prints
 its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-     from csrc/ with nvcc for sm_90a (one nvcc per source, in parallel);
+     from csrc/ with nvcc for sm_90a, the renderer's library and the K8
+     lab's (one nvcc per source, all started together);
   2. hold K1-K4 and K7 against their plain PyTorch versions on the card,
      on the inputs of the first bounces of an 800x600 programmer-art render
      (480,000 camera rays, then scattered and NEE rays), and time both
@@ -67,6 +68,7 @@ its `ms` sums.
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
 """
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -1081,10 +1083,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     from rtxpt_tpu_torch.ops import cuda_lib
+    from tools_torch import kernel_lab
     t0 = time.time()
-    cuda_lib.lib()
+    # the renderer's library and the K8 lab's, every nvcc started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(cuda_lib.lib), pool.submit(kernel_lab.library)]:
+            f.result()
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
-          f"({cuda_lib.build()})", flush=True)
+          f"({cuda_lib.build()} and the lab's)", flush=True)
 
     # each path's kernel checks, {path: {kernel name: result}}
     results = {p: {} for p in PATHS}

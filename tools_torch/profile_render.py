@@ -8,7 +8,8 @@ development tool, outside the package; from the repo root:
 Renders once to warm up, once more timed (host clock, ending in a device
 synchronize), then once under torch.profiler, and prints the card, the
 timed wall, and the profiled render's device time and launches grouped by
-kernel: K6 (BVH8 probe), K5 (BVH8 sweep), K1 (dense trace), K4 (shade),
+kernel: K6 (BVH8 probe), K5 (BVH8 sweep), K1 (dense trace), K7 (its
+worklists), K4 (shade),
 K2/K3 (gathers) and the PyTorch kernels of the tensor code around them,
 with the device's busy share of the profiled wall; then the device time
 of the kernels that ran inside the closest-hit and any-hit trace calls
@@ -44,6 +45,7 @@ GROUPS = (("K6 probe (bvh8_trace_sub)", ("bvh8_kernel<false, true>",
           ("K5 sweep (bvh8_trace)", ("bvh8_kernel<false, false>",
                                      "bvh8_kernel<true, false>")),
           ("K1 dense trace", ("mt_dense_kernel",)),
+          ("K7 worklists (tile_keys)", ("tile_keys_kernel",)),
           ("K4 shade", ("shade_nee_kernel",)),
           ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel")))
 
