@@ -26,13 +26,19 @@ its seconds):
      the sorted render and its image to equal the unsorted one (rtol 1e-5,
      atol 1e-6, tests/test_raystream_sort.py);
   5. the city: build the default procedural city (404,186 triangles,
-     two-level BVH8); hold K6 (the probe), K5 (the sweep) and K2-K4 (the
-     gathers from the city's tables, the shade pass) against their plain
-     versions on the launches of the first bounce of a 1920x1080 1-spp
-     render, and time both; render it at 1920x1080, bench config, 2 spp
-     as one regenerating chunk, after a warm-up render, with the counters
-     set to 0 just before, and require K2-K6 to have launched; hold a
-     64x36 GPU render against the port's CPU render (PSNR > 40 dB);
+     two-level BVH8); on the three two-level traces of the first bounce
+     of a 1920x1080 1-spp render (camera, NEE any-hit, scattered) hold
+     the fused two-level launch (`bvh8_trace_2l`) against the plain
+     composition, K6 against its plain version on those rays with their
+     nearest subtree and K5 on the largest subtree's table with the rays
+     that overlap its box, and time them (and the two-level kernel's lab
+     modes, tools_torch/profile_bvh8.py); K2-K4 on the gathers and the
+     shade pass of that bounce; render it at 1920x1080, bench config, 2
+     spp as one regenerating chunk, after a warm-up render, with the
+     counters set to 0 just before, and require K2-K4 to have launched,
+     `bvh8_trace_2l` once per two-level trace call, and K5 and K6 not at
+     all; hold a 64x36 GPU render against the port's CPU render (PSNR >
+     40 dB);
   6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
      1920x1080 and on programmer-art at 640x360 (the bench's realtime
@@ -40,11 +46,13 @@ its seconds):
      BUILD pass's camera trace, the first FILL bounce's gathers and K4
      FILL, the first FILL NEE trace that casts a ray, the fused ReSTIR
      final shade's visibility trace) and hold each kernel of the path
-     against its plain version on them (city: K2, K3, K4 FILL, K5, K6;
-     360p: K1, K2, K3, K4 FILL, K7); after the no-history and the history
-     warm-up frames, time 3 frames with the
-     counters set to 0 just before, and require the path's kernels to
-     have launched and the frame to be finite and not black. Then the
+     against its plain version on them (city: the two-level launch, K6
+     and K5 as in 5., K2, K3, K4 FILL; 360p: K1, K2, K3, K4 FILL, K7);
+     after the no-history and the history warm-up frames, time 3 frames
+     with the counters set to 0 just before, and require the path's
+     kernels to have launched (the city: `bvh8_trace_2l` once per
+     two-level trace call, K5 and K6 not at all) and the frame to be
+     finite and not black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
      3 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card: the mean of 32
@@ -96,16 +104,19 @@ KERNELS = {
     "bvh8_trace_sub": ("bvh8_trace_sub",
                        "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
                        "rtxpt_tpu/ops/traverse_pallas.py:380"),
+    # the two-level trace (K6's probe and K5's sweep) in one launch
+    "bvh8_trace_2l": ("bvh8_trace_2l", "rtxpt_tpu_torch/csrc/bvh8_trace.cu",
+                      "rtxpt_tpu/ops/traverse_pallas.py:279"),
     "tile_keys": ("tile_keys", "rtxpt_tpu_torch/csrc/mt_dense.cu",
                   "rtxpt_tpu/ops/mt_dense.py:490"),
 }
 # the kernels each main path must launch
 BENCH_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
               "shade_nee")
-CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
-             "gather_rows_interp", "shade_nee")
-RT_CITY_PATH = ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
-                "gather_rows_interp", "shade_nee_fill")
+CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
+             "shade_nee")
+RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
+                "shade_nee_fill")
 RT_ART_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
                "shade_nee_fill")
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
@@ -170,7 +181,8 @@ class Capture:
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
-               "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8"}
+               "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8",
+               "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8"}
     # (module, function, which calls count: None for all): the realtime
     # frame's stages, as models/realtime.py calls them, and the visibility
     # traces that cast at least one ray
@@ -771,35 +783,130 @@ def check_bvh8(calls, label, stacked):
     return agree, lanes, err, ms, pms, nbytes, ops, empty, traffic
 
 
+def two_level_work(args, kw, stats):
+    """(bytes, ops) of one two-level trace: every lane's t_max, active
+    flag and output (16 bytes closest, 1 any-hit), the active lanes' rays,
+    the K boxes, and the rows the plain composition fetched (each plain
+    call's distinct rows, summed over the probe and the subtrees, as
+    bvh8_work counts them); operations: each active lane's K box tests
+    and the plain walks' node rows and leaf triangles."""
+    tl, o, _, _, act = args
+    n, a, k = o.shape[0], int(act.sum()), tl.num_subtrees
+    nbytes = n * (1 + 4 + (1 if kw["any_hit"] else 16)) + a * 24 + k * 24 \
+        + stats["distinct_node_rows"] * 56 * 4 \
+        + stats["distinct_leaf_tris"] * (9 + 1) * 4
+    ops = a * k * SLAB_OPS + stats["node_rows"] * NODE_ROW_OPS \
+        + stats["leaf_tris"] * TRI_OPS
+    return nbytes, ops
+
+
+def call_ms(fn, iters: int = 20) -> float:
+    """Host-clock ms of one fn() call, ending in a device synchronize
+    (mean of `iters` after a warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
 def check_two_level(traces, label) -> dict:
-    """K6 and K5 on captured two-level traces [(what, probe call, sweep
-    calls, timed)]: the same prim (closest) or occlusion flag (any-hit) on
-    >= 99.99% of the active lanes -> {kernel name: result}, times and
-    bound summed over the timed traces."""
-    tot = {"bvh8_trace_sub": [0] * 9, "bvh8_trace": [0] * 9}
-    for what, probe, sweeps, timed in traces:
-        for name, calls, stacked in (("bvh8_trace_sub", [probe], True),
-                                     ("bvh8_trace", sweeps, False)):
-            tag = f"{name} {label} {what}"
-            res = check_bvh8(calls, tag, stacked)
-            agree, lanes, err, ms, pms, nb, ops, empty, traffic = res
-            frac = agree / max(lanes, 1)
-            same = "occlusion" if calls[0][1]["any_hit"] else "prim"
-            print(f"{tag}: {len(calls)} launch(es) over "
-                  f"{calls[0][0][-1].numel()} lanes, {lanes} active lanes "
-                  f"(plain on the full wavefront), {empty} with no active "
-                  f"lane; same {same} on {frac:.6%}, t/u/v max |diff| "
-                  f"{err:.3g}; kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bound(nb, ops)[0]:.4f} ms, row traffic "
-                  f"{traffic / 1e9:.3f} GB "
-                  f"({traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at HBM rate)",
-                  flush=True)
-            require(lanes == 0 or frac >= 0.9999,
-                    f"{tag}: agreement {frac}")
-            if timed:
+    """On captured two-level traces [(what, (args, kw) of trace_bvh8_2l,
+    timed)]: the fused launch against the plain composition (the same
+    prim (closest) or occlusion flag (any-hit) on >= 99.99% of the active
+    lanes, t/u/v within rtol 1e-5 / atol 1e-6 where the prims agree), its
+    lab modes, and the whole trace call on the host clock; K6 on the
+    trace's rays with their nearest subtree and K5 on the largest
+    subtree's table with the rays that overlap its box, against their
+    plain versions -> {kernel name: result}, times and bounds summed over
+    the timed traces."""
+    from rtxpt_tpu_torch.ops import bvh2l
+    from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
+    from tools_torch import profile_bvh8 as PB
+    tot = {name: [0] * 9 for name in ("bvh8_trace_2l", "bvh8_trace_sub",
+                                      "bvh8_trace")}
+    modes, calls = {}, 0.0
+    for what, (args, kw), timed in traces:
+        tl, o, d, tmax, act = args
+        tag = f"bvh8_trace_2l {label} {what}"
+        stats = {}
+        got = T8.trace_bvh8_2l(*args, **kw)
+        ref = bvh2l.trace_two_level_plain(*args, **kw, stats=stats)
+        torch.cuda.synchronize()
+        lanes, err = int(act.sum()), 0.0
+        if kw["any_hit"]:
+            agree = int((got == ref)[act].sum())
+        else:
+            same = got.prim == ref.prim
+            agree = int(same[act].sum())
+            m = same & (got.prim >= 0)
+            if bool(m.any()):
+                err = max(float((got.t - ref.t)[m].abs().max()),
+                          float((got.bary - ref.bary)[m].abs().max()))
+                require(torch.allclose(got.t[m], ref.t[m], rtol=1e-5,
+                                       atol=1e-6)
+                        and torch.allclose(got.bary[m], ref.bary[m],
+                                           rtol=1e-5, atol=1e-6),
+                        f"{tag}: t/u/v outside rtol 1e-5 / atol 1e-6")
+        frac = agree / max(lanes, 1)
+        ms = time_ms(lambda: T8.trace_bvh8_2l(*args, **kw), 20)
+        pms = time_ms(lambda: bvh2l.trace_two_level_plain(*args, **kw), 1,
+                      warmup=False)
+        trace = bvh2l.trace_anyhit if kw["any_hit"] else bvh2l.trace_closest
+        c_ms = call_ms(lambda: trace(tl, o, d, tmax, act))
+        m_ms = PB.run_modes(args, kw)
+        nb, ops = two_level_work(args, kw, stats)
+        traffic = stats["node_rows"] * 56 * 4 + stats["leaf_tris"] * 40
+        print(f"{tag}: 1 launch over {o.shape[0]} lanes, {lanes} active "
+              f"lanes, K={tl.num_subtrees}; same "
+              f"{'occlusion' if kw['any_hit'] else 'prim'} as the plain "
+              f"composition on {frac:.6%}, t/u/v max |diff| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+              f"{bound(nb, ops)[0]:.4f} ms, whole trace call {c_ms:.4f} ms "
+              f"(host clock); the plain composition made {stats['calls']} "
+              f"walk calls, {stats['idle_calls']} with no active lane, row "
+              f"traffic {traffic / 1e9:.3f} GB; lab modes "
+              + ", ".join(f"{mode} {v:.4f}" for mode, v in m_ms.items())
+              + " ms", flush=True)
+        require(lanes == 0 or frac >= 0.9999, f"{tag}: agreement {frac}")
+        rows = [("bvh8_trace_2l", agree, lanes, err, ms, pms, nb, ops, 0,
+                 traffic)]
+        if timed:
+            for mode, v in m_ms.items():
+                modes[mode] = modes.get(mode, 0.0) + v
+            calls += c_ms
+
+        # K6 on these rays with their nearest subtree (plain code), K5 on
+        # the largest subtree with the rays that overlap its box
+        hit_k, tn_k = bvh2l._top_slabs(tl, o, d, tmax)
+        near = torch.argmin(torch.where(hit_k, tn_k, torch.inf), dim=1)
+        big = int((tl.sub_leaf_tris >= 0).sum(1).argmax())
+        kwk = dict(leaf_size=tl.leaf_size, any_hit=kw["any_hit"])
+        for name, k_args, stacked in (
+                ("bvh8_trace_sub", (tl.sub_tables, tl.sub_leaf_omm,
+                                    near.to(torch.int32), o, d, tmax,
+                                    act & hit_k.any(1)), True),
+                ("bvh8_trace", (tl.sub_tables[big], tl.sub_leaf_omm[big],
+                                o, d, tmax, act & hit_k[:, big]), False)):
+            k_tag = f"{name} {label} {what}"
+            res = check_bvh8([(k_args, kwk)], k_tag, stacked)
+            k_agree, k_lanes, k_err, k_ms, k_pms, k_nb, k_ops, _, k_tr = res
+            k_frac = k_agree / max(k_lanes, 1)
+            print(f"{k_tag}{'' if stacked else f' (subtree {big})'}: "
+                  f"{k_lanes} active lanes; same "
+                  f"{'occlusion' if kw['any_hit'] else 'prim'} on "
+                  f"{k_frac:.6%}, t/u/v max |diff| {k_err:.3g}; kernel "
+                  f"{k_ms:.4f} ms, plain {k_pms:.4f} ms, bound "
+                  f"{bound(k_nb, k_ops)[0]:.4f} ms", flush=True)
+            require(k_lanes == 0 or k_frac >= 0.9999,
+                    f"{k_tag}: agreement {k_frac}")
+            rows.append((name, *res))
+        if timed:
+            for name, *vals in rows:
                 acc = tot[name]
-                for j, v in enumerate((agree, lanes, err, ms, pms, nb, ops,
-                                       empty, traffic)):
+                for j, v in enumerate(vals):
                     acc[j] = max(acc[j], v) if j == 2 else acc[j] + v
     out = {}
     for name, acc in tot.items():
@@ -807,7 +914,37 @@ def check_two_level(traces, label) -> dict:
         b_ms, b_by = bound(acc[5], acc[6])
         out[name] = dict(max_abs_err=acc[2], ms=acc[3], plain_ms=acc[4],
                          library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    out["bvh8_trace_2l"].update(modes_ms=modes, call_ms=calls)
     return out
+
+
+class TwoLevelCalls:
+    """Counts the two-level trace calls that cast at least one ray while
+    active (wraps bvh2l.trace_closest and trace_anyhit)."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.ops import bvh2l
+        self.mod, self.n = bvh2l, 0
+        self.orig = {name: getattr(bvh2l, name)
+                     for name in ("trace_closest", "trace_anyhit")}
+        for name, fn in self.orig.items():
+            def counted(tl, origins, *args, _fn=fn, **kw):
+                self.n += origins.shape[0] > 0
+                return _fn(tl, origins, *args, **kw)
+            setattr(bvh2l, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def require_one_launch_per_trace(counts, n_traces, what):
+    require(counts["bvh8_trace_2l"] == n_traces > 0,
+            f"{what}: {counts['bvh8_trace_2l']} bvh8_trace_2l launches for "
+            f"{n_traces} two-level traces")
+    require(counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0,
+            f"{what}: K5 or K6 launched on the two-level path: {counts}")
 
 
 def build_city():
@@ -841,42 +978,43 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
           f"{geometry_s:.2f} s, Renderer {renderer_s:.2f} s)", flush=True)
     require(k >= bvh2l.PROBE_MIN_SUBTREES, "city: the probe does not engage")
 
-    # K6 and K5 on the first bounce of a 1-spp render: the probes and
-    # sweeps of the camera rays, their NEE rays and the scattered rays
-    # (ms sums camera + NEE, as K1's); K2-K4 on its gathers and shade pass
-    with Capture(dict(FIRST_BOUNCE, trace_bvh8_sub=3,
-                      trace_bvh8=3 * k)) as cap:
+    # the two-level traces of the first bounce of a 1-spp render: camera
+    # rays, their NEE rays and the scattered rays (ms sums camera + NEE,
+    # as K1's); K2-K4 on its gathers and shade pass
+    with Capture(dict(FIRST_BOUNCE, trace_bvh8_2l=3)) as cap:
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
-    probes, sweeps = cap.calls["trace_bvh8_sub"], cap.calls["trace_bvh8"]
-    require(len(probes) == 3 and len(sweeps) == 3 * k,
-            "city: too few traces captured")
+    traces = cap.calls["trace_bvh8_2l"]
+    require([kw["any_hit"] for _, kw in traces] == [False, True, False],
+            "city: the first bounce's traces are not camera, NEE, scattered")
     results["city"].update(check_two_level(
-        [(what, probes[i], sweeps[i * k:(i + 1) * k], what != "scattered")
+        [(what, traces[i], what != "scattered")
          for i, what in enumerate(("camera", "nee any-hit", "scattered"))],
         "city"))
     results["city"].update(check_surface_kernels(cap, "city"))
-    del cap, probes, sweeps          # the captured inputs
+    del cap, traces                  # the captured inputs
 
     # the main path: 1920x1080, 2 spp as one regenerating chunk
     r.render(w, h, spp)                      # warm-up
     torch.cuda.synchronize()
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    hdr = r.render(w, h, spp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with TwoLevelCalls() as tc:
+        t0 = time.perf_counter()
+        hdr = r.render(w, h, spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
     out = hdr.cpu().numpy()
     require(out.shape == (h, w, 3) and np.isfinite(out).all()
             and out.mean() > 0.0, "city render: bad output")
     print(f"city {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {w * h * spp / wall / 1e6:.3f} Mpaths/s on {card}; "
-          f"launches {counts}", flush=True)
+          f"{tc.n} two-level traces; launches {counts}", flush=True)
     for name in CITY_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the city path")
+    require_one_launch_per_trace(counts, tc.n, "city render")
 
     # the port on the card against the port's plain versions on the CPU
     imgs = []
@@ -899,11 +1037,10 @@ def capture_realtime_frame(r, w, h):
     (its gathers and K4 FILL), the BUILD pass's first trace (the camera
     rays), the first FILL NEE trace that casts a ray (the first bounce's
     casts none where ReSTIR DI owns the base) and the fused ReSTIR DI + GI
-    final shade's visibility trace. A two-level trace is one K6 probe and
-    one K5 sweep per subtree."""
+    final shade's visibility trace. A two-level trace is one launch."""
     from rtxpt_tpu_torch.ops import bvh2l
     if isinstance(r.accel, bvh2l.BVH8TwoLevel):
-        traces = {"trace_bvh8_sub": 1, "trace_bvh8": r.accel.num_subtrees}
+        traces = {"trace_bvh8_2l": 1}
     else:
         traces = {"trace_dense": 1}
     with Capture(traces, during=("build",)) as build, \
@@ -940,8 +1077,8 @@ def check_realtime_kernels(r, w, h, label) -> dict:
                                     for what, cap, _ in stages], label)
     else:
         out = check_two_level(
-            [(what, cap.calls["trace_bvh8_sub"][0], cap.calls["trace_bvh8"],
-              True) for what, cap, _ in stages], label)
+            [(what, cap.calls["trace_bvh8_2l"][0], True)
+             for what, cap, _ in stages], label)
     out.update(check_surface_kernels(fill, label, fill=True))
     return out
 
@@ -951,21 +1088,23 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     """`warmups` frames (the no-history and the history variant: 2 from a
     new renderer), then `frames` timed frames with the launch counters set
     to 0 just before, each ending in a device synchronize; requires the
-    kernels of `path` to have launched and the last frame to be finite
-    and not black. Returns the counts."""
+    kernels of `path` to have launched (a two-level path: one
+    `bvh8_trace_2l` launch per two-level trace call, and no K5 or K6) and
+    the last frame to be finite and not black. Returns the counts."""
     from rtxpt_tpu_torch.ops import cuda_lib
     for _ in range(warmups):
         r.render_frame(w, h)
         torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     walls, fills = [], []
-    for _ in range(frames):
-        t0 = time.perf_counter()
-        img = r.render_frame(w, h)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        fills.append(cuda_lib.launch_counts()["shade_nee_fill"]
-                     - sum(fills))
+    with TwoLevelCalls() as tc:
+        for _ in range(frames):
+            t0 = time.perf_counter()
+            img = r.render_frame(w, h)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            fills.append(cuda_lib.launch_counts()["shade_nee_fill"]
+                         - sum(fills))
     counts = cuda_lib.launch_counts()
     out = img.cpu().numpy()
     require(out.shape == (h, w, 3) and np.isfinite(out).all()
@@ -978,6 +1117,8 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
+    if "bvh8_trace_2l" in path:
+        require_one_launch_per_trace(counts, tc.n, f"realtime {label}")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1114,8 +1255,9 @@ def main() -> int:
     kernels = []
     for name, (_, src, rep) in {**KERNELS, **lab_kernels}.items():
         # the top-level numbers are those of the first path that checks
-        # the kernel (K1-K4, K7: the bench; K5, K6: the city; K4 FILL: the
-        # realtime city; K8, K9: the labs); by_path holds every path's
+        # the kernel (K1-K4, K7: the bench; K5, K6 and the two-level
+        # trace: the city; K4 FILL: the realtime city; K8, K9: the labs);
+        # by_path holds every path's
         path = next(p for p in results if name in results[p])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,

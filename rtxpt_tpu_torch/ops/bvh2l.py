@@ -3,23 +3,30 @@ rtxpt_tpu/ops/bvh2l.py).
 
 The scene BVH2 is cut into K spatial subtrees of at most `cap_tris`
 triangles; each collapses into its own BVH8 table, padded to a common row
-count S and stacked (K, S, W). The top level is the K subtree AABBs. A
-trace:
+count S and stacked (K, S, W). The top level is the K subtree AABBs.
 
-  * slab-tests the K boxes per ray (`_top_slabs`);
-  * for K >= 8, probes each ray's nearest overlapped subtree first, in
-    one launch of K6 (`traverse_bvh8.trace_bvh8_sub`) with a per-ray
-    subtree index, over rays stably sorted by that index so that
-    neighbouring threads read the same subtree;
-  * sweeps the subtrees with one K5 launch each, over the rays whose box
-    of that subtree is hit and, for closest hits, entered before the
-    best t so far (the probe makes most of them empty);
-  * scatters the results back to the caller's ray order.
+A trace is one call of `traverse_bvh8.trace_bvh8_2l`: on CUDA tensors one
+launch of ``csrc/bvh8_trace.cu`` in which each thread tests the K boxes,
+walks its subtrees and looks up the global triangle id; on CPU tensors
+`trace_two_level_plain`, the composition that launch reproduces bit for
+bit:
 
-The reference picked one subtree per tile of rays (scalar prefetch), and
-left the lanes that straddled a tile boundary to the sweep; here every
-overlapped ray probes its own nearest subtree. Its bf16 planes are not
-carried (the kernels read the f32 tables).
+  * slab-test the K boxes per ray (`_top_slabs`);
+  * for K >= PROBE_MIN_SUBTREES, probe each ray's nearest overlapped
+    subtree first (the first minimal entry t), with K6's plain version
+    over the stacked tables and a per-ray subtree index, over rays stably
+    sorted by that index;
+  * sweep the subtrees in ascending index with K5's plain version, over
+    the rays whose box of that subtree is hit and, for closest hits,
+    entered strictly before the best t so far (any-hit: not yet
+    occluded);
+  * scatter the results back to the caller's ray order.
+
+So a tie between subtrees goes to the ray's nearest subtree, then to the
+lowest index. The reference picked one subtree per tile of rays (scalar
+prefetch), and left the lanes that straddled a tile boundary to the
+sweep; here every overlapped ray probes its own nearest subtree. Its bf16
+planes are not carried (the kernels read the f32 tables).
 """
 from __future__ import annotations
 
@@ -151,8 +158,32 @@ def _unsort(perm, *vals):
 
 def trace_closest(tl: BVH8TwoLevel, origins, dirs, t_max=1e30,
                   active=None) -> Hit:
+    """Closest hit; prim is the global triangle id."""
+    return T8.trace_bvh8_2l(tl, *T8.prepare_rays(origins, dirs, t_max,
+                                                 active), any_hit=False)
+
+
+def trace_anyhit(tl: BVH8TwoLevel, origins, dirs, t_max=1e30, active=None):
+    """True where the segment (0, t_max) is occluded."""
+    return T8.trace_bvh8_2l(tl, *T8.prepare_rays(origins, dirs, t_max,
+                                                 active), any_hit=True)
+
+
+def trace_two_level_plain(tl: BVH8TwoLevel, origins, dirs, t_max=1e30,
+                          active=None, *, any_hit: bool,
+                          stats: dict = None):
+    """Plain version of the two-level trace (the module docstring's
+    composition, on any device): Hit (closest) or the occlusion flag
+    (any-hit). With `stats` a dict, `trace_bvh8_plain` adds the rows of
+    every probe and sweep call to it."""
     origins, dirs, t_max, active = T8.prepare_rays(origins, dirs, t_max,
                                                    active)
+    if any_hit:
+        return _anyhit_plain(tl, origins, dirs, t_max, active, stats)
+    return _closest_plain(tl, origins, dirs, t_max, active, stats)
+
+
+def _closest_plain(tl, origins, dirs, t_max, active, stats):
     n = origins.shape[0]
     k = tl.num_subtrees
     ls = tl.leaf_size
@@ -163,9 +194,9 @@ def trace_closest(tl: BVH8TwoLevel, origins, dirs, t_max=1e30,
         origins, dirs = origins[perm], dirs[perm]
         t_max, active = t_max[perm], active[perm]
         hit_k, tn_k = hit_k[perm], tn_k[perm]
-        t_p, slot_p, uv_p = T8.trace_bvh8_sub(
-            tl.sub_tables, tl.sub_leaf_omm, near, origins, dirs, t_max,
-            probe, leaf_size=ls, any_hit=False)
+        t_p, slot_p, uv_p = T8.trace_bvh8_plain(
+            tl.sub_tables, tl.sub_leaf_omm, origins, dirs, t_max, probe,
+            near, leaf_size=ls, any_hit=False, stats=stats)
         found = slot_p >= 0
         gl = tl.sub_leaf_tris.reshape(-1)[
             near.to(torch.int64) * (tl.rows * ls)
@@ -184,9 +215,9 @@ def trace_closest(tl: BVH8TwoLevel, origins, dirs, t_max=1e30,
         want = active & hit_k[:, s] & (tn_k[:, s] < best_t)
         if perm is not None:
             want = want & ~(skip & (near == s))
-        t, slot, uv = T8.trace_bvh8(
+        t, slot, uv = T8.trace_bvh8_plain(
             tl.sub_tables[s], tl.sub_leaf_omm[s], origins, dirs, best_t,
-            want, leaf_size=ls, any_hit=False)
+            want, leaf_size=ls, any_hit=False, stats=stats)
         found = (slot >= 0) & (t < best_t)
         orig = tl.sub_leaf_tris[s][torch.clamp(slot, min=0)]
         best_prim = torch.where(found, orig, best_prim)
@@ -198,10 +229,7 @@ def trace_closest(tl: BVH8TwoLevel, origins, dirs, t_max=1e30,
     return Hit(best_t, best_prim, best_uv)
 
 
-def trace_anyhit(tl: BVH8TwoLevel, origins, dirs, t_max=1e30, active=None):
-    """True where the segment (0, t_max) is occluded."""
-    origins, dirs, t_max, active = T8.prepare_rays(origins, dirs, t_max,
-                                                   active)
+def _anyhit_plain(tl, origins, dirs, t_max, active, stats):
     n = origins.shape[0]
     k = tl.num_subtrees
     hit_k, tn_k = _top_slabs(tl, origins, dirs, t_max)
@@ -211,9 +239,9 @@ def trace_anyhit(tl: BVH8TwoLevel, origins, dirs, t_max=1e30, active=None):
         origins, dirs = origins[perm], dirs[perm]
         t_max, active = t_max[perm], active[perm]
         hit_k = hit_k[perm]
-        _, slot_p, _ = T8.trace_bvh8_sub(
-            tl.sub_tables, tl.sub_leaf_omm, near, origins, dirs, t_max,
-            probe, leaf_size=tl.leaf_size, any_hit=True)
+        _, slot_p, _ = T8.trace_bvh8_plain(
+            tl.sub_tables, tl.sub_leaf_omm, origins, dirs, t_max, probe,
+            near, leaf_size=tl.leaf_size, any_hit=True, stats=stats)
         found = slot_p >= 0
     else:
         found = torch.zeros((n,), dtype=torch.bool, device=origins.device)
@@ -221,9 +249,9 @@ def trace_anyhit(tl: BVH8TwoLevel, origins, dirs, t_max=1e30, active=None):
         want = active & ~found & hit_k[:, s]
         if perm is not None:
             want = want & ~(probe & (near == s))
-        _, slot, _ = T8.trace_bvh8(
+        _, slot, _ = T8.trace_bvh8_plain(
             tl.sub_tables[s], tl.sub_leaf_omm[s], origins, dirs, t_max,
-            want, leaf_size=tl.leaf_size, any_hit=True)
+            want, leaf_size=tl.leaf_size, any_hit=True, stats=stats)
         found = found | (slot >= 0)
     if perm is not None:
         (found,) = _unsort(perm, found)

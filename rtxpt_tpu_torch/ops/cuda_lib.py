@@ -49,6 +49,10 @@ SIGNATURES = {
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,
                              P),
+    "rtxpt_bvh8_trace_2l": (P, I, I, I, I, P, P, P, I, P, P, P, P, P, P, P,
+                            P, P, I, I, P),
+    "rtxpt_bvh8_trace_2l_variant": (P, I, I, I, I, P, P, P, I, P, P, P, P, P,
+                                    P, P, P, P, I, I, I, P),
 }
 
 _lib = None

@@ -3,7 +3,8 @@
 The trace structure's type picks the path, in the reference's tier order:
 a `DenseMT` (at most 8,192 triangles) goes to the dense trace
 (``ops/mt_dense.py``, K1), a `BVH8TwoLevel` (over 45,000 triangles) to
-``ops/bvh2l.py`` (K6 probe + K5 sweep), a single `BVH8` to K5
+``ops/bvh2l.py`` (the whole two-level trace in one launch of
+``traverse_bvh8.trace_bvh8_2l``), a single `BVH8` to K5
 (``ops/traverse_bvh8.py``), whose leaf slots map to triangle ids through
 the table's `leaf_tris`. The reference's instanced TLAS is not ported.
 """

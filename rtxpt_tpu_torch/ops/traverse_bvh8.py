@@ -1,23 +1,30 @@
-"""BVH8 closest / any-hit traversal: kernels K5 and K6 (counterpart of
-rtxpt_tpu/ops/traverse_pallas.py, and of `_trace8` in
-rtxpt_tpu/ops/traverse.py, the plain loop the reference runs off the TPU).
+"""BVH8 closest / any-hit traversal: kernels K5 and K6, and the two-level
+trace in one launch (counterpart of rtxpt_tpu/ops/traverse_pallas.py, of
+`_trace8` in rtxpt_tpu/ops/traverse.py, the plain loop the reference runs
+off the TPU, and of the probe-then-sweep composition of
+rtxpt_tpu/ops/bvh2l.py).
 
 Each ray walks a unified BVH8 table (``ops/bvh.py``) with a stack: a
 popped row is a node (8 child slab tests, the valid children sorted
 far-to-near by a fixed 19-comparator network and pushed) or a leaf (up to
 `leaf_size` inlined triangles tested with Möller–Trumbore; the first
 smallest t wins, then the 16-bit opacity micro-mask cell of the hit must
-be set). Outputs are t (t_max where nothing was hit), the leaf SLOT
+be set). K5 and K6 output t (t_max where nothing was hit), the leaf SLOT
 (row * leaf_size + k, -1 for a miss) and (u, v); callers map slots to
 triangle ids through the table's `leaf_tris`.
 
-`trace_bvh8` (K5, entry point ``rtxpt_bvh8_trace``) walks one table.
-`trace_bvh8_sub` (K6, ``rtxpt_bvh8_trace_sub``) walks a stack of K tables
-(K, S, W), each ray the one named by its `sub` index: the two-level
-probe (ops/bvh2l.py). The TPU picked one subtree per ray tile by scalar
-prefetch; on the GPU each thread reads its own index. Both run
-``csrc/bvh8_trace.cu`` on CUDA tensors and `trace_bvh8_plain` on CPU
-tensors, and raise for anything else.
+`trace_bvh8` (K5, entry point ``rtxpt_bvh8_trace``) walks one table: the
+single-`BVH8` tier of ``ops/traverse.py``. `trace_bvh8_sub` (K6,
+``rtxpt_bvh8_trace_sub``) walks a stack of K tables (K, S, W), each ray
+the one named by its `sub` index (the TPU picked one subtree per ray tile
+by scalar prefetch; on the GPU each thread reads its own index).
+`trace_bvh8_2l` (``rtxpt_bvh8_trace_2l``) runs a whole two-level trace of
+``ops/bvh2l.py`` in one launch: per ray the top-level box tests, the walk
+of the nearest overlapped subtree, the walks of the other subtrees in
+ascending index, and the lookup of the global triangle id. All three run
+``csrc/bvh8_trace.cu`` on CUDA tensors and their plain versions on CPU
+tensors (`trace_bvh8_plain`; `bvh2l.trace_two_level_plain` for the
+two-level trace), and raise for anything else.
 """
 from __future__ import annotations
 
@@ -25,9 +32,12 @@ import torch
 
 from . import cuda_lib
 from .bvh import LEAF_MAX, STACK_DEPTH
-from .intersect import moller_trumbore, ray_aabb, safe_inv
+from .intersect import Hit, moller_trumbore, ray_aabb, safe_inv
 
-MAX_ITERS = 500_000    # pops per ray, as in the reference's `_trace8`
+MAX_ITERS = 500_000    # pops per walk, as in the reference's `_trace8`
+# csrc/bvh8_trace.cu kMaxSubtrees: a block's K boxes and its 128 stacks of
+# 48 entries fit in 48 KB of shared memory
+MAX_SUBTREES = 1024
 # far-to-near sorting network over the 8 child slots (descending t); the
 # order of the comparators decides ties
 _SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
@@ -44,8 +54,9 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
     the working set). table (R, W) or (K, S, W) f32; leaf_omm
     (R*leaf_size,) or (K, S*leaf_size) i32; sub (N,) i32 or None.
     Returns (t (N,) f32, slot (N,) i32, uv (N,2) f32). With `stats` a
-    dict, adds the node rows, leaf rows and leaf triangles visited, and
-    the distinct node rows and leaf triangles among them."""
+    dict, adds the node rows, leaf rows and leaf triangles visited, the
+    distinct node rows and leaf triangles among them, and one call (and
+    one idle call if no lane is active)."""
     dev = origins.device
     n = origins.shape[0]
     if sub is None:
@@ -161,10 +172,11 @@ def trace_bvh8_plain(table, leaf_omm, origins, dirs, t_max, active,
         retire(torch.ones_like(lane, dtype=torch.bool))
     if stats is not None:
         counts = counts.tolist() + [int(node_seen.sum()),
-                                    int(leaf_seen.sum())]
+                                    int(leaf_seen.sum()), 1,
+                                    int(not bool(active.any()))]
         for key, c in zip(("node_rows", "leaf_rows", "leaf_tris",
-                           "distinct_node_rows", "distinct_leaf_tris"),
-                          counts):
+                           "distinct_node_rows", "distinct_leaf_tris",
+                           "calls", "idle_calls"), counts):
             stats[key] = stats.get(key, 0) + c
     return t_out, slot_out, uv_out
 
@@ -241,6 +253,60 @@ def trace_bvh8_sub(tables, leaf_omm, sub, origins, dirs, t_max, active, *,
                         active.data_ptr(), t.data_ptr(), slot.data_ptr(),
                         uv.data_ptr(), n, int(any_hit))
     return t, slot, uv
+
+
+@cuda_lib.counted("bvh8_trace_2l")
+def trace_bvh8_2l(tl, origins, dirs, t_max, active, *, any_hit: bool):
+    """The two-level trace of `tl` (a `bvh2l.BVH8TwoLevel`: stacked tables
+    (K, S, W) f32, leaf_omm and leaf_tris (K, S*leaf_size) i32, boxes
+    (K, 6) f32) in one launch, walking the nearest overlapped subtree
+    first when K >= bvh2l.PROBE_MIN_SUBTREES; rays as K5 -> Hit(t, prim,
+    uv) with global triangle ids (closest hit) or the occlusion flag (N,)
+    bool (any-hit). On CPU tensors, `bvh2l.trace_two_level_plain`, which
+    the kernel reproduces bit for bit."""
+    from . import bvh2l          # bvh2l imports this module
+    if not cuda_lib.on_cuda(tl.sub_tables, tl.sub_leaf_omm, tl.sub_leaf_tris,
+                            tl.sub_aabb, origins, dirs, t_max, active):
+        return bvh2l.trace_two_level_plain(tl, origins, dirs, t_max, active,
+                                           any_hit=any_hit)
+    return launch_two_level("rtxpt_bvh8_trace_2l", "bvh8_trace_2l", tl,
+                            origins, dirs, t_max, active, any_hit)
+
+
+def launch_two_level(entry: str, counter: str, tl, origins, dirs, t_max,
+                     active, any_hit: bool, *extra):
+    """Check a two-level trace's CUDA tensors, allocate its outputs and
+    launch C entry point `entry` (``rtxpt_bvh8_trace_2l``, or the lab's
+    variant with its mode in `extra`), counting the launch on wrapper
+    `counter`; returns what `trace_bvh8_2l` returns."""
+    from .bvh2l import PROBE_MIN_SUBTREES
+    k, rows, width = tl.sub_tables.shape
+    ls = tl.leaf_size
+    cuda_lib.check(tl.sub_tables, "sub_tables", torch.float32,
+                   (k, rows, width))
+    cuda_lib.check(tl.sub_leaf_omm, "sub_leaf_omm", torch.int32,
+                   (k, rows * ls))
+    cuda_lib.check(tl.sub_leaf_tris, "sub_leaf_tris", torch.int32,
+                   (k, rows * ls))
+    cuda_lib.check(tl.sub_aabb, "sub_aabb", torch.float32, (k, 6))
+    _require_width(width, ls)
+    if not 1 <= k <= MAX_SUBTREES:
+        raise ValueError(f"{k} subtrees: the kernel takes 1 to "
+                         f"{MAX_SUBTREES}")
+    n, t, prim, uv = _check_rays(origins, dirs, t_max, active)
+    occ = torch.empty((n,), dtype=torch.bool, device=dirs.device)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=dirs.device)
+    if n:
+        cuda_lib.bump(counter)
+        cuda_lib.launch(entry, tl.sub_tables.data_ptr(), k, rows, width, ls,
+                        tl.sub_leaf_omm.data_ptr(),
+                        tl.sub_leaf_tris.data_ptr(), tl.sub_aabb.data_ptr(),
+                        int(k >= PROBE_MIN_SUBTREES), origins.data_ptr(),
+                        dirs.data_ptr(), t_max.data_ptr(), active.data_ptr(),
+                        t.data_ptr(), prim.data_ptr(), uv.data_ptr(),
+                        occ.data_ptr(), next_ray.data_ptr(), n, int(any_hit),
+                        *extra)
+    return occ if any_hit else Hit(t, prim, uv)
 
 
 def _require_width(width: int, leaf_size: int):

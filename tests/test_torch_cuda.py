@@ -230,6 +230,7 @@ def test_render_launches_every_kernel_and_matches_cpu(dev):
                   "gather_rows_interp", "shade_nee")
     assert all(counts[k] > 0 for k in dense_path), counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
+    assert counts["bvh8_trace_2l"] == 0, counts
     cpu = _renderer("cpu", max_bounces=3).render(32, 24, 2)
     torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-3)
 
@@ -292,9 +293,69 @@ def test_bvh8_kernels_match_plain(dev, any_hit):
     _same_hits(got, ref, act, any_hit)
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bvh8_2l_matches_plain_composition(dev, any_hit):
+    """The two-level trace in one launch against the plain composition
+    (bvh2l.trace_two_level_plain) on a city of 6 blocks (8+ subtrees, the
+    probe engages): partly active, finite and infinite t_max. The same
+    prim or occlusion flag on every active lane; t/u/v within rtol 1e-5 /
+    atol 1e-6 (bit-equal is expected: the max |diff| is printed)."""
+    n = 50000
+    r = np.random.RandomState(5)
+    host = procedural.build_city(blocks=6).finish()
+    tl = bvh2l.build_two_level(host["positions"], host["indices"],
+                               device=dev)
+    assert tl.num_subtrees >= bvh2l.PROBE_MIN_SUBTREES
+    o, d = (torch.as_tensor(a, device=dev) for a in _city_rays(n, 6, 6))
+    t_max = torch.as_tensor(np.where(r.rand(n) < 0.5, 1e30,
+                                     r.uniform(1, 20, n)).astype(np.float32),
+                            device=dev)
+    act = torch.as_tensor(r.rand(n) < 0.8, device=dev)
+    cuda_lib.reset_launch_counts()
+    got = T8.trace_bvh8_2l(tl, o, d, t_max, act, any_hit=any_hit)
+    assert cuda_lib.launch_counts()["bvh8_trace_2l"] == 1
+    ref = bvh2l.trace_two_level_plain(tl, o, d, t_max, act, any_hit=any_hit)
+    if any_hit:
+        assert 0.05 < float(ref[act].float().mean()) < 0.95
+        assert torch.equal(got[act], ref[act]) and not got[~act].any()
+        return
+    assert float((ref.prim[act] >= 0).float().mean()) > 0.3
+    assert torch.equal(got.prim[act], ref.prim[act])
+    hit = act & (ref.prim >= 0)
+    print(f"max |diff| t {float((got.t - ref.t)[hit].abs().max()):.3g}, "
+          f"uv {float((got.bary - ref.bary)[hit].abs().max()):.3g}")
+    torch.testing.assert_close(got.t[act], ref.t[act], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got.bary[act], ref.bary[act], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_bvh8_2l_tie_goes_to_nearest_subtree_then_lowest_index(dev):
+    """The scene of tests/two_level_tie.py on the card: the kernel returns
+    the plain composition's copy on every lane, which is the copy of the
+    ray's nearest subtree, then of the lowest index."""
+    import two_level_tie as TIE
+    pos, idx = TIE.scene()
+    tl = bvh2l.build_two_level(pos, idx, cap_tris=TIE.CAP_TRIS, device=dev)
+    o, d = TIE.rays()
+    sub, near_first, lowest_first = TIE.expected(tl, o, d)
+    assert near_first.sum() > 50 and lowest_first.sum() > 50
+    args = (tl, torch.as_tensor(o, device=dev),
+            torch.as_tensor(d, device=dev),
+            torch.full((o.shape[0],), 1e30, device=dev),
+            torch.ones(o.shape[0], dtype=torch.bool, device=dev))
+    got = T8.trace_bvh8_2l(*args, any_hit=False)
+    ref = bvh2l.trace_two_level_plain(*args, any_hit=False)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    owner = TIE.subtree_of(tl, got.prim.cpu().numpy())
+    assert (owner >= 0).mean() > 0.99
+    assert np.array_equal(owner[owner >= 0], sub[owner >= 0])
+
+
 def test_city_render_launches_k5_k6_and_matches_cpu(dev):
-    """A two-level city (6 blocks, 8+ subtrees) renders through the K6
-    probe and the K5 sweep, and agrees with the CPU render."""
+    """A two-level city (6 blocks, 8+ subtrees) renders through the
+    two-level trace in one launch (and neither K5 nor K6 alone), and
+    agrees with the CPU render."""
     host = procedural.build_city(blocks=6).finish()
     cfg = reference_config(max_bounces=3, nee_distant_samples=1,
                            nee_local_samples=1)
@@ -308,9 +369,10 @@ def test_city_render_launches_k5_k6_and_matches_cpu(dev):
     cuda_lib.reset_launch_counts()
     gpu = render(dev).cpu()
     counts = cuda_lib.launch_counts()
-    for k in ("bvh8_trace", "bvh8_trace_sub", "gather_rows",
-              "gather_rows_interp", "shade_nee"):
+    for k in ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
+              "shade_nee"):
         assert counts[k] > 0, counts
+    assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     assert counts["mt_dense"] == 0
     torch.testing.assert_close(gpu, render("cpu"), rtol=1e-3, atol=1e-3)
 

@@ -8,12 +8,12 @@ development tool, outside the package; from the repo root:
 Renders once to warm up, once more timed (host clock, ending in a device
 synchronize), then once under torch.profiler, and prints the card, the
 timed wall, and the profiled render's device time and launches grouped by
-kernel: K6 (BVH8 probe), K5 (BVH8 sweep), K1 (dense trace), K7 (its
-worklists), K4 (shade),
-K2/K3 (gathers) and the PyTorch kernels of the tensor code around them,
-with the device's busy share of the profiled wall; then the device time
-of the kernels that ran inside the closest-hit and any-hit trace calls
-(K1/K5/K6 and the PyTorch code of the two-level probe and sweep) beside
+kernel: the two-level trace (one launch per trace), K6 (BVH8 probe), K5
+(BVH8 walk of one table), K1 (dense trace), K7 (its worklists), K4
+(shade), K2/K3 (gathers) and the PyTorch kernels of the tensor code
+around them, with the device's busy share of the profiled wall; then the
+device time of the kernels that ran inside the closest-hit and any-hit
+trace calls (the trace kernels and the PyTorch code around them) beside
 the device span of those calls, and the PyTorch kernels that take the
 most device time. Bench config: 6 bounces, 4 diffuse, NEE 1+1.
 
@@ -40,9 +40,10 @@ import torch
 RANGES = ("trace_closest", "trace_anyhit")
 STAGES = ("realtime:build", "realtime:restir_di", "realtime:fill",
           "realtime:restir_gi", "realtime:relax", "realtime:taa")
-GROUPS = (("K6 probe (bvh8_trace_sub)", ("bvh8_kernel<false, true>",
+GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
+          ("K6 probe (bvh8_trace_sub)", ("bvh8_kernel<false, true>",
                                          "bvh8_kernel<true, true>")),
-          ("K5 sweep (bvh8_trace)", ("bvh8_kernel<false, false>",
+          ("K5 one table (bvh8_trace)", ("bvh8_kernel<false, false>",
                                      "bvh8_kernel<true, false>")),
           ("K1 dense trace", ("mt_dense_kernel",)),
           ("K7 worklists (tile_keys)", ("tile_keys_kernel",)),
