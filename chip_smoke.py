@@ -180,8 +180,6 @@ class Capture:
                "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
-               "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
-               "trace_bvh8_sub": "rtxpt_tpu_torch.ops.traverse_bvh8",
                "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8"}
     # (module, function, which calls count: None for all): the realtime
     # frame's stages, as models/realtime.py calls them, and the visibility
@@ -738,8 +736,8 @@ def bvh8_work(args, stats, stacked: bool):
 
 
 def check_bvh8(calls, label, stacked):
-    """K6 (stacked) or K5 on the captured launches of one trace: kernel
-    against plain version (agreement, max |diff|), both timed; returns
+    """K6 (stacked) or K5 on calls [(args, kw)]: kernel against plain
+    version (agreement, max |diff|), both timed; returns
     (agreeing lanes, active lanes, max |diff|, ms, plain ms, bytes, ops,
     launches with no active lane, row-traffic bytes)."""
     from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
