@@ -8,11 +8,14 @@ its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from csrc/ with nvcc for sm_90a, the renderer's library and the K8
      lab's (one nvcc per source, all started together);
-  2. hold K1-K4 and K7 against their plain PyTorch versions on the card,
-     on the inputs of the first bounces of an 800x600 programmer-art render
-     (480,000 camera rays, then scattered and NEE rays), and time both
-     (and K2 against torch.index_select); K7's worklist keys must be
-     bit-equal on every captured K1 trace, and its visits per tile are
+  2. hold the fused dense trace (`mt_dense_fused`: tiles of active lanes,
+     their worklists and the walk in one launch), K1 walking K7's
+     worklists, K2-K4 and K7 against their plain PyTorch versions on the
+     card, on the inputs of the first bounces of an 800x600 programmer-art
+     render (480,000 camera rays, then scattered and NEE rays), and time
+     both (and K2 against torch.index_select); K7's worklist keys must be
+     bit-equal on every captured dense trace; the active lanes, tiles and
+     visits per tile of both tilings and the fused kernel's lab modes are
      printed;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
@@ -20,11 +23,13 @@ its seconds):
      CPU render of the same frame (PSNR > 40 dB);
   4. render the bench workload (800x600, 6 bounces / 4 diffuse, NEE 1+1,
      8 spp as one regenerating wavefront) with every launch counter set to
-     0 just before, and require K1-K4 and K7 to have launched; then render
+     0 just before, and require the fused dense trace once per dense trace
+     call, K1 and K7 not at all, and K2-K4 to have launched; then render
      it once more unsorted and once with wavefront_sort="raystream", print
-     both walls and visits per tile, require K1 and K7 to have launched in
-     the sorted render and its image to equal the unsorted one (rtol 1e-5,
-     atol 1e-6, tests/test_raystream_sort.py);
+     both walls and the fused kernel's visits per tile (its lab mode
+     "lists" on every trace), require the same launches and the sorted
+     image to equal the unsorted one (rtol 1e-5, atol 1e-6,
+     tests/test_raystream_sort.py);
   5. the city: build the default procedural city (404,186 triangles,
      two-level BVH8); on the three two-level traces of the first bounce
      of a 1920x1080 1-spp render (camera, NEE any-hit, scattered) hold
@@ -47,12 +52,13 @@ its seconds):
      FILL, the first FILL NEE trace that casts a ray, the fused ReSTIR
      final shade's visibility trace) and hold each kernel of the path
      against its plain version on them (city: the two-level launch, K6
-     and K5 as in 5., K2, K3, K4 FILL; 360p: K1, K2, K3, K4 FILL, K7);
-     after the no-history and the history warm-up frames, time 3 frames
-     with the counters set to 0 just before, and require the path's
-     kernels to have launched (the city: `bvh8_trace_2l` once per
-     two-level trace call, K5 and K6 not at all) and the frame to be
-     finite and not black. Then the
+     and K5 as in 5., K2, K3, K4 FILL; 360p: the fused dense trace, K1,
+     K7, K2, K3, K4 FILL, as in 2.); after the no-history and the history
+     warm-up frames, time 3 frames with the counters set to 0 just
+     before, and require the path's kernels to have launched (the city:
+     `bvh8_trace_2l` once per two-level trace call, K5 and K6 not at all;
+     360p: `mt_dense_fused` once per dense trace call, K1 and K7 not at
+     all) and the frame to be finite and not black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
      3 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card: the mean of 32
@@ -71,7 +77,9 @@ its seconds):
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
 67 TFLOP/s (H100 SXM, NVIDIA's data sheet), for the work of the launches
-its `ms` sums.
+its `ms` sums. The kernels are built with --fmad=false, so their exact
+float32 arithmetic cannot run faster than about twice an operation
+bound.
 
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
@@ -87,6 +95,9 @@ import torch
 
 KERNELS = {
     # name: (launch counter, source, TPU kernel it replaces)
+    # the dense trace (K1's walk and K7's worklists) in one launch
+    "mt_dense_fused": ("mt_dense_fused", "rtxpt_tpu_torch/csrc/mt_dense.cu",
+                       "rtxpt_tpu/ops/mt_dense.py:947"),
     "mt_dense": ("mt_dense", "rtxpt_tpu_torch/csrc/mt_dense.cu",
                  "rtxpt_tpu/ops/mt_dense.py:947"),
     "gather_rows": ("gather_rows", "rtxpt_tpu_torch/csrc/gather.cu",
@@ -111,14 +122,20 @@ KERNELS = {
                   "rtxpt_tpu/ops/mt_dense.py:490"),
 }
 # the kernels each main path must launch
-BENCH_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
+BENCH_PATH = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
               "shade_nee")
 CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
              "shade_nee")
 RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
                 "shade_nee_fill")
-RT_ART_PATH = ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
+RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
                "shade_nee_fill")
+# a kernel that runs once per trace call: (the module whose trace_closest
+# and trace_anyhit make those calls, the kernels its path no longer runs)
+ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
+                                ("bvh8_trace", "bvh8_trace_sub")),
+              "mt_dense_fused": ("rtxpt_tpu_torch.ops.mt_dense",
+                                 ("mt_dense", "tile_keys"))}
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -175,7 +192,7 @@ class Capture:
     one render (the inputs the main path gives each kernel), up to
     limits[name] calls per wrapper; with `during` (keys of STAGES), only
     the calls made inside all of those stages' functions. Captures nest."""
-    MODULES = {"trace_dense": "rtxpt_tpu_torch.ops.mt_dense",
+    MODULES = {"trace_dense_fused": "rtxpt_tpu_torch.ops.mt_dense",
                "gather_rows": "rtxpt_tpu_torch.ops.gather",
                "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
@@ -237,22 +254,23 @@ class Capture:
             setattr(mod, name, fn)
 
 
-FIRST_BOUNCE = {"trace_dense": 3, "gather_rows": 16, "gather_rows_interp": 1,
-                "shade_nee": 1}
+FIRST_BOUNCE = {"trace_dense_fused": 3, "gather_rows": 16,
+                "gather_rows_interp": 1, "shade_nee": 1}
 
 
-def k1_work(args, kw, t, slot, worklists):
-    """(bytes, ops) of one K1 launch: every active lane slab-tests the
-    clusters of its tile's worklist, and tests the 64 rows of each cluster
-    its box lets through (up to the lane's final t; for any-hit, up to the
-    cluster of the first hit, in worklist order)."""
+def dense_visits(args, kw, t, slot, worklists, tile_of=None):
+    """(slab tests, passing clusters) of one dense trace: every active lane
+    slab-tests the clusters of its tile's worklist (`tile_of[lane]`: its
+    tile; default lane // TILE), and tests the 64 rows of each cluster
+    its box lets through (up to the lane's final t; for any-hit, up to
+    the cluster of the first hit, in worklist order)."""
     from rtxpt_tpu_torch.ops import mt_dense
     from rtxpt_tpu_torch.ops.intersect import safe_inv
-    aabb_c, tri9, o_c, d, tmax, act = args
+    aabb_c, _, o_c, d, tmax, act = args
     counts, order = worklists
     n, nc = o_c.shape[0], aabb_c.shape[0]
-    nbytes = (aabb_c.numel() + tri9.numel() + counts.numel()
-              + order.numel()) * 4 + n * (12 + 12 + 4 + 1 + 8)
+    if tile_of is None:
+        tile_of = torch.arange(n, device=o_c.device) // mt_dense.TILE
     lim = tmax if kw["any_hit"] else t
     # rank[tile, c]: cluster c's place on the tile's list
     rank = torch.empty_like(order).scatter_(
@@ -262,30 +280,62 @@ def k1_work(args, kw, t, slot, worklists):
     passing = 0
     for c in range(0, n, 1 << 16):
         sl = slice(c, c + (1 << 16))
-        lanes = torch.arange(c, min(c + (1 << 16), n), device=o_c.device)
-        r = rank[lanes // mt_dense.TILE]
+        tiles = tile_of[sl]
+        r = rank[tiles]
         inv = safe_inv(d[sl])[:, None]
         t0 = (aabb_c[None, :, 0:3] - o_c[sl, None]) * inv
         t1 = (aabb_c[None, :, 3:6] - o_c[sl, None]) * inv
         tn = torch.clamp(torch.amax(torch.minimum(t0, t1), -1), min=0.0)
         tf = torch.minimum(torch.amin(torch.maximum(t0, t1), -1),
                            lim[sl, None])
-        m = (tn <= tf) & act[sl, None] \
-            & (r < counts[lanes // mt_dense.TILE, None])
+        m = (tn <= tf) & act[sl, None] & (r < counts[tiles, None])
         if kw["any_hit"]:
             hit_c = torch.clamp(slot[sl], min=0).long() // mt_dense.CLUSTER
             last = torch.where(slot[sl] >= 0, r.gather(1, hit_c[:, None])[:, 0],
                                nc)
             m &= r <= last[:, None]
         passing += int(m.sum())
-    tiles = torch.arange(n, device=o_c.device) // mt_dense.TILE
-    slabs = int(counts.long()[tiles][act].sum())
-    ops = slabs * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
-    return nbytes, ops
+    slabs = int(counts.long()[tile_of][act].sum())
+    return slabs, passing
+
+
+def k1_work(args, kw, t, slot, worklists):
+    """(bytes, ops) of one K1 launch walking `worklists` (tiles of lane
+    indices): dense_visits' slab tests and row tests."""
+    from rtxpt_tpu_torch.ops import mt_dense
+    aabb_c, tri12, o_c = args[:3]
+    counts, order = worklists
+    nbytes = (aabb_c.numel() + tri12.numel() + counts.numel()
+              + order.numel()) * 4 + o_c.shape[0] * (12 + 12 + 4 + 1 + 8)
+    slabs, passing = dense_visits(args, kw, t, slot, worklists)
+    return nbytes, slabs * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
+
+
+def fused_work(args, kw, t, slot):
+    """(bytes, ops, tiles, visits) of one fused launch: its inputs read
+    and outputs written once; each active lane's slab test of every
+    cluster (the keys), the sort of each tile's finite keys (m log2 m
+    compare-exchanges of 4 operations) and dense_visits' walk over its
+    tiles of active lanes (`active_tile_worklists`, which form the
+    kernel's tiles)."""
+    from rtxpt_tpu_torch.ops import mt_dense as M
+    aabb_c, tri12, o_c, d, tmax, act = args
+    lanes, counts, order = M.active_tile_worklists(aabb_c, o_c, d, tmax, act)
+    tile_of = torch.zeros(o_c.shape[0], dtype=torch.long, device=o_c.device)
+    tile_of[lanes] = torch.arange(lanes.numel(), device=o_c.device) // M.TILE
+    slabs, passing = dense_visits(args, kw, t, slot, (counts, order),
+                                  tile_of)
+    m = counts.double()
+    sort = float((m * torch.ceil(torch.log2(torch.clamp(m, min=2.0)))).sum())
+    ops = (lanes.numel() * aabb_c.shape[0] + slabs) * SLAB_OPS \
+        + passing * M.CLUSTER * TRI_OPS + int(sort) * 4
+    nbytes = (aabb_c.numel() + tri12.numel()) * 4 \
+        + o_c.shape[0] * (12 + 12 + 4 + 1 + 8)
+    return nbytes, ops, counts.numel(), int(counts.sum())
 
 
 def check_k7(args, what) -> tuple:
-    """K7 on one captured K1 trace's inputs: keys bit-equal to the plain
+    """K7 on one captured dense trace's inputs: keys bit-equal to the plain
     version's, and counts/order equal to a stable argsort of them; the
     plain version is the keys and that sort -> (worklists, ms, plain ms,
     bytes, ops)."""
@@ -334,11 +384,13 @@ def check_kernels(results: dict):
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
 
-    # ---- K1: the first closest trace (camera rays), the second (one
-    # bounce of scattered rays) and the first any-hit trace (NEE rays)
-    closest = [c for c in cap.calls["trace_dense"] if not c[1]["any_hit"]]
-    anyhit = [c for c in cap.calls["trace_dense"] if c[1]["any_hit"]]
-    require(len(closest) >= 2 and anyhit, "K1: too few traces captured")
+    # ---- the dense trace: the first closest trace (camera rays), the
+    # second (one bounce of scattered rays) and the first any-hit trace
+    # (NEE rays)
+    calls = cap.calls["trace_dense_fused"]
+    closest = [c for c in calls if not c[1]["any_hit"]]
+    anyhit = [c for c in calls if c[1]["any_hit"]]
+    require(len(closest) >= 2 and anyhit, "too few dense traces captured")
     results["bench"].update(check_dense(
         r.accel, [("camera", closest[0], True),
                   ("scattered", closest[1], False),
@@ -356,69 +408,110 @@ def check_kernels(results: dict):
     check_shade(*cap.calls["shade_nee"][0], "reference_config()")
 
 
-def check_dense(accel, traces, label) -> dict:
-    """K7 and K1 on captured traces [(what, (args, kw), timed)]: K7 as
-    check_k7 says; K1 (walking K7's worklists) against the plain version
-    over all clusters: the same winner (closest) or occlusion flag
-    (any-hit) on >= 99.99% of the active lanes and t/u/v within rtol 1e-5
-    / atol 1e-6 where the winners agree; kernel and plain times and the
-    bound summed over the timed traces -> {"mt_dense": ..., "tile_keys":
-    ...}."""
+def dense_agreement(accel, args, kw, got, ref, what) -> float:
+    """A dense trace's (t, slot) `got` against the plain version's `ref`:
+    the same winner (closest) or occlusion flag (any-hit) on >= 99.99% of
+    the active lanes, t/u/v within rtol 1e-5 / atol 1e-6 where the
+    winners agree; prints the agreement -> max |diff| of t/u/v."""
     from rtxpt_tpu_torch.ops import mt_dense
-    k1_ms = k1_plain_ms = k1_err = 0.0
-    k1_bytes = k1_ops = 0
-    k7 = [0.0, 0.0, 0, 0]                    # ms, plain ms, bytes, ops
+    _, _, o_c, d, _, act = args
+    (t_k, s_k), (t_p, s_p) = got, ref
+    lanes = int(act.sum())
+    if kw["any_hit"]:
+        differ = int(((s_k >= 0) != (s_p >= 0))[act].sum())
+        agree = 1.0 - differ / lanes
+        print(f"{what}: {act.numel()} lanes ({lanes} active), occlusion "
+              f"flag equal on {agree:.6%} ({differ} lanes differ)")
+        require(agree >= 0.9999, f"{what}: agreement {agree}")
+        return 0.0
+    same = (s_k == s_p) & act
+    differ = lanes - int(same.sum())
+    agree = 1.0 - differ / lanes
+    hk = mt_dense.resolve_hits(accel, o_c, d, t_k, s_k)
+    hp = mt_dense.resolve_hits(accel, o_c, d, t_p, s_p)
+    m = same & (s_k >= 0)
+    err = max(float((hk.t - hp.t)[m].abs().max()),
+              float((hk.bary - hp.bary)[m].abs().max()))
+    ok_tuv = torch.allclose(hk.t[m], hp.t[m], rtol=1e-5, atol=1e-6) \
+        and torch.allclose(hk.bary[m], hp.bary[m], rtol=1e-5, atol=1e-6)
+    print(f"{what}: {act.numel()} lanes ({lanes} active), same winner on "
+          f"{agree:.6%} ({differ} lanes differ), t/u/v max |diff| {err:.3g}")
+    require(agree >= 0.9999, f"{what}: winner agreement {agree}")
+    require(ok_tuv, f"{what}: t/u/v outside rtol 1e-5 / atol 1e-6")
+    return err
+
+
+def check_dense(accel, traces, label) -> dict:
+    """On captured dense traces [(what, (args, kw) of trace_dense_fused,
+    timed)]: the fused launch, and K1 walking K7's worklists, against the
+    plain version over all clusters (dense_agreement); K7 as check_k7
+    says; the fused kernel's lab modes (tools_torch/profile_mt_kernel.py);
+    kernel and plain times and the bounds summed over the timed traces ->
+    {"mt_dense_fused": ..., "mt_dense": ..., "tile_keys": ...}. The
+    plain version, timed once per trace, is that of both traces."""
+    from rtxpt_tpu_torch.ops import mt_dense as M
+    from tools_torch import profile_mt_kernel as PM
+    # max |diff|, ms, plain ms, bytes, ops
+    tot = {name: [0.0, 0.0, 0.0, 0, 0]
+           for name in ("mt_dense_fused", "mt_dense", "tile_keys")}
+    old_bound, modes = [0, 0], {}
     for what, (args, kw), timed in traces:
-        wl, *k7_res = check_k7(args, f"{label} {what}")
-        if timed:
-            k7 = [a + b for a, b in zip(k7, k7_res)]
-        what = f"K1 {label} {what}"
-        aabb_c, tri9, o_c, d, tmax, act = args
-        t_k, s_k = mt_dense.trace_dense(*args, **kw, worklists=wl)
-        t_p, s_p = mt_dense.trace_dense_plain(*args, **kw)
+        aabb_c, tri12, o_c, d, tmax, act = args
+        require(int(act.sum()) > 0, f"{label} {what}: no active lane")
+        tri9 = M.tri9_from_tri12(tri12)
+
+        def plain():
+            return M.trace_dense_plain(aabb_c, tri9, o_c, d, tmax, act,
+                                       kw["any_hit"])
+        ref = plain()
+        wl, *k7 = check_k7(args, f"{label} {what}")
+        got = M.trace_dense(*args, **kw, worklists=wl)
         torch.cuda.synchronize()
+        k1_err = dense_agreement(accel, args, kw, got, ref,
+                                 f"K1 {label} {what}")
+        got_f = M.trace_dense_fused(*args, **kw)
+        torch.cuda.synchronize()
+        f_err = dense_agreement(accel, args, kw, got_f, ref,
+                                f"mt_dense_fused {label} {what}")
+        for name, err in (("mt_dense", k1_err), ("mt_dense_fused", f_err),
+                          ("tile_keys", 0.0)):
+            tot[name][0] = max(tot[name][0], err)
+        if not timed:
+            continue
+        pms = time_ms(plain, 2)
+        ms = time_ms(lambda: M.trace_dense(*args, **kw, worklists=wl), 20)
+        fms = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
+        nb, ops = k1_work(args, kw, *got, wl)
+        fnb, fops, tiles, visits = fused_work(args, kw, *got_f)
+        m_ms = PM.run_fused_modes(args, kw)
         lanes = int(act.sum())
-        require(lanes > 0, f"{what}: no active lane")
-        if kw["any_hit"]:
-            agree = float(((s_k >= 0) == (s_p >= 0))[act].float().mean())
-            print(f"{what}: {act.numel()} lanes ({lanes} active), "
-                  f"occlusion flag equal on {agree:.6%}")
-            require(agree >= 0.9999, f"{what}: agreement {agree}")
-        else:
-            same = (s_k == s_p) & act
-            agree = float(same[act].float().mean())
-            hk = mt_dense.resolve_hits(accel, o_c, d, t_k, s_k)
-            hp = mt_dense.resolve_hits(accel, o_c, d, t_p, s_p)
-            m = same & (s_k >= 0)
-            err = max(float((hk.t - hp.t)[m].abs().max()),
-                      float((hk.bary - hp.bary)[m].abs().max()))
-            k1_err = max(k1_err, err)
-            ok_tuv = torch.allclose(hk.t[m], hp.t[m], rtol=1e-5, atol=1e-6) \
-                and torch.allclose(hk.bary[m], hp.bary[m], rtol=1e-5,
-                                   atol=1e-6)
-            print(f"{what}: {act.numel()} lanes ({lanes} active), same "
-                  f"winner on {agree:.6%}, t/u/v max |diff| {err:.3g}")
-            require(agree >= 0.9999, f"{what}: winner agreement {agree}")
-            require(ok_tuv, f"{what}: t/u/v outside rtol 1e-5 / atol 1e-6")
-        if timed:
-            ms = time_ms(lambda: mt_dense.trace_dense(*args, **kw,
-                                                      worklists=wl), 20)
-            pms = time_ms(lambda: mt_dense.trace_dense_plain(*args, **kw), 2)
-            nb, ops = k1_work(args, kw, t_k, s_k, wl)
-            print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                  f"bound {bound(nb, ops)[0]:.4f} ms", flush=True)
-            k1_ms += ms
-            k1_plain_ms += pms
-            k1_bytes += nb
-            k1_ops += ops
-    b_ms, b_by = bound(k1_bytes, k1_ops)
-    k7_b, k7_by = bound(k7[2], k7[3])
-    return {"mt_dense": dict(max_abs_err=k1_err, ms=k1_ms,
-                             plain_ms=k1_plain_ms, library_ms=None,
-                             bound_ms=b_ms, bound_by=b_by),
-            "tile_keys": dict(max_abs_err=0.0, ms=k7[0], plain_ms=k7[1],
-                              library_ms=None, bound_ms=k7_b,
-                              bound_by=k7_by)}
+        print(f"K1 {label} {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+              f"bound {bound(nb, ops)[0]:.4f} ms", flush=True)
+        print(f"mt_dense_fused {label} {what}: 1 launch over {act.numel()} "
+              f"lanes, {lanes} active, {tiles} tiles of active lanes "
+              f"(K7's tiles of lane indices: {wl[0].numel()}), visits/tile "
+              f"{visits / max(tiles, 1):.2f} (K7's {PM.visits(wl[0])}); "
+              f"kernel {fms:.4f} ms (K7 + K1 {k7[0] + ms:.4f}), plain "
+              f"{pms:.4f} ms, bound {bound(fnb, fops)[0]:.4f} ms (K1's + "
+              f"K7's: {bound(nb + k7[2], ops + k7[3])[0]:.4f}); lab modes "
+              + ", ".join(f"{mode} {v:.4f}" for mode, (v, _) in m_ms.items())
+              + " ms", flush=True)
+        for name, vals in (("mt_dense", (ms, pms, nb, ops)),
+                           ("mt_dense_fused", (fms, pms, fnb, fops)),
+                           ("tile_keys", k7)):
+            for j, v in enumerate(vals):
+                tot[name][j + 1] += v
+        old_bound = [old_bound[0] + nb + k7[2], old_bound[1] + ops + k7[3]]
+        for mode, (v, _) in m_ms.items():
+            modes[mode] = modes.get(mode, 0.0) + v
+    out = {}
+    for name, (err, ms, pms, nb, ops) in tot.items():
+        b_ms, b_by = bound(nb, ops)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    out["mt_dense_fused"].update(modes_ms=modes,
+                                 k1_k7_bound_ms=bound(*old_bound)[0])
+    return out
 
 
 def check_gathers(calls, label, lanes=None) -> dict:
@@ -585,52 +678,61 @@ def bench(card: str) -> dict:
     torch.cuda.synchronize()
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    hdr = r.render(w, h, spp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc:
+        t0 = time.perf_counter()
+        hdr = r.render(w, h, spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counts = cuda_lib.launch_counts()
     out = hdr.cpu().numpy()
     require(out.shape == (h, w, 3) and np.isfinite(out).all()
             and out.mean() > 0.0, "bench render: bad output")
     mpaths = w * h * spp / wall / 1e6
     print(f"bench {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
-          f"wall, {mpaths:.3f} Mpaths/s on {card}; launches {counts}")
+          f"wall, {mpaths:.3f} Mpaths/s on {card}; {tc.n} dense traces; "
+          f"launches {counts}")
     for name in BENCH_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the bench path")
+    require_one_launch_per_trace(counts, tc.n, "bench", "mt_dense_fused")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
 class VisitCount:
-    """Counts the tiles and worklist visits of every dense trace while
-    active (wraps mt_dense.tile_worklists; the sums stay on the device)."""
+    """Counts the tiles and worklist visits of the fused kernel on every
+    dense trace while active: wraps mt_dense.trace_dense_fused and runs
+    its lab mode "lists" on the same inputs first (the launches count on
+    the lab's counter, `mt_dense_fused_variant`; the sums stay on the
+    device)."""
 
     def __enter__(self):
         from rtxpt_tpu_torch.ops import mt_dense as M
-        self.mod, self.orig = M, M.tile_worklists
+        from tools_torch import profile_mt_kernel as PM
+        self.mod, self.orig = M, M.trace_dense_fused
         self.visits, self.tiles = 0, 0
 
         def counted(*args, **kw):
-            counts, order = self.orig(*args, **kw)
-            self.visits = self.visits + counts.sum()
-            self.tiles += counts.numel()
-            return counts, order
-        M.tile_worklists = counted
+            v, t = PM.list_visits(args)
+            self.visits, self.tiles = self.visits + v, self.tiles + t
+            return self.orig(*args, **kw)
+        M.trace_dense_fused = counted
         return self
 
     def __exit__(self, *exc):
-        self.mod.tile_worklists = self.orig
+        self.mod.trace_dense_fused = self.orig
 
     def per_tile(self) -> float:
-        return float(self.visits) / max(self.tiles, 1)
+        return float(self.visits) / max(float(self.tiles), 1.0)
 
 
 def sorted_bench(card: str):
     """The bench workload unsorted and under wavefront_sort="raystream"
-    (each with its launch counts set to 0 just before): both walls and
-    visits per tile; the sorted render must launch K1 and K7 and equal the
-    unsorted one to the tolerance of tests/test_raystream_sort.py."""
+    (each with its launch counts set to 0 just before): both walls and the
+    fused kernel's visits per tile (VisitCount: its lab launches are in
+    the walls); each render must launch the fused dense trace once per
+    dense trace call and K1 and K7 not at all, and the sorted image must
+    equal the unsorted one to the tolerance of
+    tests/test_raystream_sort.py."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.ops import cuda_lib
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
@@ -646,7 +748,8 @@ def sorted_bench(card: str):
                      device="cuda")
         torch.cuda.synchronize()
         cuda_lib.reset_launch_counts()
-        with VisitCount() as vc:
+        with VisitCount() as vc, \
+                TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc:
             t0 = time.perf_counter()
             hdr = r.render(w, h, spp)
             torch.cuda.synchronize()
@@ -655,18 +758,18 @@ def sorted_bench(card: str):
         imgs[sort] = hdr.cpu().numpy()
         print(f"bench wavefront_sort={sort}: {wall * 1e3:.1f} ms wall "
               f"({w * h * spp / wall / 1e6:.3f} Mpaths/s) on {card}; "
-              f"visits/tile {vc.per_tile():.3f} over {vc.tiles} tiles; K1 "
-              f"{counts['mt_dense']}, K7 {counts['tile_keys']} launches",
-              flush=True)
-        for name in ("mt_dense", "tile_keys"):
-            require(counts[name] > 0, f"{name} was not launched under "
-                    f"wavefront_sort={sort}")
+              f"visits/tile {vc.per_tile():.3f} over {int(vc.tiles)} tiles "
+              f"of active lanes; mt_dense_fused {counts['mt_dense_fused']} "
+              f"launches for {tc.n} dense traces", flush=True)
+        require_one_launch_per_trace(counts, tc.n,
+                                     f"wavefront_sort={sort}",
+                                     "mt_dense_fused")
     a, b = imgs["none"], imgs["raystream"]
     diff = np.abs(a - b)
+    out = (diff > 1e-6 + 1e-5 * np.abs(a)).any(-1)
     print(f"raystream vs unsorted: max |diff| {diff.max():.3g}, pixels "
-          f"outside rtol 1e-5 / atol 1e-6: "
-          f"{int((diff > 1e-6 + 1e-5 * np.abs(a)).any(-1).sum())} of "
-          f"{w * h}", flush=True)
+          f"outside rtol 1e-5 / atol 1e-6: {int(out.sum())} of {w * h} "
+          f"(first (y, x): {np.argwhere(out)[:5].tolist()})", flush=True)
     require(np.isfinite(b).all() and np.allclose(b, a, rtol=1e-5, atol=1e-6),
             "raystream render differs from the unsorted one")
 
@@ -916,20 +1019,23 @@ def check_two_level(traces, label) -> dict:
     return out
 
 
-class TwoLevelCalls:
-    """Counts the two-level trace calls that cast at least one ray while
-    active (wraps bvh2l.trace_closest and trace_anyhit)."""
+class TraceCalls:
+    """Counts the trace calls that cast at least one ray while active:
+    wraps trace_closest and trace_anyhit of the trace module `module`
+    (ONE_LAUNCH)."""
+
+    def __init__(self, module: str):
+        import importlib
+        self.mod, self.n = importlib.import_module(module), 0
 
     def __enter__(self):
-        from rtxpt_tpu_torch.ops import bvh2l
-        self.mod, self.n = bvh2l, 0
-        self.orig = {name: getattr(bvh2l, name)
+        self.orig = {name: getattr(self.mod, name)
                      for name in ("trace_closest", "trace_anyhit")}
         for name, fn in self.orig.items():
-            def counted(tl, origins, *args, _fn=fn, **kw):
+            def counted(accel, origins, *args, _fn=fn, **kw):
                 self.n += origins.shape[0] > 0
-                return _fn(tl, origins, *args, **kw)
-            setattr(bvh2l, name, counted)
+                return _fn(accel, origins, *args, **kw)
+            setattr(self.mod, name, counted)
         return self
 
     def __exit__(self, *exc):
@@ -937,12 +1043,16 @@ class TwoLevelCalls:
             setattr(self.mod, name, fn)
 
 
-def require_one_launch_per_trace(counts, n_traces, what):
-    require(counts["bvh8_trace_2l"] == n_traces > 0,
-            f"{what}: {counts['bvh8_trace_2l']} bvh8_trace_2l launches for "
-            f"{n_traces} two-level traces")
-    require(counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0,
-            f"{what}: K5 or K6 launched on the two-level path: {counts}")
+def require_one_launch_per_trace(counts, n_traces, what,
+                                 kernel="bvh8_trace_2l"):
+    """`kernel` launched once per trace call (ONE_LAUNCH), and the
+    kernels it replaced on the path not at all."""
+    require(counts[kernel] == n_traces > 0,
+            f"{what}: {counts[kernel]} {kernel} launches for {n_traces} "
+            "trace calls")
+    others = ONE_LAUNCH[kernel][1]
+    require(all(counts[k] == 0 for k in others),
+            f"{what}: {others} launched beside {kernel}: {counts}")
 
 
 def build_city():
@@ -997,7 +1107,7 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     torch.cuda.synchronize()
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
-    with TwoLevelCalls() as tc:
+    with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc:
         t0 = time.perf_counter()
         hdr = r.render(w, h, spp)
         torch.cuda.synchronize()
@@ -1040,7 +1150,7 @@ def capture_realtime_frame(r, w, h):
     if isinstance(r.accel, bvh2l.BVH8TwoLevel):
         traces = {"trace_bvh8_2l": 1}
     else:
-        traces = {"trace_dense": 1}
+        traces = {"trace_dense_fused": 1}
     with Capture(traces, during=("build",)) as build, \
             Capture(dict(gather_rows=16, gather_rows_interp=1,
                          shade_nee_fill=1), during=("fill",)) as fill, \
@@ -1070,9 +1180,10 @@ def check_realtime_kernels(r, w, h, label) -> dict:
     lanes = fill.calls["shade_nee_fill"][0][0][0].shape[1]
     require(lanes == w * h, f"{label}: the first FILL bounce has {lanes} "
             f"lanes, not {w * h}")
-    if "trace_dense" in traces:
-        out = check_dense(r.accel, [(what, cap.calls["trace_dense"][0], True)
-                                    for what, cap, _ in stages], label)
+    if "trace_dense_fused" in traces:
+        out = check_dense(r.accel, [(what, cap.calls["trace_dense_fused"][0],
+                                     True) for what, cap, _ in stages],
+                          label)
     else:
         out = check_two_level(
             [(what, cap.calls["trace_bvh8_2l"][0], True)
@@ -1086,16 +1197,18 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     """`warmups` frames (the no-history and the history variant: 2 from a
     new renderer), then `frames` timed frames with the launch counters set
     to 0 just before, each ending in a device synchronize; requires the
-    kernels of `path` to have launched (a two-level path: one
-    `bvh8_trace_2l` launch per two-level trace call, and no K5 or K6) and
-    the last frame to be finite and not black. Returns the counts."""
+    kernels of `path` to have launched (its ONE_LAUNCH kernel once per
+    trace call: `bvh8_trace_2l` on a two-level path, and no K5 or K6;
+    `mt_dense_fused` on a dense one, and no K1 or K7) and the last frame
+    to be finite and not black. Returns the counts."""
     from rtxpt_tpu_torch.ops import cuda_lib
     for _ in range(warmups):
         r.render_frame(w, h)
         torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     walls, fills = [], []
-    with TwoLevelCalls() as tc:
+    kernel = next(k for k in ONE_LAUNCH if k in path)
+    with TraceCalls(ONE_LAUNCH[kernel][0]) as tc:
         for _ in range(frames):
             t0 = time.perf_counter()
             img = r.render_frame(w, h)
@@ -1110,13 +1223,12 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     ms = [x * 1e3 for x in walls]
     print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
           f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms; FILL bounces "
-          f"{fills}) on {card}; launches over {frames} frames {counts}",
-          flush=True)
+          f"{fills}) on {card}; {tc.n} trace calls; launches over {frames} "
+          f"frames {counts}", flush=True)
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
-    if "bvh8_trace_2l" in path:
-        require_one_launch_per_trace(counts, tc.n, f"realtime {label}")
+    require_one_launch_per_trace(counts, tc.n, f"realtime {label}", kernel)
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1235,7 +1347,7 @@ def main() -> int:
     results = {p: {} for p in PATHS}
     results["labs"] = {}
     launches = {}
-    phase("kernels K1-K4, K7", check_kernels, results)
+    phase("kernels: dense trace, K1-K4, K7", check_kernels, results)
     phase("goldens", check_goldens)
     launches["bench"] = phase("bench", bench, card)
     phase("bench raystream", sorted_bench, card)

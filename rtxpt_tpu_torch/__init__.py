@@ -11,7 +11,8 @@ reference's three trace tiers (dense, BVH8, two-level BVH8), with the six
 TPU kernels of that path rewritten as hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``):
 
-  K1 ops/mt_dense.py       closest/any-hit ray-triangle trace (dense scenes)
+  K1 ops/mt_dense.py       closest/any-hit ray-triangle trace (dense scenes;
+                           with K7's worklists, one fused launch per trace)
   K2 ops/gather.py         row gather
   K3 ops/gather.py         barycentric 3-row blend
   K4 pt/shade_kernel.py    fused shade + NEE bounce

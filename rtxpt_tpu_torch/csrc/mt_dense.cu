@@ -1,61 +1,125 @@
-// K1: dense closest-hit / any-hit ray-triangle trace (scenes of at most
-// 8192 triangles, clusters of 64), and K7: the per-tile cluster worklist
-// prepass it walks.
+// The dense closest-hit / any-hit ray-triangle trace (scenes of at most
+// 8192 triangles, clusters of 64): K1 and K7 fused into one launch per
+// trace (`rtxpt_mt_dense_fused`), and the two kept as entry points of
+// their own (`rtxpt_mt_dense`, K1 walking worklists it is given;
+// `rtxpt_tile_keys`, K7).
 //
-// K1 replaces rtxpt_tpu/ops/mt_dense.py `_make_kernel` (dispatched by
-// `_trace_dense`, used by `trace_closest` and `trace_anyhit`). On the TPU
-// each (ray, triangle) pair's Möller–Trumbore numerators came out of a
-// W(RC,16) @ x(16,TILE) matmul on the MXU and the winner was picked on a
-// t with log2(CLUSTER) mantissa bits dropped; here each thread tests its
-// ray against the triangles directly and keeps the exact smallest t (ties
-// to the lowest slot), which is what the plain version computes.
+// Replaces rtxpt_tpu/ops/mt_dense.py K1 `_make_kernel` (its `pallas_call`
+// in `_trace_dense`, :947; used by `trace_closest` and `trace_anyhit`)
+// and K7 `_make_prepass_kernel` (its `pallas_call` in
+// `_tile_worklists_pallas`, :490). On the TPU each (ray, triangle) pair's
+// Möller–Trumbore numerators came out of a W(RC,16) @ x(16,TILE) matmul on
+// the MXU and the winner was picked on a t with log2(CLUSTER) mantissa
+// bits dropped. The port's winners are exact (the smallest t, ties to the
+// lowest slot, which is what the plain version computes), so each pair is
+// an exact float32 test: no tensor cores, and no TMA for 3 KB of rows.
 //
-// Bound on the H100: float32 arithmetic of the per-pair tests (about 40
-// operations per pair; the 81 clusters x 64 rows of the programmer-art
-// table are 32 KB and stay in L1/L2) and lane divergence, since a warp
-// runs the union of its lanes' clusters. Design: one thread per ray,
-// 128-thread blocks; the block of tile b walks tile b's worklist (K7):
-// the clusters some active lane of the tile can enter, nearest entry
-// first, so the running best t tightens early. Each cluster is
-// slab-tested against the lane's running best t; a block skips a cluster
-// no lane needs (__syncthreads_or), otherwise stages its 64 rows (p0, e1,
-// e2, 2.3 KB) in shared memory once for the whole block. Clusters come
-// out of slot order, so the closest-hit update compares (t, slot): an
-// equal t from a lower slot visited later still wins. Any-hit is a
-// template flag that stops a lane at its first hit.
+// Bound on the H100: the float32 arithmetic of the per-pair tests (45
+// operations a pair, 25 a slab test). The port builds with --fmad=false
+// (bit-equality with the plain version), so a multiply and an add take
+// two issue slots and the kernel cannot run faster than about twice the
+// operation bound counted at 67 TFLOP/s. The rows of programmer-art are
+// 81 x 64 x 48 B = 249 KB (`tri12`; `tri9` at a stride of 10 floats is
+// 207 KB): they live in L2, and each visited cluster's 3 KB is staged in
+// shared memory once per block.
 //
-// K7 replaces rtxpt_tpu/ops/mt_dense.py `_make_prepass_kernel` (its
-// `pallas_call` in `_tile_worklists_pallas`): for each tile of `tile`
-// lanes and each cluster, the smallest slab entry t over the tile's
-// active lanes whose slab test passes (+inf where none does), and the
-// tile's worklist from them: counts (finite keys) and order (the
-// clusters by key, ties by index, as a stable argsort). Bound: float32
-// slab tests (25 operations per lane and cluster). Design: one block per
-// tile, the cluster boxes in shared memory, each thread slab-tests its
-// lane against every cluster; a warp-shuffle min and a min over the
-// block's warps in shared memory give each cluster's key. No atomics on
-// the keys: they can be negative (origins inside a box), and a float min
-// is exact, so the keys equal the plain version's bit for bit. The
-// block then sorts its (key, cluster) pairs in shared memory (bitonic,
-// at most 128 of them), which costs less than a separate sort pass over
-// all tiles.
+// The fused kernel (one launch per trace): persistent blocks of 128
+// threads (the grid is the resident blocks, from the occupancy query)
+// take windows of 128 consecutive lanes from a counter the wrapper
+// zeroes. A window's active lanes are counted with warp ballots and its
+// place among all active lanes comes from a decoupled look-back over the
+// windows claimed before it (Merrill & Garland, "Single-pass Parallel
+// Prefix Scan with Decoupled Look-back", 2016): each window publishes its
+// count, then its inclusive prefix, then (once it has written its active
+// lanes at their ranks into `ids`) that its lanes are there. A tile is
+// 128 consecutive active lanes in ascending lane order (the last tile of
+// the trace holds the rest); the block whose window holds a tile's last
+// lane waits for the windows the tile reaches back into and reads the
+// tile's lanes from `ids`. So every tile but the last is full, and a
+// trace with 6.6% active lanes runs 15x fewer tiles than one block per
+// 128 lanes. Inactive lanes are written in the window scan. Then, per
+// tile, K7's work: each thread slab-tests its lane against the cluster
+// boxes in shared memory, a group of 8 clusters only where a lane of
+// the warp passes the group's box (rounding is monotonic, so a box
+// inside another passes only if the outer one does: the keys are
+// exact); a cluster's key is the smallest entry t over the lanes that
+// pass (-0.0 made +0.0, as the plain version); one `redux.sync` min per
+// warp over order-preserving integer images of the keys and one
+// shared-memory atomicMin per warp give the exact float minimum (no
+// global atomics). The finite keys are compacted and ranked by (key,
+// cluster) in one pass (at most 128, a count per thread), which is the
+// order of a stable argsort. Then K1's walk, near to far.
 //
-// The modes of K1 beside kFull exist for the dense-trace lab
-// (tools_torch/profile_mt_kernel.py, the counterpart of the reference's
-// ablated variants in tools/profile_mt_kernel.py).
+// The walk (shared by the fused kernel and `rtxpt_mt_dense`): each lane
+// slab-gates the list's next cluster against its running best t
+// (any-hit: against t_max, and it stops at its first hit); a block skips
+// a cluster no lane needs (__syncthreads_count); otherwise the cluster's
+// 64 rows of `tri12` (p0.xyz + id, e1.xyz + 0, e2.xyz + 0: 192 float4s)
+// are copied into shared memory with 16-byte cp.async and read back as
+// three float4s per triangle. A row stops after its first test (u) where
+// that already fails. Where at most kCoopMax lanes need the cluster, the
+// block's 128 threads share out its (lane, row) tests, so a tile with a
+// few live lanes does not wait on 64 tests in a row, and each lane's
+// (t, slot) minimum comes from a shared-memory atomicMin; otherwise each
+// live lane tests the 64 rows itself. Clusters come out of slot order,
+// so the closest-hit update compares (t, slot): an equal t from a lower
+// slot visited later still wins. A cluster's rows are copied when the
+// block visits it: copying the next entry's rows in flight (lab mode
+// "prefetch") measured no faster on the H100, since the resident blocks
+// hide the copy, and it is wasted where the block then skips the entry.
+// Once the tests were shared out, tiles of lane indices (lab mode
+// "nocompact") measured a few percent faster than tiles of active lanes
+// on most traces (PERF.md): a tile of lanes from across the image has
+// longer lists. The main path keeps the compaction, as designed; the lab
+// keeps both.
+//
+// Lab modes (tools_torch/profile_mt_kernel.py, the counterpart of the
+// reference's ablated variants in tools/profile_mt_kernel.py): K1's
+// (enum Mode, `rtxpt_mt_dense_variant`) and the fused kernel's (enum
+// FusedMode, `rtxpt_mt_dense_fused_variant`).
 #include "common.cuh"
+
+#include <climits>
 
 namespace {
 
 constexpr int kCluster = 64;
 constexpr int kBlock = 128;          // ops/mt_dense.py TILE
 constexpr int kMaxClusters = 128;    // MAX_TRIS / kCluster
+constexpr int kRowVecs = 3;          // float4s per tri12 row
+constexpr int kClusterVecs = kCluster * kRowVecs;
+constexpr int kWarps = kBlock / 32;
+constexpr int kGroup = 8;            // clusters under one group box
+constexpr int kMaxGroups = kMaxClusters / kGroup;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum Mode {
-    kFull = 0,     // K1
+    kWalk = 0,     // K1
     kNoSkip = 1,   // no block-uniform skip: every worklist cluster staged
     kNoGate = 2,   // no slab gate: every active lane tests every cluster
     kGate = 3,     // worklist walk and gates only; slot_out = visit count
+};
+
+enum FusedMode {
+    kFused = 0,          // the main path
+    kNoCompact = 1,      // tiles of 128 lane indices, active or not
+    kLists = 2,          // tiles and worklists only; slot_out = list length
+    kNoGroups = 3,       // every lane slab-tests every cluster box
+    kPrefetch = 4,       // the next list entry's rows copied in flight
+    kPerLane = 5,        // each live lane tests all 64 rows itself
+    kAllCoop = 6,        // the block shares out every cluster's tests
+};
+// a cluster that at most this many lanes need is tested cooperatively
+constexpr int kCoopMax = 64;
+
+template <int MODE>
+struct FusedFlags {
+    static constexpr bool compact = MODE != kNoCompact;
+    static constexpr bool prefetch = MODE == kPrefetch;
+    static constexpr bool lists = MODE == kLists;
+    static constexpr bool groups = MODE != kNoGroups;
+    static constexpr int coop_max =
+        MODE == kPerLane ? 0 : (MODE == kAllCoop ? kBlock : kCoopMax);
 };
 
 __device__ __forceinline__ float safe_inv(float c) {
@@ -63,51 +127,127 @@ __device__ __forceinline__ float safe_inv(float c) {
     return 1.0f / s;
 }
 
-template <bool ANY_HIT, int MODE>
-__global__ void __launch_bounds__(kBlock)
-mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
-                const float* __restrict__ tri9,   // (nc*64, 10) recentered
-                int nc,
-                const int32_t* __restrict__ counts,  // (tiles,)
-                const int32_t* __restrict__ order,   // (tiles, nc)
-                const float* __restrict__ orig,   // (n, 3) recentered
-                const float* __restrict__ dirs,   // (n, 3)
-                const float* __restrict__ t_max,  // (n,)
-                const uint8_t* __restrict__ active,
-                float* __restrict__ t_out, int32_t* __restrict__ slot_out,
-                int n) {
-    __shared__ float s_tri[kCluster * 9];
-    const int lane = blockIdx.x * kBlock + threadIdx.x;
-    const bool in_range = lane < n;
-    float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 1.f, dz = 1.f;
-    float tmax = 0.f;
-    bool act = false;
-    if (in_range) {
-        ox = orig[lane * 3 + 0];
-        oy = orig[lane * 3 + 1];
-        oz = orig[lane * 3 + 2];
-        dx = dirs[lane * 3 + 0];
-        dy = dirs[lane * 3 + 1];
-        dz = dirs[lane * 3 + 2];
-        tmax = t_max[lane];
-        act = active[lane] != 0;
-    }
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    float best = tmax;
-    int slot = -1;
-    int visits = 0;
-    const int cnt = counts[blockIdx.x];
-    const int32_t* list = order + (long long)blockIdx.x * nc;
+// an int whose order is that of the (non-NaN) float; its own inverse
+__device__ __forceinline__ int ordered(int bits) {
+    return bits >= 0 ? bits : bits ^ 0x7fffffff;
+}
 
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+struct Ray {
+    float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmax;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* orig, const float* dirs,
+                                        const float* t_max, long long lane) {
+    Ray r;
+    r.ox = orig[lane * 3 + 0];
+    r.oy = orig[lane * 3 + 1];
+    r.oz = orig[lane * 3 + 2];
+    r.dx = dirs[lane * 3 + 0];
+    r.dy = dirs[lane * 3 + 1];
+    r.dz = dirs[lane * 3 + 2];
+    r.ix = safe_inv(r.dx);
+    r.iy = safe_inv(r.dy);
+    r.iz = safe_inv(r.dz);
+    r.tmax = t_max[lane];
+    return r;
+}
+
+__device__ __forceinline__ Ray idle_ray() {
+    Ray r;
+    r.ox = r.oy = r.oz = 0.0f;
+    r.dx = r.dy = r.dz = 1.0f;
+    r.ix = r.iy = r.iz = 1.0f;
+    r.tmax = 0.0f;
+    return r;
+}
+
+// one cluster's 64 rows into shared memory, as one cp.async group
+__device__ __forceinline__ void stage_rows(float4* dst, const float4* tri12,
+                                           int c) {
+    const float4* src = tri12 + (long long)c * kClusterVecs;
+    for (int k = threadIdx.x; k < kClusterVecs; k += kBlock)
+        cp_async16(dst + k, src + k);
+    cp_async_commit();
+}
+
+// one Möller–Trumbore test of the ray (o, d) against a tri12 row: true
+// and its t where it hits, sign-folded by a (two-sided), in the plain
+// version's operations and order
+__device__ __forceinline__ bool mt_row(float ox, float oy, float oz,
+                                       float dx, float dy, float dz,
+                                       const float4* row, float& t) {
+    const float4 p0 = row[0], e1 = row[1], e2 = row[2];
+    const float hx = dy * e2.z - dz * e2.y;
+    const float hy = dz * e2.x - dx * e2.z;
+    const float hz = dx * e2.y - dy * e2.x;
+    const float a = e1.x * hx + e1.y * hy + e1.z * hz;
+    const float sx = ox - p0.x, sy = oy - p0.y, sz = oz - p0.z;
+    const float uu = sx * hx + sy * hy + sz * hz;
+    const bool neg = a < 0.0f;
+    const float absa = neg ? -a : a;
+    const float su = neg ? -uu : uu;
+    // su > absa fails the test below too (sv >= 0 and the rounded su + sv
+    // is at least su): most rows stop here
+    if (!(absa > 1e-12f) || !(su >= 0.0f) || !(su <= absa)) return false;
+    const float qx = sy * e1.z - sz * e1.y;
+    const float qy = sz * e1.x - sx * e1.z;
+    const float qz = sx * e1.y - sy * e1.x;
+    const float vv = dx * qx + dy * qy + dz * qz;
+    const float tt = e2.x * qx + e2.y * qy + e2.z * qz;
+    const float sv = neg ? -vv : vv;
+    const float st = neg ? -tt : tt;
+    if (!(sv >= 0.0f) || !(su + sv <= absa) || !(st > 0.0f)) return false;
+    t = st / absa;
+    return true;
+}
+
+struct WalkShared {
+    float4 rows[2][kClusterVecs];   // staged clusters
+    float4 o[kBlock];               // the live lanes' origins and best t
+    float4 d[kBlock];               // their directions and best slot
+    unsigned long long hit[kBlock]; // their (t, slot) minimum, packed
+    int warp_sum[kWarps];
+};
+
+// K1's walk of a block's worklist s_list[0..cnt) (block-uniform), the
+// boxes in s_box; updates the lane's (best, slot), or counts its visits
+// (kGate). Where at most COOP_MAX lanes need a cluster, the
+// block's threads share out its (lane, row) tests and take each lane's
+// (t, slot) minimum with a shared-memory atomicMin on (t bits, slot)
+// (t > 0, so the bits order as the floats); otherwise each live lane
+// tests the 64 rows itself. Ends with every cp.async done and a barrier.
+template <bool ANY_HIT, int MODE, bool PREFETCH, int COOP_MAX>
+__device__ __forceinline__ void walk(const float* s_box, const int* s_list,
+                                     int cnt, const float4* tri12,
+                                     WalkShared& ws, const Ray& r, bool act,
+                                     float& best, int& slot, int& visits) {
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    if (MODE != kGate && PREFETCH && cnt > 0)
+        stage_rows(ws.rows[0], tri12, s_list[0]);
     for (int j = 0; j < cnt; ++j) {
-        const int c = list[j];
+        const int c = s_list[j];
         bool live = act && (!ANY_HIT || slot < 0);
         if (MODE != kNoGate && live) {
-            const float* b = aabb + c * 6;
-            float t0x = (b[0] - ox) * ix, t1x = (b[3] - ox) * ix;
-            float t0y = (b[1] - oy) * iy, t1y = (b[4] - oy) * iy;
-            float t0z = (b[2] - oz) * iz, t1z = (b[5] - oz) * iz;
-            float lim = ANY_HIT ? tmax : best;
+            const float* b = s_box + c * 6;
+            float t0x = (b[0] - r.ox) * r.ix, t1x = (b[3] - r.ox) * r.ix;
+            float t0y = (b[1] - r.oy) * r.iy, t1y = (b[4] - r.oy) * r.iy;
+            float t0z = (b[2] - r.oz) * r.iz, t1z = (b[5] - r.oz) * r.iz;
+            float lim = ANY_HIT ? r.tmax : best;
             float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                              fmaxf(fminf(t0z, t1z), 0.0f));
             float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
@@ -118,42 +258,70 @@ mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
             visits += live ? 1 : 0;
             continue;
         }
-        // uniform over the block; kNoSkip stages every cluster
-        if (MODE != kNoSkip && !__syncthreads_or(live)) continue;
-        for (int k = threadIdx.x; k < kCluster * 9; k += kBlock) {
-            int r = k / 9;
-            s_tri[k] = tri9[(long long)(c * kCluster + r) * 10 + (k - r * 9)];
+        const float4* rows = ws.rows[PREFETCH ? (j & 1) : 0];
+        const bool ahead = PREFETCH && j + 1 < cnt;
+        if (ahead) {
+            // a skipped entry's copy into that buffer may still be in
+            // flight, and two copies to one address are not ordered
+            cp_async_wait<1>();
+            stage_rows(ws.rows[(j + 1) & 1], tri12, s_list[j + 1]);
         }
+        // uniform over the block; kNoSkip stages every cluster
+        const int lanes = __syncthreads_count(live);
+        if (MODE != kNoSkip && lanes == 0) continue;
+        if (!PREFETCH) stage_rows(ws.rows[0], tri12, c);
+        const bool coop = lanes <= COOP_MAX;
+        const unsigned ballot = __ballot_sync(kFull, live);
+        if (coop && wl == 0) ws.warp_sum[warp] = __popc(ballot);
+        if (ahead)
+            cp_async_wait<1>();
+        else
+            cp_async_wait<0>();
         __syncthreads();
-        if (live) {
-            float cbest = ANY_HIT ? tmax : best;
-            int cslot = ANY_HIT ? -1 : slot;
-            for (int r = 0; r < kCluster; ++r) {
-                const float* tr = s_tri + r * 9;
-                const float p0x = tr[0], p0y = tr[1], p0z = tr[2];
-                const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
-                const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
-                const float hx = dy * e2z - dz * e2y;
-                const float hy = dz * e2x - dx * e2z;
-                const float hz = dx * e2y - dy * e2x;
-                const float a = e1x * hx + e1y * hy + e1z * hz;
-                const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
-                const float uu = sx * hx + sy * hy + sz * hz;
-                const float qx = sy * e1z - sz * e1y;
-                const float qy = sz * e1x - sx * e1z;
-                const float qz = sx * e1y - sy * e1x;
-                const float vv = dx * qx + dy * qy + dz * qz;
-                const float tt = e2x * qx + e2y * qy + e2z * qz;
-                const bool neg = a < 0.0f;
-                const float absa = neg ? -a : a;
-                const float su = neg ? -uu : uu;
-                const float sv = neg ? -vv : vv;
-                const float st = neg ? -tt : tt;
-                if (!(absa > 1e-12f) || !(su >= 0.0f) || !(sv >= 0.0f) ||
-                    !(su + sv <= absa) || !(st > 0.0f))
+        if (coop) {
+            int q = __popc(ballot & ((1u << wl) - 1u));
+            for (int w = 0; w < warp; ++w) q += ws.warp_sum[w];
+            if (live) {
+                ws.o[q] = make_float4(r.ox, r.oy, r.oz,
+                                      ANY_HIT ? r.tmax : best);
+                ws.d[q] = make_float4(r.dx, r.dy, r.dz,
+                                      __int_as_float(ANY_HIT ? -1 : slot));
+                ws.hit[q] = ~0ull;
+            }
+            __syncthreads();
+            for (int p = threadIdx.x; p < lanes * kCluster; p += kBlock) {
+                const int lq = p / kCluster, k = p - lq * kCluster;
+                const float4 o = ws.o[lq], d = ws.d[lq];
+                float t;
+                if (!mt_row(o.x, o.y, o.z, d.x, d.y, d.z,
+                            rows + k * kRowVecs, t))
                     continue;
-                const float t = st / absa;
-                const int s = c * kCluster + r;
+                const int s = c * kCluster + k;
+                // the sequential update's acceptance (below)
+                if (ANY_HIT ? t < o.w
+                            : t < o.w || (t == o.w && s < __float_as_int(d.w)))
+                    atomicMin(ws.hit + lq,
+                              (static_cast<unsigned long long>(
+                                   __float_as_uint(t)) << 32) |
+                                  static_cast<unsigned>(s));
+            }
+            __syncthreads();
+            if (live) {
+                const unsigned long long h = ws.hit[q];
+                if (h != ~0ull) {
+                    best = __uint_as_float(static_cast<unsigned>(h >> 32));
+                    slot = static_cast<int>(static_cast<unsigned>(h));
+                }
+            }
+        } else if (live) {
+            float cbest = ANY_HIT ? r.tmax : best;
+            int cslot = ANY_HIT ? -1 : slot;
+            for (int k = 0; k < kCluster; ++k) {
+                float t;
+                if (!mt_row(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                            rows + k * kRowVecs, t))
+                    continue;
+                const int s = c * kCluster + k;
                 if (ANY_HIT) {
                     if (t < cbest) {
                         cbest = t;
@@ -173,10 +341,367 @@ mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
         }
         __syncthreads();
     }
+    cp_async_wait<0>();   // a skipped last prefetch may still be in flight
+    __syncthreads();
+}
+
+template <bool ANY_HIT, int MODE>
+__global__ void __launch_bounds__(kBlock)
+mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
+                const float4* __restrict__ tri12, // (nc*64, 12) recentered
+                int nc,
+                const int32_t* __restrict__ counts,  // (tiles,)
+                const int32_t* __restrict__ order,   // (tiles, nc)
+                const float* __restrict__ orig,   // (n, 3) recentered
+                const float* __restrict__ dirs,   // (n, 3)
+                const float* __restrict__ t_max,  // (n,)
+                const uint8_t* __restrict__ active,
+                float* __restrict__ t_out, int32_t* __restrict__ slot_out,
+                int n) {
+    __shared__ float s_box[kMaxClusters * 6];
+    __shared__ int s_list[kMaxClusters];
+    __shared__ WalkShared ws;
+    const int cnt = counts[blockIdx.x];
+    const int32_t* list = order + (long long)blockIdx.x * nc;
+    for (int k = threadIdx.x; k < nc * 6; k += kBlock) s_box[k] = aabb[k];
+    for (int k = threadIdx.x; k < cnt; k += kBlock) s_list[k] = list[k];
+    const int lane = blockIdx.x * kBlock + threadIdx.x;
+    const bool in_range = lane < n;
+    const Ray r = in_range ? load_ray(orig, dirs, t_max, lane) : idle_ray();
+    const bool act = in_range && active[lane] != 0;
+    float best = r.tmax;
+    int slot = -1, visits = 0;
+    __syncthreads();
+    walk<ANY_HIT, MODE, false, kCoopMax>(s_box, s_list, cnt, tri12, ws, r,
+                                         act, best, slot, visits);
     if (in_range) {
         t_out[lane] = best;
         slot_out[lane] = MODE == kGate ? visits : slot;
     }
+}
+
+struct Fused {
+    const float* aabb;          // (nc, 6) recentered
+    const float4* tri12;        // (nc*64, 12) recentered
+    int nc;
+    const float* orig;          // (n, 3) recentered
+    const float* dirs;          // (n, 3)
+    const float* t_max;         // (n,)
+    const uint8_t* active;      // (n,)
+    float* t_out;
+    int32_t* slot_out;
+    // zeroed by the wrapper: one look-back word per window (status in
+    // the high half: 1 count, 2 inclusive prefix, 3 inclusive prefix and
+    // the window's lanes in `ids`), then the window counter
+    unsigned long long* flags;
+    int* next_window;
+    int32_t* ids;               // (n,): the active lanes in rank order
+    int windows;                // ceil(n / 128)
+    int n;
+};
+
+struct FusedShared {
+    float box[kMaxClusters * 6];
+    float group_box[kMaxGroups * 6];   // the union of kGroup boxes
+    int key[kMaxClusters];      // ordered() images of the tile's keys
+    int fkey[kMaxClusters];     // the finite ones, compacted
+    int fidx[kMaxClusters];
+    int list[kMaxClusters];     // the worklist, near to far
+    int warp_sum[kWarps];
+    int window, prefix, finite;
+};
+
+// the block's counts of `flag` per warp into sh.warp_sum; returns the
+// thread's rank among the flagged threads before it (call with every
+// thread; ends with a barrier)
+__device__ __forceinline__ int block_rank(bool flag, FusedShared& sh,
+                                          int& total) {
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned b = __ballot_sync(kFull, flag);
+    if (wl == 0) sh.warp_sum[warp] = __popc(b);
+    __syncthreads();
+    int before = 0;
+    total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+        const int s = sh.warp_sum[w];
+        before += w < warp ? s : 0;
+        total += s;
+    }
+    __syncthreads();
+    return before + __popc(b & ((1u << wl) - 1u));
+}
+
+__device__ __forceinline__ unsigned long long flag_word(unsigned status,
+                                                       int value) {
+    return (static_cast<unsigned long long>(status) << 32) |
+           static_cast<unsigned>(value);
+}
+
+// warp 0: publish window w's count `c`, look back over the windows before
+// it, publish its inclusive prefix; returns its exclusive prefix
+__device__ int look_back(unsigned long long* flags, int w, int c) {
+    const int wl = threadIdx.x & 31;
+    if (wl == 0) {
+        __threadfence();
+        atomicExch(flags + w, flag_word(w == 0 ? 2 : 1, c));
+    }
+    if (w == 0) return 0;
+    int excl = 0;
+    for (int j = w - 1;;) {
+        const int idx = j - wl;
+        const unsigned long long f =
+            idx >= 0 ? *reinterpret_cast<volatile unsigned long long*>(
+                           flags + idx)
+                     : flag_word(2, 0);
+        const unsigned status = static_cast<unsigned>(f >> 32);
+        if (__any_sync(kFull, status == 0)) continue;   // not yet published
+        const unsigned prefix = __ballot_sync(kFull, status >= 2);
+        const int stop = prefix ? __ffs(prefix) - 1 : 31;
+        excl += __reduce_add_sync(
+            kFull, wl <= stop ? static_cast<int>(static_cast<unsigned>(f))
+                              : 0);
+        if (prefix) break;
+        j -= 32;
+    }
+    if (wl == 0) {
+        __threadfence();
+        atomicExch(flags + w, flag_word(2, excl + c));
+    }
+    return excl;
+}
+
+// warp 0: wait until every window before w that holds a rank >= lo has
+// written its lanes to `ids` (status 3)
+__device__ void wait_ids(const unsigned long long* flags, int w, int lo) {
+    const int wl = threadIdx.x & 31;
+    for (int j = w - 1;; j -= 32) {
+        const int idx = j - wl;
+        unsigned long long f = flag_word(3, 0);
+        for (;;) {
+            if (idx >= 0)
+                f = *reinterpret_cast<const volatile unsigned long long*>(
+                    flags + idx);
+            if (!__any_sync(kFull, (f >> 32) != 3)) break;
+        }
+        // window idx ends at rank `f`; the windows before it end earlier
+        if (__any_sync(kFull, static_cast<int>(static_cast<unsigned>(f)) <=
+                                  lo))
+            break;
+    }
+    __threadfence();
+}
+
+// K7's slab test of box `b`: whether it passes, and the entry t
+__device__ __forceinline__ bool key_slab(const float* b, const Ray& r,
+                                         float& tn) {
+    float t0x = (b[0] - r.ox) * r.ix, t1x = (b[3] - r.ox) * r.ix;
+    float t0y = (b[1] - r.oy) * r.iy, t1y = (b[4] - r.oy) * r.iy;
+    float t0z = (b[2] - r.oz) * r.iz, t1z = (b[5] - r.oz) * r.iz;
+    tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                     fminf(fmaxf(t0z, t1z), r.tmax));
+    return fmaxf(tn, 0.0f) <= tf;
+}
+
+// K7's keys for the tile's lanes, and its worklist, near to far ->
+// sh.list[0..sh.finite). A warp tests the clusters of a group only if
+// one of its lanes passes the group's box: rounding is monotonic, so a
+// box inside another passes the slab test only if the outer one does,
+// and the skipped clusters are exactly those with no passing lane.
+template <bool GROUPS>
+__device__ __forceinline__ void tile_list(const Fused& p, FusedShared& sh,
+                                          const Ray& r, bool act) {
+    const int wl = threadIdx.x & 31;
+    for (int c = threadIdx.x; c < p.nc; c += kBlock) sh.key[c] = INT_MAX;
+    __syncthreads();
+    for (int g = 0; g * kGroup < p.nc; ++g) {
+        float tn;
+        if (GROUPS &&
+            !__any_sync(kFull, act && key_slab(sh.group_box + 6 * g, r, tn)))
+            continue;
+        const int last = min(p.nc, (g + 1) * kGroup);
+        for (int c = g * kGroup; c < last; ++c) {
+            const bool pass = act && key_slab(sh.box + c * 6, r, tn);
+            if (__any_sync(kFull, pass)) {
+                // + 0.0f: -0.0 keys become +0.0, as in the plain version
+                const int key =
+                    pass ? ordered(__float_as_int(tn + 0.0f)) : INT_MAX;
+                const int m = __reduce_min_sync(kFull, key);
+                if (wl == 0) atomicMin(sh.key + c, m);
+            }
+        }
+    }
+    __syncthreads();
+    // the finite keys, compacted, then ranked by (key, cluster)
+    const int c = threadIdx.x;
+    bool finite = false;
+    if (c < p.nc && sh.key[c] != INT_MAX)
+        finite = isfinite(__int_as_float(ordered(sh.key[c])));
+    int m = 0;
+    const int at = block_rank(finite, sh, m);
+    if (finite) {
+        sh.fkey[at] = sh.key[c];
+        sh.fidx[at] = c;
+    }
+    if (threadIdx.x == 0) sh.finite = m;
+    __syncthreads();
+    if (threadIdx.x < m) {
+        const int k = sh.fkey[threadIdx.x], i = sh.fidx[threadIdx.x];
+        int rank = 0;
+        for (int q = 0; q < m; ++q) {
+            const int kq = sh.fkey[q];
+            rank += kq < k || (kq == k && sh.fidx[q] < i);
+        }
+        sh.list[rank] = i;
+    }
+    __syncthreads();
+}
+
+// one tile: thread t holds lane `lane` (< 0: none); its list and walk,
+// then the lane's result
+template <bool ANY_HIT, int MODE>
+__device__ __forceinline__ void run_tile(const Fused& p, FusedShared& sh,
+                                         WalkShared& ws,
+                                         long long lane) {
+    using F = FusedFlags<MODE>;
+    const bool in = lane >= 0;
+    const Ray r = in ? load_ray(p.orig, p.dirs, p.t_max, lane) : idle_ray();
+    const bool act = in && (F::compact || p.active[lane] != 0);
+    tile_list<F::groups>(p, sh, r, act);
+    float best = r.tmax;
+    int slot = -1, visits = 0;
+    if (F::lists)
+        slot = sh.finite;
+    else
+        walk<ANY_HIT, kWalk, F::prefetch, F::coop_max>(
+            sh.box, sh.list, sh.finite, p.tri12, ws, r, act, best, slot,
+            visits);
+    if (in) {
+        p.t_out[lane] = best;
+        p.slot_out[lane] = slot;
+    }
+    __syncthreads();
+}
+
+template <bool ANY_HIT, int MODE>
+__global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
+    using F = FusedFlags<MODE>;
+    __shared__ FusedShared sh;
+    __shared__ WalkShared ws;
+    for (int k = threadIdx.x; k < p.nc * 6; k += kBlock) sh.box[k] = p.aabb[k];
+    __syncthreads();
+    for (int g = threadIdx.x; g * kGroup < p.nc; g += kBlock) {
+        const int last = min(p.nc, (g + 1) * kGroup);
+        for (int k = 0; k < 6; ++k) {
+            float v = sh.box[g * kGroup * 6 + k];
+            for (int c = g * kGroup + 1; c < last; ++c)
+                v = k < 3 ? fminf(v, sh.box[c * 6 + k])
+                          : fmaxf(v, sh.box[c * 6 + k]);
+            sh.group_box[g * 6 + k] = v;
+        }
+    }
+    for (;;) {
+        if (threadIdx.x == 0) sh.window = atomicAdd(p.next_window, 1);
+        __syncthreads();
+        const int w = sh.window;
+        if (w >= p.windows) break;
+        const long long lane = (long long)w * kBlock + threadIdx.x;
+        const bool in = lane < p.n;
+        if (!F::compact) {
+            run_tile<ANY_HIT, MODE>(p, sh, ws, in ? lane : -1);
+            continue;
+        }
+        const bool act = in && p.active[lane] != 0;
+        if (in && !act) {               // no tile holds an inactive lane
+            p.t_out[lane] = p.t_max[lane];
+            p.slot_out[lane] = F::lists ? 0 : -1;
+        }
+        int c = 0;
+        const int pos = block_rank(act, sh, c);
+        if (threadIdx.x < 32) {
+            const int excl = look_back(p.flags, w, c);
+            if (threadIdx.x == 0) sh.prefix = excl;
+        }
+        __syncthreads();
+        const int start = sh.prefix, end = start + c;
+        if (act) p.ids[start + pos] = static_cast<int>(lane);
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) atomicExch(p.flags + w, flag_word(3, end));
+        // the tiles whose last lane is in this window: tile k ends at
+        // rank 128k + 127; the last window also ends the partial last
+        // tile
+        for (int k = start >> 7; k <= end >> 7; ++k) {
+            const int lo = k * kBlock;
+            const int hi = min(lo + kBlock, end);
+            const bool full = lo + kBlock - 1 >= start && lo + kBlock <= end;
+            const bool last = w == p.windows - 1 && hi > lo &&
+                              lo + kBlock > end;
+            if (!full && !last) continue;
+            if (lo < start && threadIdx.x < 32) wait_ids(p.flags, w, lo);
+            __syncthreads();
+            const int mine =
+                threadIdx.x < hi - lo ? __ldcg(p.ids + lo + threadIdx.x) : -1;
+            run_tile<ANY_HIT, MODE>(p, sh, ws, mine);
+        }
+    }
+}
+
+template <bool ANY_HIT, int MODE>
+int launch_fused(const Fused& p, cudaStream_t stream) {
+    const auto kernel = mt_dense_fused_kernel<ANY_HIT, MODE>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            kBlock, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+    if (blocks > p.windows) blocks = p.windows;
+    kernel<<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ANY_HIT>
+int launch_fused_mode(const Fused& p, int mode, cudaStream_t stream) {
+    switch (mode) {
+    case kFused: return launch_fused<ANY_HIT, kFused>(p, stream);
+    case kNoCompact: return launch_fused<ANY_HIT, kNoCompact>(p, stream);
+    case kLists: return launch_fused<ANY_HIT, kLists>(p, stream);
+    case kNoGroups: return launch_fused<ANY_HIT, kNoGroups>(p, stream);
+    case kPrefetch: return launch_fused<ANY_HIT, kPrefetch>(p, stream);
+    case kPerLane: return launch_fused<ANY_HIT, kPerLane>(p, stream);
+    case kAllCoop: return launch_fused<ANY_HIT, kAllCoop>(p, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+
+int fused(const float* aabb, const float* tri12, int nc, const float* orig,
+          const float* dirs, const float* t_max, const uint8_t* active,
+          float* t_out, int32_t* slot_out, unsigned long long* scratch,
+          int32_t* ids, int n, int any_hit, int mode, cudaStream_t stream) {
+    if (nc < 1 || nc > kMaxClusters || n < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    Fused p;
+    p.aabb = aabb;
+    p.tri12 = reinterpret_cast<const float4*>(tri12);
+    p.nc = nc;
+    p.orig = orig;
+    p.dirs = dirs;
+    p.t_max = t_max;
+    p.active = active;
+    p.t_out = t_out;
+    p.slot_out = slot_out;
+    p.windows = (n + kBlock - 1) / kBlock;
+    p.flags = scratch;
+    p.next_window = reinterpret_cast<int*>(scratch + p.windows);
+    p.ids = ids;
+    p.n = n;
+    return any_hit ? launch_fused_mode<true>(p, mode, stream)
+                   : launch_fused_mode<false>(p, mode, stream);
 }
 
 __global__ void tile_keys_kernel(const float* __restrict__ aabb, int nc,
@@ -275,36 +800,59 @@ __global__ void tile_keys_kernel(const float* __restrict__ aabb, int nc,
 }
 
 template <bool ANY_HIT, int MODE>
-void launch_k1(const float* aabb, const float* tri9, int nc,
-               const int32_t* counts, const int32_t* order,
-               const float* orig, const float* dirs, const float* t_max,
-               const uint8_t* active, float* t_out, int32_t* slot_out, int n,
-               cudaStream_t stream) {
+int launch_k1(const float* aabb, const float* tri12, int nc,
+              const int32_t* counts, const int32_t* order, const float* orig,
+              const float* dirs, const float* t_max, const uint8_t* active,
+              float* t_out, int32_t* slot_out, int n, cudaStream_t stream) {
+    if (nc < 1 || nc > kMaxClusters)
+        return static_cast<int>(cudaErrorInvalidValue);
     unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
     mt_dense_kernel<ANY_HIT, MODE><<<blocks, kBlock, 0, stream>>>(
-        aabb, tri9, nc, counts, order, orig, dirs, t_max, active, t_out,
-        slot_out, n);
+        aabb, reinterpret_cast<const float4*>(tri12), nc, counts, order,
+        orig, dirs, t_max, active, t_out, slot_out, n);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-RTXPT_API int rtxpt_mt_dense(const float* aabb, const float* tri9, int nc,
+// one dense trace: tiles of active lanes, their worklists and the walk
+RTXPT_API int rtxpt_mt_dense_fused(const float* aabb, const float* tri12,
+                                   int nc, const float* orig,
+                                   const float* dirs, const float* t_max,
+                                   const uint8_t* active, float* t_out,
+                                   int32_t* slot_out,
+                                   unsigned long long* scratch, int32_t* ids,
+                                   int n, int any_hit, cudaStream_t stream) {
+    return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
+                 scratch, ids, n, any_hit, kFused, stream);
+}
+
+// the fused kernel in one of its lab modes (enum FusedMode)
+RTXPT_API int rtxpt_mt_dense_fused_variant(
+    const float* aabb, const float* tri12, int nc, const float* orig,
+    const float* dirs, const float* t_max, const uint8_t* active,
+    float* t_out, int32_t* slot_out, unsigned long long* scratch,
+    int32_t* ids, int n, int any_hit, int mode, cudaStream_t stream) {
+    return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
+                 scratch, ids, n, any_hit, mode, stream);
+}
+
+RTXPT_API int rtxpt_mt_dense(const float* aabb, const float* tri12, int nc,
                              const int32_t* counts, const int32_t* order,
                              const float* orig, const float* dirs,
                              const float* t_max, const uint8_t* active,
                              float* t_out, int32_t* slot_out, int n,
                              int any_hit, cudaStream_t stream) {
-    if (any_hit)
-        launch_k1<true, kFull>(aabb, tri9, nc, counts, order, orig, dirs,
-                               t_max, active, t_out, slot_out, n, stream);
-    else
-        launch_k1<false, kFull>(aabb, tri9, nc, counts, order, orig, dirs,
-                                t_max, active, t_out, slot_out, n, stream);
-    return static_cast<int>(cudaGetLastError());
+    return any_hit
+        ? launch_k1<true, kWalk>(aabb, tri12, nc, counts, order, orig, dirs,
+                                 t_max, active, t_out, slot_out, n, stream)
+        : launch_k1<false, kWalk>(aabb, tri12, nc, counts, order, orig,
+                                  dirs, t_max, active, t_out, slot_out, n,
+                                  stream);
 }
 
 // the closest-hit K1 in one of its lab modes (enum Mode)
-RTXPT_API int rtxpt_mt_dense_variant(const float* aabb, const float* tri9,
+RTXPT_API int rtxpt_mt_dense_variant(const float* aabb, const float* tri12,
                                      int nc, const int32_t* counts,
                                      const int32_t* order, const float* orig,
                                      const float* dirs, const float* t_max,
@@ -312,26 +860,25 @@ RTXPT_API int rtxpt_mt_dense_variant(const float* aabb, const float* tri9,
                                      int32_t* slot_out, int n, int mode,
                                      cudaStream_t stream) {
     switch (mode) {
-    case kFull:
-        launch_k1<false, kFull>(aabb, tri9, nc, counts, order, orig, dirs,
-                                t_max, active, t_out, slot_out, n, stream);
-        break;
+    case kWalk:
+        return launch_k1<false, kWalk>(aabb, tri12, nc, counts, order, orig,
+                                       dirs, t_max, active, t_out, slot_out,
+                                       n, stream);
     case kNoSkip:
-        launch_k1<false, kNoSkip>(aabb, tri9, nc, counts, order, orig, dirs,
-                                  t_max, active, t_out, slot_out, n, stream);
-        break;
+        return launch_k1<false, kNoSkip>(aabb, tri12, nc, counts, order,
+                                         orig, dirs, t_max, active, t_out,
+                                         slot_out, n, stream);
     case kNoGate:
-        launch_k1<false, kNoGate>(aabb, tri9, nc, counts, order, orig, dirs,
-                                  t_max, active, t_out, slot_out, n, stream);
-        break;
+        return launch_k1<false, kNoGate>(aabb, tri12, nc, counts, order,
+                                         orig, dirs, t_max, active, t_out,
+                                         slot_out, n, stream);
     case kGate:
-        launch_k1<false, kGate>(aabb, tri9, nc, counts, order, orig, dirs,
-                                t_max, active, t_out, slot_out, n, stream);
-        break;
+        return launch_k1<false, kGate>(aabb, tri12, nc, counts, order, orig,
+                                       dirs, t_max, active, t_out, slot_out,
+                                       n, stream);
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    return static_cast<int>(cudaGetLastError());
 }
 
 RTXPT_API int rtxpt_tile_keys(const float* aabb, int nc, const float* orig,

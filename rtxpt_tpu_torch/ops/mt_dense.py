@@ -3,18 +3,24 @@ MAX_TRIS triangles (counterpart of rtxpt_tpu/ops/mt_dense.py).
 
 Triangles are morton-ordered and chunked into clusters of CLUSTER rows of
 the recentered (p0, e1, e2) table `tri9` (column 9: original triangle
-id). Before each trace, the prepass K7 (``csrc/mt_dense.cu``
-`rtxpt_tile_keys`) builds a worklist per tile of TILE lanes: the clusters
-that some active lane of the tile can enter, nearest slab entry first
-(`tile_worklists`). The trace kernel K1 runs one thread per ray and one
-block per tile: it walks its tile's worklist, slab-gates each cluster
-AABB against the lane's running closest t, and runs Möller–Trumbore on
-the cluster's rows. The TPU expressed the same test as a W(RC,16) @
-x(16,TILE) matmul over [o (x) d, d, o, 1] features and picked winners on
-a quantized t; the port tests triangles directly and selects exactly:
-smallest t, ties to the lowest slot, whatever the visit order.
-`trace_closest` then re-solves t/u/v from the winning triangle in
-float32, as the reference does.
+id), which `resolve_hits` and the plain versions read; the kernels read
+the same rows as `tri12` (p0.xyz + id, e1.xyz + 0, e2.xyz + 0: three
+16-byte vectors a row). A trace is one launch of the fused kernel
+(``csrc/mt_dense.cu`` `rtxpt_mt_dense_fused`, `trace_dense_fused`): it
+gathers the active lanes into tiles of TILE (in ascending lane order),
+builds each tile's worklist (the clusters some lane of the tile can
+enter, nearest slab entry first: the work of the reference's prepass),
+and walks it one thread per ray, slab-gating each cluster AABB against
+the lane's running closest t and running Möller–Trumbore on the
+cluster's rows. The prepass K7 (`tile_keys`, tiles of lane indices) and
+K1 walking worklists it is given (`trace_dense`) keep their entry points
+for the checks and the labs; no trace of the renderer launches them. The
+TPU expressed the test as a W(RC,16) @ x(16,TILE) matmul over
+[o (x) d, d, o, 1] features and picked winners on a quantized t; the
+port tests triangles directly and selects exactly: smallest t, ties to
+the lowest slot, whatever the visit order or the tiles. `trace_closest`
+then re-solves t/u/v from the winning triangle in float32, as the
+reference does.
 
 Origins are recentered on the scene center before the trace (precision of
 the products with far-away origins), as in the reference.
@@ -31,7 +37,10 @@ from .intersect import Hit, safe_inv
 
 CLUSTER = 64            # triangles per cluster (csrc/mt_dense.cu kCluster)
 MAX_TRIS = 8192         # beyond this the reference switches to BVH paths
-TILE = 128              # lanes per K1 block and worklist (kBlock)
+TILE = 128              # lanes per block and worklist (kBlock)
+# tri12's columns from tri9's (-1: zero): p0 (0:3), id (3), e1 (4:7),
+# e2 (8:11)
+_TRI12_COLS = (0, 1, 2, 9, 3, 4, 5, -1, 6, 7, 8, -1)
 _PLAIN_CHUNK = 1 << 16  # rays per step of the plain version
 
 
@@ -52,12 +61,29 @@ def _morton3(q: np.ndarray) -> np.ndarray:
             | (part(q[:, 2]) << np.uint64(2)))
 
 
+def tri12_from_tri9(tri9):
+    """(T,12) f32 rows of the kernels, 16-byte aligned vectors: tri9's p0
+    and id, e1 and 0, e2 and 0, bit for bit."""
+    padded = torch.cat([tri9, tri9.new_zeros((tri9.shape[0], 1))], 1)
+    return padded[:, [c if c >= 0 else 10 for c in _TRI12_COLS]]
+
+
+def tri9_from_tri12(tri12):
+    """tri9 (T,10) from the rows of `tri12_from_tri9`, bit for bit."""
+    return tri12[:, [_TRI12_COLS.index(c) for c in range(10)]].contiguous()
+
+
 @dataclasses.dataclass
 class DenseMT:
     aabb: torch.Tensor        # (NC,6) f32 cluster min.xyz max.xyz (world)
     tri9: torch.Tensor        # (NC*CLUSTER,10) f32 recentered p0,e1,e2,id
     center: torch.Tensor      # (3,) f32 recenter point
     num_clusters: int
+    # (NC*CLUSTER,12) f32, the kernels' rows (`tri12_from_tri9`)
+    tri12: torch.Tensor = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        self.tri12 = tri12_from_tri9(self.tri9)
 
     @property
     def aabb_c(self) -> torch.Tensor:
@@ -368,44 +394,114 @@ def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
     return torch.cat(ts), torch.cat(slots)
 
 
-@cuda_lib.counted("mt_dense")
-def trace_dense(aabb_c, tri9, origins_c, dirs, t_max, active,
-                any_hit: bool, worklists=None):
-    """K1: recentered cluster AABBs (NC,6), tri9 (NC*CLUSTER,10),
-    recentered origins (N,3), directions (N,3), t_max (N,), active (N,)
-    bool -> (t (N,) f32, slot (N,) i32). slot is the winning tri9 row
-    (-1: no hit) and t its distance (t_max where none); any_hit stops at
-    the first hit it finds. The tiles' worklists (`worklists`: those
-    tile_worklists() gives for these inputs, built here when None) come
-    from K7 on the same recentered inputs, so every (lane, cluster) pair
-    K1's gate lets through is on its tile's list."""
-    cuda = cuda_lib.on_cuda(aabb_c, tri9, origins_c, dirs, t_max, active)
-    if worklists is None:
-        worklists = tile_worklists(aabb_c, origins_c, dirs, t_max, active)
-    counts, order = worklists
-    if not cuda:
-        return trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max,
-                                 active, any_hit, (counts, order))
-    n = origins_c.shape[0]
-    nc = aabb_c.shape[0]
+def active_tile_worklists(aabb, origins, dirs, t_max, active,
+                          tile: int = TILE):
+    """Plain: the tiles and worklists the fused kernel builds, (lanes,
+    counts, order): tile k holds the active lanes of ranks [k*tile,
+    (k+1)*tile) in ascending lane order (`lanes`, (A,) int64: the active
+    lanes in that order; the last tile holds the rest), and its worklist
+    is that of `tile_worklists` over those lanes."""
+    lanes = torch.nonzero(active)[:, 0]
+    keys = tile_keys_plain(aabb, origins[lanes], dirs[lanes], t_max[lanes],
+                           torch.ones_like(lanes, dtype=torch.bool), tile)
+    return (lanes, *worklists_from_keys(keys))
+
+
+def _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active):
+    """Validate a trace's tensors (either device) -> (n, nc)."""
+    n, nc = origins_c.shape[0], aabb_c.shape[0]
     cuda_lib.check(aabb_c, "aabb_c", torch.float32, (nc, 6))
-    cuda_lib.check(tri9, "tri9", torch.float32, (nc * CLUSTER, 10))
+    cuda_lib.check(tri12, "tri12", torch.float32, (nc * CLUSTER, 12))
     cuda_lib.check(origins_c, "origins_c", torch.float32, (n, 3))
     cuda_lib.check(dirs, "dirs", torch.float32, (n, 3))
     cuda_lib.check(t_max, "t_max", torch.float32, (n,))
     cuda_lib.check(active, "active", torch.bool, (n,))
+    if not 1 <= nc <= MAX_TRIS // CLUSTER:
+        raise ValueError(f"{nc} clusters, at most {MAX_TRIS // CLUSTER}")
+    if tri12.data_ptr() % 16:
+        raise ValueError("tri12: the kernels read 16-byte aligned rows")
+    return n, nc
+
+
+def _outputs(n, device):
+    return (torch.empty((n,), dtype=torch.float32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device))
+
+
+@cuda_lib.counted("mt_dense")
+def trace_dense(aabb_c, tri12, origins_c, dirs, t_max, active,
+                any_hit: bool, worklists=None):
+    """K1 walking worklists it is given: recentered cluster AABBs (NC,6),
+    tri12 (NC*CLUSTER,12), recentered origins (N,3), directions (N,3),
+    t_max (N,), active (N,) bool -> (t (N,) f32, slot (N,) i32), as
+    `trace_dense_fused`. The tiles' worklists (`worklists`: those
+    tile_worklists() gives for these inputs, built here by K7 when None)
+    are for tiles of TILE lane indices on the same recentered inputs, so
+    every (lane, cluster) pair K1's gate lets through is on its tile's
+    list. The renderer's traces take `trace_dense_fused`."""
+    cuda = cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active)
+    n, nc = _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
+    if worklists is None:
+        worklists = tile_worklists(aabb_c, origins_c, dirs, t_max, active)
+    counts, order = worklists
+    if not cuda:
+        return trace_dense_plain(aabb_c, tri9_from_tri12(tri12), origins_c,
+                                 dirs, t_max, active, any_hit,
+                                 (counts, order))
     tiles = (n + TILE - 1) // TILE
     cuda_lib.check(counts, "counts", torch.int32, (tiles,))
     cuda_lib.check(order, "order", torch.int32, (tiles, nc))
-    t = torch.empty((n,), dtype=torch.float32, device=dirs.device)
-    slot = torch.empty((n,), dtype=torch.int32, device=dirs.device)
+    t, slot = _outputs(n, dirs.device)
     if n:
         cuda_lib.bump("mt_dense")
-        cuda_lib.launch("rtxpt_mt_dense", aabb_c.data_ptr(), tri9.data_ptr(),
+        cuda_lib.launch("rtxpt_mt_dense", aabb_c.data_ptr(), tri12.data_ptr(),
                         nc, counts.data_ptr(), order.data_ptr(),
                         origins_c.data_ptr(), dirs.data_ptr(),
                         t_max.data_ptr(), active.data_ptr(), t.data_ptr(),
                         slot.data_ptr(), n, int(any_hit))
+    return t, slot
+
+
+@cuda_lib.counted("mt_dense_fused")
+def trace_dense_fused(aabb_c, tri12, origins_c, dirs, t_max, active,
+                      any_hit: bool):
+    """One dense trace in one launch: recentered cluster AABBs (NC,6),
+    tri12 (NC*CLUSTER,12), recentered origins (N,3), directions (N,3),
+    t_max (N,), active (N,) bool -> (t (N,) f32, slot (N,) i32). slot is
+    the winning row (-1: no hit) and t its distance (t_max where none):
+    the exact smallest t over all triangles, ties to the lowest slot;
+    any_hit stops at the first hit it finds. The kernel tiles the active
+    lanes and builds each tile's worklist itself (`active_tile_worklists`
+    is its plain form); on CPU tensors, `trace_dense_plain` over all
+    clusters, whose winners are the kernel's."""
+    if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
+        _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
+        return trace_dense_plain(aabb_c, tri9_from_tri12(tri12), origins_c,
+                                 dirs, t_max, active, any_hit)
+    return launch_fused("rtxpt_mt_dense_fused", "mt_dense_fused", aabb_c,
+                        tri12, origins_c, dirs, t_max, active, any_hit)
+
+
+def launch_fused(entry: str, counter: str, aabb_c, tri12, origins_c, dirs,
+                 t_max, active, any_hit: bool, *extra):
+    """Check a fused trace's CUDA tensors, allocate its outputs, its
+    zeroed scratch (a look-back word per window of TILE lanes, then the
+    window counter) and its list of active lanes, and launch C entry
+    point `entry`
+    (``rtxpt_mt_dense_fused``, or the lab's variant with its mode in
+    `extra`), counting the launch on wrapper `counter`."""
+    n, nc = _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
+    t, slot = _outputs(n, dirs.device)
+    if n:
+        scratch = torch.zeros(((n + TILE - 1) // TILE + 1,),
+                              dtype=torch.int64, device=dirs.device)
+        ids = torch.empty((n,), dtype=torch.int32, device=dirs.device)
+        cuda_lib.bump(counter)
+        cuda_lib.launch(entry, aabb_c.data_ptr(), tri12.data_ptr(), nc,
+                        origins_c.data_ptr(), dirs.data_ptr(),
+                        t_max.data_ptr(), active.data_ptr(), t.data_ptr(),
+                        slot.data_ptr(), scratch.data_ptr(), ids.data_ptr(),
+                        n, int(any_hit), *extra)
     return t, slot
 
 
@@ -450,14 +546,14 @@ def trace_closest(dmt: DenseMT, origins, dirs, t_max=1e30,
     winning triangle. (The reference's dense trace also accepts a t_min
     that its kernel ignores: it always tests t > 0.)"""
     o_c, d, tm, act = _prepare(dmt, origins, dirs, t_max, active)
-    t_q, slot = trace_dense(dmt.aabb_c, dmt.tri9, o_c, d, tm, act,
-                            any_hit=False)
+    t_q, slot = trace_dense_fused(dmt.aabb_c, dmt.tri12, o_c, d, tm, act,
+                                  any_hit=False)
     return resolve_hits(dmt, o_c, d, t_q, slot)
 
 
 def trace_anyhit(dmt: DenseMT, origins, dirs, t_max=1e30, active=None):
     """True where the segment (0, t_max) is occluded."""
     o_c, d, tm, act = _prepare(dmt, origins, dirs, t_max, active)
-    _, slot = trace_dense(dmt.aabb_c, dmt.tri9, o_c, d, tm, act,
-                          any_hit=True)
+    _, slot = trace_dense_fused(dmt.aabb_c, dmt.tri12, o_c, d, tm, act,
+                                any_hit=True)
     return slot >= 0

@@ -52,10 +52,11 @@ def test_gather_kernels_match_plain(dev):
                                rtol=1e-6, atol=1e-6)
 
 
-def _dense_rays(dev, n, seed=1):
+def _dense_rays(dev, n, seed=1, active=0.9):
     """A 1000-triangle dense table and n rays through it: origins inside
     and around it (some at cluster centers), finite and infinite t_max,
-    10% inactive lanes."""
+    a share `active` of the lanes active -> (the table, the kernels'
+    arguments (aabb_c, tri12, origins, directions, t_max, active))."""
     r = np.random.RandomState(seed)
     n_tris = 1000
     c = r.uniform(-4, 4, (n_tris, 3))
@@ -73,9 +74,15 @@ def _dense_rays(dev, n, seed=1):
         r.normal(size=(n, 3)).astype(np.float32), device=dev), dim=-1)
     tmax = torch.as_tensor(np.where(r.rand(n) < 0.5, 1e30, r.uniform(
         1, 12, n)).astype(np.float32), device=dev)
-    act = torch.as_tensor(r.rand(n) < 0.9, device=dev)
-    return dmt, (dmt.aabb_c, dmt.tri9, o.contiguous(), d.contiguous(), tmax,
+    act = torch.as_tensor(r.rand(n) < active, device=dev)
+    return dmt, (dmt.aabb_c, dmt.tri12, o.contiguous(), d.contiguous(), tmax,
                  act)
+
+
+def _plain(dmt, args, any_hit):
+    """The plain trace over all clusters (it reads tri9) on `args`."""
+    return mt_dense.trace_dense_plain(args[0], dmt.tri9, *args[2:],
+                                      any_hit=any_hit)
 
 
 @pytest.mark.parametrize("tile", [128, 1024])
@@ -110,9 +117,9 @@ def test_tile_keys_kernel_bit_equal_to_plain(dev, tile):
 def test_trace_kernel_matches_plain(dev, any_hit, n):
     """K1 walking K7's worklists (N not a multiple of the 128-lane tile)
     against the plain version over all clusters in slot order."""
-    _, args = _dense_rays(dev, n)
+    dmt, args = _dense_rays(dev, n)
     t_k, s_k = mt_dense.trace_dense(*args, any_hit=any_hit)
-    t_p, s_p = mt_dense.trace_dense_plain(*args, any_hit=any_hit)
+    t_p, s_p = _plain(dmt, args, any_hit)
     act = args[-1]
     assert ((s_k >= 0) == (s_p >= 0))[act].float().mean() >= 0.9999
     if not any_hit:
@@ -122,20 +129,71 @@ def test_trace_kernel_matches_plain(dev, any_hit, n):
                                    atol=1e-6)
 
 
-def test_trace_kernel_tie_goes_to_lower_slot_visited_later(dev):
+@pytest.mark.parametrize("n", [20037])
+@pytest.mark.parametrize("share", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fused_trace_matches_plain(dev, any_hit, share, n):
+    """The fused trace (tiles of active lanes and their worklists built
+    in the kernel; N not a multiple of the 128-lane tile; mixed t_max)
+    against the plain version over all clusters: one launch, the same
+    slot (closest) or occlusion flag (any-hit) on >= 99.99% of active
+    lanes, t within rtol 1e-5 / atol 1e-6 (bit-equality is expected),
+    t_max and -1 on inactive lanes."""
+    dmt, args = _dense_rays(dev, n, active=share)
+    cuda_lib.reset_launch_counts()
+    t_k, s_k = mt_dense.trace_dense_fused(*args, any_hit=any_hit)
+    counts = cuda_lib.launch_counts()
+    assert counts["mt_dense_fused"] == 1, counts
+    assert counts["mt_dense"] == counts["tile_keys"] == 0, counts
+    t_p, s_p = _plain(dmt, args, any_hit)
+    act, tmax = args[-1], args[-2]
+    assert torch.equal(s_k[~act], s_p[~act]) and (s_k[~act] == -1).all()
+    assert torch.equal(t_k[~act], tmax[~act])
+    hit = (s_k >= 0) == (s_p >= 0)
+    print(f"{share:.0%} active: occlusion/hit flag equal on "
+          f"{float(hit[act].float().mean()):.6%}")
+    assert hit[act].float().mean() >= 0.9999
+    if not any_hit:
+        same = s_k == s_p
+        assert same[act].float().mean() >= 0.9999
+        print(f"same slot on {float(same[act].float().mean()):.6%}, max "
+              f"|diff| t {float((t_k - t_p)[same].abs().max()):.3g}")
+        torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5,
+                                   atol=1e-6)
+
+
+def _tie_args(dev, n=300):
     """Slots 0 and 64 hold the same triangle (t = 1); cluster 1's box is
-    nearer, so the worklist visits it first, and slot 0 must still win."""
+    nearer, so a worklist visits it first."""
     tri9 = torch.zeros((2 * mt_dense.CLUSTER, 10))
     tri9[:, 9] = -1.0
     tri = torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0])
     tri9[0, 0:9] = tri9[mt_dense.CLUSTER, 0:9] = tri
     aabb_c = torch.tensor([[-1.0, -1.0, -5.0, 1.0, 1.0, 0.0],
                            [-1.0, -1.0, 0.0, 1.0, 1.0, 0.5]])
-    n = 300
     o = torch.tensor([[0.2, 0.2, 1.0]]).repeat(n, 1)
     d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(n, 1)
-    args = [a.to(dev) for a in (aabb_c, tri9, o, d, torch.full((n,), 1e30),
+    return [a.to(dev) for a in (aabb_c, mt_dense.tri12_from_tri9(tri9), o,
+                                d, torch.full((n,), 1e30),
                                 torch.ones(n, dtype=torch.bool))]
+
+
+def test_fused_trace_tie_goes_to_lower_slot_visited_later(dev):
+    """The tie of the next test on the fused kernel: its tile's worklist
+    visits cluster 1 first, and slot 0 must still win."""
+    args = _tie_args(dev)
+    lanes, counts, order = mt_dense.active_tile_worklists(
+        args[0], *args[2:])
+    assert counts.tolist() == [2, 2, 2]
+    assert order[:, :2].tolist() == [[1, 0]] * 3
+    t, slot = mt_dense.trace_dense_fused(*args, any_hit=False)
+    assert (slot == 0).all() and (t == 1.0).all()
+
+
+def test_trace_kernel_tie_goes_to_lower_slot_visited_later(dev):
+    """Slots 0 and 64 hold the same triangle (t = 1); cluster 1's box is
+    nearer, so the worklist visits it first, and slot 0 must still win."""
+    args = _tie_args(dev)
     counts, order = mt_dense.tile_worklists(args[0], *args[2:])
     assert counts.tolist() == [2, 2, 2]
     assert order[:, :2].tolist() == [[1, 0]] * 3
@@ -203,7 +261,8 @@ def test_shade_fill_kernel_matches_plain(dev):
 
 
 def test_realtime_frame_launches_fill_and_matches_cpu(dev):
-    """A default realtime frame on the card goes through K1-K3 and K4's
+    """A default realtime frame on the card goes through the fused dense
+    trace (neither K1 walking given worklists nor K7), K2, K3 and K4's
     FILL variant (not the non-FILL K4), and its second frame agrees with
     the CPU port's."""
     cuda_lib.reset_launch_counts()
@@ -211,10 +270,11 @@ def test_realtime_frame_launches_fill_and_matches_cpu(dev):
     r.render_frame(32, 24)
     gpu = r.render_frame(32, 24).cpu()
     counts = cuda_lib.launch_counts()
-    for k in ("mt_dense", "tile_keys", "gather_rows", "gather_rows_interp",
+    for k in ("mt_dense_fused", "gather_rows", "gather_rows_interp",
               "shade_nee_fill"):
         assert counts[k] > 0, counts
     assert counts["shade_nee"] == 0, counts
+    assert counts["mt_dense"] == counts["tile_keys"] == 0, counts
     c = _realtime("cpu")
     c.render_frame(32, 24)
     torch.testing.assert_close(gpu, c.render_frame(32, 24), rtol=1e-3,
@@ -222,13 +282,16 @@ def test_realtime_frame_launches_fill_and_matches_cpu(dev):
 
 
 def test_render_launches_every_kernel_and_matches_cpu(dev):
-    """Programmer-art takes the dense tier: K1-K4, and neither K5 nor K6."""
+    """Programmer-art takes the dense tier: the fused dense trace (one
+    launch per trace: neither K1 walking given worklists nor K7), K2-K4,
+    and neither K5 nor K6."""
     cuda_lib.reset_launch_counts()
     gpu = _renderer(dev, max_bounces=3).render(32, 24, 2).cpu()
     counts = cuda_lib.launch_counts()
-    dense_path = ("mt_dense", "tile_keys", "gather_rows",
-                  "gather_rows_interp", "shade_nee")
+    dense_path = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
+                  "shade_nee")
     assert all(counts[k] > 0 for k in dense_path), counts
+    assert counts["mt_dense"] == counts["tile_keys"] == 0, counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     assert counts["bvh8_trace_2l"] == 0, counts
     cpu = _renderer("cpu", max_bounces=3).render(32, 24, 2)
@@ -352,7 +415,7 @@ def test_bvh8_2l_tie_goes_to_nearest_subtree_then_lowest_index(dev):
     assert np.array_equal(owner[owner >= 0], sub[owner >= 0])
 
 
-def test_city_render_launches_k5_k6_and_matches_cpu(dev):
+def test_city_render_launches_two_level_trace_and_matches_cpu(dev):
     """A two-level city (6 blocks, 8+ subtrees) renders through the
     two-level trace in one launch (and neither K5 nor K6 alone), and
     agrees with the CPU render."""
@@ -373,7 +436,7 @@ def test_city_render_launches_k5_k6_and_matches_cpu(dev):
               "shade_nee"):
         assert counts[k] > 0, counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
-    assert counts["mt_dense"] == 0
+    assert counts["mt_dense"] == counts["mt_dense_fused"] == 0
     torch.testing.assert_close(gpu, render("cpu"), rtol=1e-3, atol=1e-3)
 
 
@@ -385,3 +448,10 @@ def test_wrappers_reject_bad_arguments(dev):
     with pytest.raises(ValueError):
         gather.gather_rows(torch.zeros((8, 4), device=dev),
                            torch.zeros(3, dtype=torch.int32))
+    dmt, args = _dense_rays(dev, 300)
+    with pytest.raises(ValueError):          # tri9 where tri12 belongs
+        mt_dense.trace_dense_fused(args[0], dmt.tri9, *args[2:],
+                                   any_hit=False)
+    with pytest.raises(TypeError):
+        mt_dense.trace_dense_fused(*args[:4], args[4].double(), args[5],
+                                   any_hit=False)

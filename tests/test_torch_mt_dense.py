@@ -116,7 +116,7 @@ def test_ties_go_to_the_lowest_slot():
     dmt = TMT.build_dense(positions, indices, device="cpu")
     o = torch.tensor([[0.2, 0.2, 1.0]])
     d = torch.tensor([[0.0, 0.0, -1.0]])
-    t, slot = TMT.trace_dense(dmt.aabb_c, dmt.tri9,
+    t, slot = TMT.trace_dense(dmt.aabb_c, dmt.tri12,
                               o - dmt.center[None], d, torch.tensor([1e30]),
                               torch.tensor([True]), any_hit=False)
     assert slot.item() == 0 and t.item() == pytest.approx(1.0)

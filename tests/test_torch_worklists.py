@@ -152,7 +152,8 @@ def test_worklist_order_and_tie_rule():
     tmax, act = torch.tensor([1e30]), torch.tensor([True])
     counts, order = TMT.tile_worklists(aabb_c, o, d, tmax, act)
     assert counts.tolist() == [2] and order[0, :2].tolist() == [1, 0]
-    t, slot = TMT.trace_dense(aabb_c, tri9, o, d, tmax, act, any_hit=False)
+    t, slot = TMT.trace_dense(aabb_c, TMT.tri12_from_tri9(tri9), o, d, tmax,
+                              act, any_hit=False)
     assert slot.tolist() == [0] and t.tolist() == [1.0]
 
 

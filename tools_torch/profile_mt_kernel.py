@@ -1,16 +1,34 @@
 """Dense-trace lab: the port's counterpart of tools/profile_mt_kernel.py
-(K9). On the programmer-art 800x600 camera rays and the first bounce's
-scatter rays (the bench config's first closest-hit traces), prints the
-worklist statistics (visits per tile, exact and interval prepasses, at
-tiles of 128 and 1024 lanes), the time of K7 and of K1 (closest, and
-any-hit on the first NEE rays), and the time of K1's ablated modes:
+(K9). On the bench config's first traces of programmer-art at 800x600
+(the camera rays, the first bounce's scatter rays, the first NEE rays),
+prints the worklist statistics (visits per tile: the exact and interval
+prepasses over tiles of 128 and 1024 lane indices, and the fused
+kernel's tiles of 128 active lanes), the time of K7, of K1 walking K7's
+lists and of the fused trace, and the time of the lab modes of both.
 
-    full     K1 (`rtxpt_mt_dense_variant` mode 0)
+K1 walking given worklists (`rtxpt_mt_dense_variant`, closest hit):
+
+    full     K1 (mode 0)
     noskip   no block-uniform skip: every worklist cluster is staged
     nogate   every worklist cluster is tested by every active lane
     gate     the worklist walk and slab gates only; each lane's count of
              visited clusters, held against `gate_visits_plain`
     inorder  all clusters in slot order (K1 before the worklists)
+
+The fused trace (`rtxpt_mt_dense_fused_variant`, closest and any-hit):
+
+    fused      the main path's kernel
+    nocompact  tiles of 128 lane indices, active or not (as K1 + K7)
+    lists      tiles and worklists only: each active lane's list length,
+               held against `active_tile_worklists`
+    nogroups   every lane slab-tests every cluster box for the keys (no
+               group boxes)
+    prefetch   the next list entry's rows copied while the block tests
+               the current one
+    perlane    each live lane tests a cluster's 64 rows itself, however
+               few lanes need the cluster
+    allcoop    the block shares out the (lane, row) tests of every
+               cluster, however many lanes need it (fused: up to 64)
 
     python -m tools_torch.profile_mt_kernel
 
@@ -28,6 +46,9 @@ from tools_torch.kernel_lab import time_ms
 MODES = ("full", "noskip", "nogate", "gate", "inorder")
 _KERNEL_MODE = {"full": 0, "noskip": 1, "nogate": 2, "gate": 3,
                 "inorder": 0}       # csrc/mt_dense.cu enum Mode
+FUSED_MODES = ("fused", "nocompact", "lists", "nogroups", "prefetch",
+               "perlane", "allcoop")
+_FUSED_MODE = {m: i for i, m in enumerate(FUSED_MODES)}   # enum FusedMode
 SOURCE = "rtxpt_tpu_torch/csrc/mt_dense.cu"
 REPLACES = "tools/profile_mt_kernel.py:171"
 
@@ -42,9 +63,10 @@ def inorder_worklists(nc: int, tiles: int, device):
 @cuda_lib.counted("mt_dense_variant")
 def trace_variant(aabb_c, tri9, origins_c, dirs, t_max, active, mode: str,
                   worklists=None):
-    """Closest-hit K1 in lab mode `mode` over tiles of M.TILE lanes, with
-    `worklists` (default: K7's) -> (t, slot); in mode "gate", slot holds
-    each lane's count of visited clusters and t its t_max."""
+    """Closest-hit K1 (rows `tri12`) in lab mode `mode` over tiles of
+    M.TILE lanes, with `worklists` (default: K7's) -> (t, slot); in mode
+    "gate", slot holds each lane's count of visited clusters and t its
+    t_max."""
     if not cuda_lib.on_cuda(aabb_c, tri9, origins_c, dirs, t_max, active):
         raise ValueError("the dense-trace lab runs on a CUDA device")
     n, nc = origins_c.shape[0], aabb_c.shape[0]
@@ -66,6 +88,71 @@ def trace_variant(aabb_c, tri9, origins_c, dirs, t_max, active, mode: str,
                         dirs.data_ptr(), t_max.data_ptr(), active.data_ptr(),
                         t.data_ptr(), slot.data_ptr(), n, _KERNEL_MODE[mode])
     return t, slot
+
+
+@cuda_lib.counted("mt_dense_fused_variant")
+def trace_fused_variant(aabb_c, tri12, origins_c, dirs, t_max, active,
+                        mode: str, any_hit: bool):
+    """The fused trace in lab mode `mode` -> (t, slot); in mode "lists",
+    slot holds each active lane's worklist length (0 on inactive lanes)
+    and t its t_max."""
+    if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
+        raise ValueError("the dense-trace lab runs on a CUDA device")
+    return M.launch_fused("rtxpt_mt_dense_fused_variant",
+                          "mt_dense_fused_variant", aabb_c, tri12, origins_c,
+                          dirs, t_max, active, any_hit, _FUSED_MODE[mode])
+
+
+def list_lengths_plain(aabb_c, origins_c, dirs, t_max, active):
+    """Plain version of mode "lists": each active lane's worklist length
+    over the fused kernel's tiles (`M.active_tile_worklists`), 0
+    elsewhere (int32)."""
+    lanes, counts, _ = M.active_tile_worklists(aabb_c, origins_c, dirs,
+                                               t_max, active)
+    out = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
+    tile = torch.arange(lanes.numel(), device=lanes.device) // M.TILE
+    out[lanes] = counts[tile]
+    return out
+
+
+def list_visits(args):
+    """(visits, tiles) of the fused kernel's worklists on a trace's
+    arguments, both on the device: the lists' total length and the
+    number of tiles (mode "lists"; no host sync)."""
+    aabb_c, tri12, o_c, d, tmax, act = args
+    _, lengths = trace_fused_variant(*args, mode="lists", any_hit=False)
+    rank = torch.cumsum(act, 0) - 1
+    first = act & (rank % M.TILE == 0)
+    return lengths[first].sum(), first.sum()
+
+
+def run_fused_modes(args, kw) -> dict:
+    """Each mode of `FUSED_MODES` on the trace `args` against the plain
+    version over all clusters (the same winner (closest) or occlusion
+    flag (any-hit) on >= 99.99% of active lanes; "lists": lengths equal
+    to `list_lengths_plain`) -> {mode: (ms, agreement)}."""
+    aabb_c, tri12, o_c, d, tmax, act = args
+    any_hit = kw["any_hit"]
+    _, s_p = M.trace_dense_plain(aabb_c, M.tri9_from_tri12(tri12), o_c, d,
+                                 tmax, act, any_hit)
+    n_act = max(int(act.sum()), 1)
+    out = {}
+    for mode in FUSED_MODES:
+        _, slot = trace_fused_variant(*args, mode=mode, any_hit=any_hit)
+        if mode == "lists":
+            ref = list_lengths_plain(aabb_c, o_c, d, tmax, act)
+            ok = bool(torch.equal(slot, ref))
+            agree = float((slot == ref)[act].sum()) / n_act
+        else:
+            same = (slot >= 0) == (s_p >= 0) if any_hit else slot == s_p
+            agree = float(same[act].sum()) / n_act
+            ok = agree >= 0.9999
+        if not ok:
+            raise RuntimeError(f"fused mode {mode}: agreement {agree} with "
+                               "the plain version")
+        out[mode] = (time_ms(lambda: trace_fused_variant(
+            *args, mode=mode, any_hit=any_hit), 20), agree)
+    return out
 
 
 def gate_visits_plain(aabb_c, origins_c, dirs, t_max, active, worklists,
@@ -97,8 +184,9 @@ def visits(counts) -> str:
 
 
 def capture_traces(w: int = 800, h: int = 600):
-    """The (args, kw) of the first K1 calls of one bench-config sample of
-    programmer-art at w x h: {"camera", "scatter", "nee"}."""
+    """The (args, kw) of the first dense traces (`trace_dense_fused`) of
+    one bench-config sample of programmer-art at w x h: {"camera",
+    "scatter", "nee"}."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
     cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
@@ -107,19 +195,19 @@ def capture_traces(w: int = 800, h: int = 600):
                  procedural.default_camera(w, h), cfg,
                  env_radiance=EM.bake_procedural_sky(height=64),
                  device="cuda")
-    calls, orig = [], M.trace_dense
+    calls, orig = [], M.trace_dense_fused
 
     def capture(*args, **kw):
         calls.append(([a.clone() if torch.is_tensor(a) else a
                        for a in args], dict(kw)))
         return orig(*args, **kw)
 
-    M.trace_dense = capture
+    M.trace_dense_fused = capture
     try:
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
     finally:
-        M.trace_dense = orig
+        M.trace_dense_fused = orig
     closest = [c for c in calls if not c[1]["any_hit"]]
     anyhit = [c for c in calls if c[1]["any_hit"]]
     return {"camera": closest[0], "scatter": closest[1], "nee": anyhit[0]}
@@ -129,9 +217,10 @@ def run_modes(args) -> dict:
     """Each mode of `MODES` on the closest-hit trace `args` against the
     plain K1 (same winner on >= 99.99% of active lanes; "gate": visit
     counts equal to `gate_visits_plain`) -> {mode: (ms, agreement)}."""
-    aabb_c, tri9, o_c, d, tmax, act = args
+    aabb_c, tri12, o_c, d, tmax, act = args
     wl = M.tile_worklists(aabb_c, o_c, d, tmax, act)
-    _, s_p = M.trace_dense_plain(*args, any_hit=False)
+    _, s_p = M.trace_dense_plain(aabb_c, M.tri9_from_tri12(tri12), o_c, d,
+                                 tmax, act, any_hit=False)
     n_act = max(int(act.sum()), 1)
     out = {}
     for mode in MODES:
@@ -154,30 +243,42 @@ def run_modes(args) -> dict:
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_mt_kernel needs a CUDA GPU")
+    import subprocess
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
     traces = capture_traces()
-    print(f"{torch.cuda.get_device_name(0)}; programmer-art 800x600, "
+    print(f"{card}; programmer-art 800x600, "
           f"{traces['camera'][0][0].shape[0]} clusters")
-    for what in ("camera", "scatter"):
-        args, _ = traces[what]
+    for what in ("camera", "scatter", "nee"):
+        args, kw = traces[what]
         aabb_c, _, o_c, d, tmax, act = args
-        print(f"--- {what} rays: {o_c.shape[0]} lanes, {int(act.sum())} "
-              f"active", flush=True)
+        print(f"--- {what} rays ({'any' if kw['any_hit'] else 'closest'}"
+              f" hit): {o_c.shape[0]} lanes, {int(act.sum())} active",
+              flush=True)
         for tile in (M.TILE, 1024):
             ex = M.tile_worklists(aabb_c, o_c, d, tmax, act, tile)
             iv = M.tile_worklists_interval(aabb_c, o_c, d, tmax, act, tile)
             print(f"visits/tile at tile {tile}: exact {visits(ex[0])}; "
                   f"interval {visits(iv[0])}")
+        fused_lists = M.active_tile_worklists(aabb_c, o_c, d, tmax, act)
+        print(f"visits/tile of the fused kernel's tiles of {M.TILE} active "
+              f"lanes: {visits(fused_lists[1])}")
         k7 = time_ms(lambda: M.tile_keys(aabb_c, o_c, d, tmax, act), 20)
-        trace = time_ms(lambda: M.trace_dense(*args, any_hit=False), 20)
+        trace = time_ms(lambda: M.trace_dense(*args, **kw), 20)
+        fused = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
         print(f"K7 (keys and sorted worklists) {k7:.4f} ms; K7 + K1 "
-              f"closest (trace_dense) {trace:.4f} ms")
-        for mode, (ms, agree) in run_modes(args).items():
-            print(f"mode {mode:8s} {ms:8.4f} ms (agreement with plain "
+              f"(trace_dense) {trace:.4f} ms; fused (trace_dense_fused) "
+              f"{fused:.4f} ms")
+        for mode, (ms, agree) in run_fused_modes(args, kw).items():
+            print(f"fused mode {mode:9s} {ms:8.4f} ms (agreement with plain "
                   f"{agree:.6%})", flush=True)
-    args, kw = traces["nee"]
-    print(f"--- NEE rays: K1 any-hit "
-          f"{time_ms(lambda: M.trace_dense(*args, **kw), 20):.4f} ms over "
-          f"{args[2].shape[0]} lanes ({int(args[5].sum())} active)")
+        if kw["any_hit"]:
+            continue
+        for mode, (ms, agree) in run_modes(args).items():
+            print(f"K1 mode {mode:8s} {ms:8.4f} ms (agreement with plain "
+                  f"{agree:.6%})", flush=True)
 
 
 if __name__ == "__main__":

@@ -9,9 +9,9 @@ Renders once to warm up, once more timed (host clock, ending in a device
 synchronize), then once under torch.profiler, and prints the card, the
 timed wall, and the profiled render's device time and launches grouped by
 kernel: the two-level trace (one launch per trace), K6 (BVH8 probe), K5
-(BVH8 walk of one table), K1 (dense trace), K7 (its worklists), K4
-(shade), K2/K3 (gathers) and the PyTorch kernels of the tensor code
-around them, with the device's busy share of the profiled wall; then the
+(BVH8 walk of one table), the fused dense trace (one launch per trace),
+K1 walking given worklists, K7 (worklists), K4 (shade), K2/K3 (gathers)
+and the PyTorch kernels of the tensor code around them, with the device's busy share of the profiled wall; then the
 device time of the kernels that ran inside the closest-hit and any-hit
 trace calls (the trace kernels and the PyTorch code around them) beside
 the device span of those calls, and the PyTorch kernels that take the
@@ -45,6 +45,7 @@ GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
                                          "bvh8_kernel<true, true>")),
           ("K5 one table (bvh8_trace)", ("bvh8_kernel<false, false>",
                                      "bvh8_kernel<true, false>")),
+          ("dense trace, fused (mt_dense_fused)", ("mt_dense_fused_kernel",)),
           ("K1 dense trace", ("mt_dense_kernel",)),
           ("K7 worklists (tile_keys)", ("tile_keys_kernel",)),
           ("K4 shade", ("shade_nee_kernel",)),
