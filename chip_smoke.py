@@ -8,15 +8,14 @@ its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from csrc/ with nvcc for sm_90a, the renderer's library and the K8
      lab's (one nvcc per source, all started together);
-  2. hold the fused dense trace (`mt_dense_fused`: tiles of active lanes,
-     their worklists and the walk in one launch), K1 walking K7's
+  2. hold the fused dense trace (`mt_dense_fused`: each tile's worklist
+     and the walk in one launch), K1 walking K7's
      worklists, K2-K4 and K7 against their plain PyTorch versions on the
      card, on the inputs of the first bounces of an 800x600 programmer-art
      render (480,000 camera rays, then scattered and NEE rays), and time
      both (and K2 against torch.index_select); K7's worklist keys must be
      bit-equal on every captured dense trace; the active lanes, tiles and
-     visits per tile of both tilings and the fused kernel's lab modes are
-     printed;
+     visits per tile and the fused kernel's lab modes are printed;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
      cross-platform gate); hold the 64x48 GPU render against the port's
@@ -144,6 +143,8 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 SLAB_OPS = 25                  # one ray-box slab test
 NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
 TRI_OPS = 45                   # one Möller–Trumbore test
+TRI_U_OPS = 22                 # its operations up to the u test (h, a, s, u)
+GROUP = 8                      # clusters under one group box (mt_dense.cu)
 SHADE_LANE_OPS = 2000          # K4 at NEE 1+1, an estimate from its source
 SHADE_NEE_OPS = 600            # each further NEE sample (its fused BSDF eval)
 PSNR_MIN, SMAPE_MAX = 40.0, 0.02            # cross-platform golden gate
@@ -258,26 +259,27 @@ FIRST_BOUNCE = {"trace_dense_fused": 3, "gather_rows": 16,
                 "gather_rows_interp": 1, "shade_nee": 1}
 
 
-def dense_visits(args, kw, t, slot, worklists, tile_of=None):
-    """(slab tests, passing clusters) of one dense trace: every active lane
-    slab-tests the clusters of its tile's worklist (`tile_of[lane]`: its
-    tile; default lane // TILE), and tests the 64 rows of each cluster
-    its box lets through (up to the lane's final t; for any-hit, up to
-    the cluster of the first hit, in worklist order)."""
+def dense_visits(args, kw, t, slot, worklists, rows: bool = False):
+    """(slab tests, passing clusters) of one dense trace walking
+    `worklists` (tiles of TILE lane indices): every active lane
+    slab-tests the clusters of its tile's worklist, and tests the 64 rows
+    of each cluster its box lets through (up to the lane's final t; for
+    any-hit, up to the cluster of the first hit, in worklist order). With
+    `rows`, also (row tests, rows that pass the u test): those rows one by
+    one (any-hit: in the hit's cluster, up to the hit's row)."""
     from rtxpt_tpu_torch.ops import mt_dense
     from rtxpt_tpu_torch.ops.intersect import safe_inv
-    aabb_c, _, o_c, d, tmax, act = args
+    aabb_c, tri12, o_c, d, tmax, act = args
     counts, order = worklists
     n, nc = o_c.shape[0], aabb_c.shape[0]
-    if tile_of is None:
-        tile_of = torch.arange(n, device=o_c.device) // mt_dense.TILE
+    tile_of = torch.arange(n, device=o_c.device) // mt_dense.TILE
     lim = tmax if kw["any_hit"] else t
     # rank[tile, c]: cluster c's place on the tile's list
     rank = torch.empty_like(order).scatter_(
         1, order.long(), torch.arange(nc, dtype=order.dtype,
                                       device=order.device).expand_as(order)
         .contiguous())
-    passing = 0
+    passing, tested, upass = 0, 0, 0
     for c in range(0, n, 1 << 16):
         sl = slice(c, c + (1 << 16))
         tiles = tile_of[sl]
@@ -295,8 +297,42 @@ def dense_visits(args, kw, t, slot, worklists, tile_of=None):
                                nc)
             m &= r <= last[:, None]
         passing += int(m.sum())
+        if rows:
+            lane, clus = torch.nonzero(m, as_tuple=True)
+            for p in range(0, lane.numel(), 1 << 14):
+                li, ci = lane[p:p + (1 << 14)], clus[p:p + (1 << 14)]
+                row_last = torch.full_like(ci, mt_dense.CLUSTER - 1)
+                if kw["any_hit"]:
+                    s_hit = slot[sl][li].long()
+                    row_last = torch.where(
+                        (s_hit >= 0) & (ci == s_hit // mt_dense.CLUSTER),
+                        s_hit % mt_dense.CLUSTER, row_last)
+                k, u = u_tests(tri12, o_c[sl][li], d[sl][li], ci, row_last)
+                tested, upass = tested + k, upass + u
     slabs = int(counts.long()[tile_of][act].sum())
-    return slabs, passing
+    return (slabs, passing, (tested, upass)) if rows else (slabs, passing)
+
+
+def u_tests(tri12, o, d, clusters, row_last):
+    """(rows, rows past the u test) of the lanes' rays (o, d) against the
+    rows 0..row_last of their `clusters`: the u test of the kernels'
+    Möller–Trumbore test (csrc/mt_dense.cu `mt_row`): |a| > 1e-12 and
+    0 <= u <= |a|, sign-folded by a."""
+    from rtxpt_tpu_torch.ops import mt_dense
+    rows = tri12.view(-1, mt_dense.CLUSTER, 12)[clusters]   # (P, 64, 12)
+    p0, e1, e2 = rows[..., 0:3], rows[..., 4:7], rows[..., 8:11]
+    d = d[:, None].expand_as(e2)
+    h = torch.linalg.cross(d, e2, dim=-1)
+    a = e1[..., 0] * h[..., 0] + e1[..., 1] * h[..., 1] \
+        + e1[..., 2] * h[..., 2]
+    s = o[:, None] - p0
+    uu = s[..., 0] * h[..., 0] + s[..., 1] * h[..., 1] + s[..., 2] * h[..., 2]
+    su = torch.where(a < 0, -uu, uu)
+    absa = a.abs()
+    k = torch.arange(mt_dense.CLUSTER, device=o.device)
+    tested = k[None] <= row_last[:, None]
+    ok = tested & (absa > 1e-12) & (su >= 0) & (su <= absa)
+    return int(tested.sum()), int(ok.sum())
 
 
 def k1_work(args, kw, t, slot, worklists):
@@ -311,27 +347,46 @@ def k1_work(args, kw, t, slot, worklists):
     return nbytes, slabs * SLAB_OPS + passing * mt_dense.CLUSTER * TRI_OPS
 
 
-def fused_work(args, kw, t, slot):
-    """(bytes, ops, tiles, visits) of one fused launch: its inputs read
-    and outputs written once; each active lane's slab test of every
-    cluster (the keys), the sort of each tile's finite keys (m log2 m
-    compare-exchanges of 4 operations) and dense_visits' walk over its
-    tiles of active lanes (`active_tile_worklists`, which form the
-    kernel's tiles)."""
+def fused_work(args, kw, t, slot, worklists):
+    """(bytes, ops) of one fused launch (its tiles' `worklists`: K7's):
+    its inputs read and outputs written once, and the operations this
+    run's data needs: each active lane's slab tests of the group boxes
+    and of the clusters of the groups whose box it passes (the keys), the
+    sort of each tile's finite keys (m log2 m compare-exchanges of 4
+    operations), and the row tests of the clusters each lane must test
+    (dense_visits: TRI_U_OPS where a row fails its u test, TRI_OPS where
+    it passes; the walk's slab gate repeats a key test and is not counted
+    again)."""
     from rtxpt_tpu_torch.ops import mt_dense as M
+    from rtxpt_tpu_torch.ops.intersect import safe_inv
     aabb_c, tri12, o_c, d, tmax, act = args
-    lanes, counts, order = M.active_tile_worklists(aabb_c, o_c, d, tmax, act)
-    tile_of = torch.zeros(o_c.shape[0], dtype=torch.long, device=o_c.device)
-    tile_of[lanes] = torch.arange(lanes.numel(), device=o_c.device) // M.TILE
-    slabs, passing = dense_visits(args, kw, t, slot, (counts, order),
-                                  tile_of)
+    counts, _ = worklists
+    nc = aabb_c.shape[0]
+    groups = torch.stack([torch.cat([aabb_c[g:g + GROUP, 0:3].amin(0),
+                                     aabb_c[g:g + GROUP, 3:6].amax(0)])
+                          for g in range(0, nc, GROUP)])
+    size = torch.tensor([min(GROUP, nc - g) for g in range(0, nc, GROUP)],
+                        device=o_c.device)
+    lanes = torch.nonzero(act)[:, 0]
+    key_tests = lanes.numel() * groups.shape[0]
+    for c in range(0, lanes.numel(), 1 << 16):
+        li = lanes[c:c + (1 << 16)]
+        inv = safe_inv(d[li])[:, None]
+        t0 = (groups[None, :, 0:3] - o_c[li, None]) * inv
+        t1 = (groups[None, :, 3:6] - o_c[li, None]) * inv
+        tn = torch.clamp(torch.amax(torch.minimum(t0, t1), -1), min=0.0)
+        tf = torch.minimum(torch.amin(torch.maximum(t0, t1), -1),
+                           tmax[li, None])
+        key_tests += int(((tn <= tf) * size[None]).sum())
+    _, _, (tested, upass) = dense_visits(args, kw, t, slot, worklists,
+                                         rows=True)
     m = counts.double()
     sort = float((m * torch.ceil(torch.log2(torch.clamp(m, min=2.0)))).sum())
-    ops = (lanes.numel() * aabb_c.shape[0] + slabs) * SLAB_OPS \
-        + passing * M.CLUSTER * TRI_OPS + int(sort) * 4
+    ops = key_tests * SLAB_OPS + (tested - upass) * TRI_U_OPS \
+        + upass * TRI_OPS + int(sort) * 4
     nbytes = (aabb_c.numel() + tri12.numel()) * 4 \
         + o_c.shape[0] * (12 + 12 + 4 + 1 + 8)
-    return nbytes, ops, counts.numel(), int(counts.sum())
+    return nbytes, ops
 
 
 def check_k7(args, what) -> tuple:
@@ -482,15 +537,14 @@ def check_dense(accel, traces, label) -> dict:
         ms = time_ms(lambda: M.trace_dense(*args, **kw, worklists=wl), 20)
         fms = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
         nb, ops = k1_work(args, kw, *got, wl)
-        fnb, fops, tiles, visits = fused_work(args, kw, *got_f)
+        fnb, fops = fused_work(args, kw, *got_f, wl)
         m_ms = PM.run_fused_modes(args, kw)
         lanes = int(act.sum())
         print(f"K1 {label} {what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
               f"bound {bound(nb, ops)[0]:.4f} ms", flush=True)
         print(f"mt_dense_fused {label} {what}: 1 launch over {act.numel()} "
-              f"lanes, {lanes} active, {tiles} tiles of active lanes "
-              f"(K7's tiles of lane indices: {wl[0].numel()}), visits/tile "
-              f"{visits / max(tiles, 1):.2f} (K7's {PM.visits(wl[0])}); "
+              f"lanes, {lanes} active, {wl[0].numel()} tiles of "
+              f"{M.TILE} lanes, visits/tile {PM.visits(wl[0])}; "
               f"kernel {fms:.4f} ms (K7 + K1 {k7[0] + ms:.4f}), plain "
               f"{pms:.4f} ms, bound {bound(fnb, fops)[0]:.4f} ms (K1's + "
               f"K7's: {bound(nb + k7[2], ops + k7[3])[0]:.4f}); lab modes "
@@ -758,8 +812,8 @@ def sorted_bench(card: str):
         imgs[sort] = hdr.cpu().numpy()
         print(f"bench wavefront_sort={sort}: {wall * 1e3:.1f} ms wall "
               f"({w * h * spp / wall / 1e6:.3f} Mpaths/s) on {card}; "
-              f"visits/tile {vc.per_tile():.3f} over {int(vc.tiles)} tiles "
-              f"of active lanes; mt_dense_fused {counts['mt_dense_fused']} "
+              f"visits/tile {vc.per_tile():.3f} over {int(vc.tiles)} tiles; "
+              f"mt_dense_fused {counts['mt_dense_fused']} "
               f"launches for {tc.n} dense traces", flush=True)
         require_one_launch_per_trace(counts, tc.n,
                                      f"wavefront_sort={sort}",

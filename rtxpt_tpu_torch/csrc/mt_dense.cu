@@ -14,41 +14,32 @@
 // lowest slot, which is what the plain version computes), so each pair is
 // an exact float32 test: no tensor cores, and no TMA for 3 KB of rows.
 //
-// Bound on the H100: the float32 arithmetic of the per-pair tests (45
-// operations a pair, 25 a slab test). The port builds with --fmad=false
-// (bit-equality with the plain version), so a multiply and an add take
-// two issue slots and the kernel cannot run faster than about twice the
-// operation bound counted at 67 TFLOP/s. The rows of programmer-art are
-// 81 x 64 x 48 B = 249 KB (`tri12`; `tri9` at a stride of 10 floats is
-// 207 KB): they live in L2, and each visited cluster's 3 KB is staged in
-// shared memory once per block.
+// Bound on the H100: the float32 arithmetic of the slab and per-pair
+// tests. The port builds with --fmad=false (bit-equality with the plain
+// version), so a multiply and an add take two issue slots and the kernel
+// cannot run faster than about twice the operation bound counted at 67
+// TFLOP/s. The rows of programmer-art are 81 x 64 x 48 B = 249 KB
+// (`tri12`; `tri9` at a stride of 10 floats is 207 KB): they live in L2,
+// and each visited cluster's 3 KB is staged in shared memory once per
+// block.
 //
-// The fused kernel (one launch per trace): persistent blocks of 128
-// threads (the grid is the resident blocks, from the occupancy query)
-// take windows of 128 consecutive lanes from a counter the wrapper
-// zeroes. A window's active lanes are counted with warp ballots and its
-// place among all active lanes comes from a decoupled look-back over the
-// windows claimed before it (Merrill & Garland, "Single-pass Parallel
-// Prefix Scan with Decoupled Look-back", 2016): each window publishes its
-// count, then its inclusive prefix, then (once it has written its active
-// lanes at their ranks into `ids`) that its lanes are there. A tile is
-// 128 consecutive active lanes in ascending lane order (the last tile of
-// the trace holds the rest); the block whose window holds a tile's last
-// lane waits for the windows the tile reaches back into and reads the
-// tile's lanes from `ids`. So every tile but the last is full, and a
-// trace with 6.6% active lanes runs 15x fewer tiles than one block per
-// 128 lanes. Inactive lanes are written in the window scan. Then, per
-// tile, K7's work: each thread slab-tests its lane against the cluster
-// boxes in shared memory, a group of 8 clusters only where a lane of
-// the warp passes the group's box (rounding is monotonic, so a box
-// inside another passes only if the outer one does: the keys are
-// exact); a cluster's key is the smallest entry t over the lanes that
-// pass (-0.0 made +0.0, as the plain version); one `redux.sync` min per
-// warp over order-preserving integer images of the keys and one
-// shared-memory atomicMin per warp give the exact float minimum (no
-// global atomics). The finite keys are compacted and ranked by (key,
-// cluster) in one pass (at most 128, a count per thread), which is the
-// order of a stable argsort. Then K1's walk, near to far.
+// The fused kernel (one launch per trace): one block of 128 threads per
+// tile of 128 consecutive lanes. First K7's work: each thread slab-tests
+// its lane against the cluster boxes in shared memory, a group of 8
+// clusters only where a lane of the warp passes the group's box
+// (rounding is monotonic, so a box inside another passes only if the
+// outer one does: the keys are exact); a cluster's key is the smallest
+// entry t over the lanes that pass (-0.0 made +0.0, as the plain
+// version); one `redux.sync` min per warp over order-preserving integer
+// images of the keys and one shared-memory atomicMin per warp give the
+// exact float minimum (no global atomics). The finite keys are compacted
+// and ranked by (key, cluster) in one pass (at most 128, a count per
+// thread), which is the order of a stable argsort. Then K1's walk, near
+// to far. Tiles of active lanes only (a decoupled look-back gathering
+// 128 active lanes a tile) measured no faster once the walk shared out
+// its tests: a tile of active lanes from across the image has longer
+// worklists (PERF.md). A tile with no active lane costs its block the
+// group tests' votes.
 //
 // The walk (shared by the fused kernel and `rtxpt_mt_dense`): each lane
 // slab-gates the list's next cluster against its running best t
@@ -64,14 +55,9 @@
 // live lane tests the 64 rows itself. Clusters come out of slot order,
 // so the closest-hit update compares (t, slot): an equal t from a lower
 // slot visited later still wins. A cluster's rows are copied when the
-// block visits it: copying the next entry's rows in flight (lab mode
-// "prefetch") measured no faster on the H100, since the resident blocks
-// hide the copy, and it is wasted where the block then skips the entry.
-// Once the tests were shared out, tiles of lane indices (lab mode
-// "nocompact") measured a few percent faster than tiles of active lanes
-// on most traces (PERF.md): a tile of lanes from across the image has
-// longer lists. The main path keeps the compaction, as designed; the lab
-// keeps both.
+// block visits it: copying the next entry's rows in flight measured
+// slower on the H100 (PERF.md), since the resident blocks hide the copy,
+// and it is wasted where the block then skips the entry.
 //
 // Lab modes (tools_torch/profile_mt_kernel.py, the counterpart of the
 // reference's ablated variants in tools/profile_mt_kernel.py): K1's
@@ -102,25 +88,10 @@ enum Mode {
 
 enum FusedMode {
     kFused = 0,          // the main path
-    kNoCompact = 1,      // tiles of 128 lane indices, active or not
-    kLists = 2,          // tiles and worklists only; slot_out = list length
-    kNoGroups = 3,       // every lane slab-tests every cluster box
-    kPrefetch = 4,       // the next list entry's rows copied in flight
-    kPerLane = 5,        // each live lane tests all 64 rows itself
-    kAllCoop = 6,        // the block shares out every cluster's tests
+    kLists = 1,          // keys and worklists only; slot_out = list length
 };
 // a cluster that at most this many lanes need is tested cooperatively
 constexpr int kCoopMax = 64;
-
-template <int MODE>
-struct FusedFlags {
-    static constexpr bool compact = MODE != kNoCompact;
-    static constexpr bool prefetch = MODE == kPrefetch;
-    static constexpr bool lists = MODE == kLists;
-    static constexpr bool groups = MODE != kNoGroups;
-    static constexpr int coop_max =
-        MODE == kPerLane ? 0 : (MODE == kAllCoop ? kBlock : kCoopMax);
-};
 
 __device__ __forceinline__ float safe_inv(float c) {
     float s = fabsf(c) < 1e-12f ? (c < 0.0f ? -1e-12f : 1e-12f) : c;
@@ -142,9 +113,8 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 struct Ray {
@@ -217,7 +187,7 @@ __device__ __forceinline__ bool mt_row(float ox, float oy, float oz,
 }
 
 struct WalkShared {
-    float4 rows[2][kClusterVecs];   // staged clusters
+    float4 rows[kClusterVecs];      // the staged cluster
     float4 o[kBlock];               // the live lanes' origins and best t
     float4 d[kBlock];               // their directions and best slot
     unsigned long long hit[kBlock]; // their (t, slot) minimum, packed
@@ -226,19 +196,17 @@ struct WalkShared {
 
 // K1's walk of a block's worklist s_list[0..cnt) (block-uniform), the
 // boxes in s_box; updates the lane's (best, slot), or counts its visits
-// (kGate). Where at most COOP_MAX lanes need a cluster, the
+// (kGate). Where at most kCoopMax lanes need a cluster, the
 // block's threads share out its (lane, row) tests and take each lane's
 // (t, slot) minimum with a shared-memory atomicMin on (t bits, slot)
 // (t > 0, so the bits order as the floats); otherwise each live lane
-// tests the 64 rows itself. Ends with every cp.async done and a barrier.
-template <bool ANY_HIT, int MODE, bool PREFETCH, int COOP_MAX>
+// tests the 64 rows itself.
+template <bool ANY_HIT, int MODE>
 __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
                                      int cnt, const float4* tri12,
                                      WalkShared& ws, const Ray& r, bool act,
                                      float& best, int& slot, int& visits) {
     const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (MODE != kGate && PREFETCH && cnt > 0)
-        stage_rows(ws.rows[0], tri12, s_list[0]);
     for (int j = 0; j < cnt; ++j) {
         const int c = s_list[j];
         bool live = act && (!ANY_HIT || slot < 0);
@@ -258,25 +226,14 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
             visits += live ? 1 : 0;
             continue;
         }
-        const float4* rows = ws.rows[PREFETCH ? (j & 1) : 0];
-        const bool ahead = PREFETCH && j + 1 < cnt;
-        if (ahead) {
-            // a skipped entry's copy into that buffer may still be in
-            // flight, and two copies to one address are not ordered
-            cp_async_wait<1>();
-            stage_rows(ws.rows[(j + 1) & 1], tri12, s_list[j + 1]);
-        }
         // uniform over the block; kNoSkip stages every cluster
         const int lanes = __syncthreads_count(live);
         if (MODE != kNoSkip && lanes == 0) continue;
-        if (!PREFETCH) stage_rows(ws.rows[0], tri12, c);
-        const bool coop = lanes <= COOP_MAX;
+        stage_rows(ws.rows, tri12, c);
+        const bool coop = lanes <= kCoopMax;
         const unsigned ballot = __ballot_sync(kFull, live);
         if (coop && wl == 0) ws.warp_sum[warp] = __popc(ballot);
-        if (ahead)
-            cp_async_wait<1>();
-        else
-            cp_async_wait<0>();
+        cp_async_wait_all();
         __syncthreads();
         if (coop) {
             int q = __popc(ballot & ((1u << wl) - 1u));
@@ -294,7 +251,7 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
                 const float4 o = ws.o[lq], d = ws.d[lq];
                 float t;
                 if (!mt_row(o.x, o.y, o.z, d.x, d.y, d.z,
-                            rows + k * kRowVecs, t))
+                            ws.rows + k * kRowVecs, t))
                     continue;
                 const int s = c * kCluster + k;
                 // the sequential update's acceptance (below)
@@ -319,7 +276,7 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
             for (int k = 0; k < kCluster; ++k) {
                 float t;
                 if (!mt_row(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                            rows + k * kRowVecs, t))
+                            ws.rows + k * kRowVecs, t))
                     continue;
                 const int s = c * kCluster + k;
                 if (ANY_HIT) {
@@ -341,8 +298,6 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
         }
         __syncthreads();
     }
-    cp_async_wait<0>();   // a skipped last prefetch may still be in flight
-    __syncthreads();
 }
 
 template <bool ANY_HIT, int MODE>
@@ -372,8 +327,8 @@ mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
     float best = r.tmax;
     int slot = -1, visits = 0;
     __syncthreads();
-    walk<ANY_HIT, MODE, false, kCoopMax>(s_box, s_list, cnt, tri12, ws, r,
-                                         act, best, slot, visits);
+    walk<ANY_HIT, MODE>(s_box, s_list, cnt, tri12, ws, r, act, best, slot,
+                        visits);
     if (in_range) {
         t_out[lane] = best;
         slot_out[lane] = MODE == kGate ? visits : slot;
@@ -390,13 +345,6 @@ struct Fused {
     const uint8_t* active;      // (n,)
     float* t_out;
     int32_t* slot_out;
-    // zeroed by the wrapper: one look-back word per window (status in
-    // the high half: 1 count, 2 inclusive prefix, 3 inclusive prefix and
-    // the window's lanes in `ids`), then the window counter
-    unsigned long long* flags;
-    int* next_window;
-    int32_t* ids;               // (n,): the active lanes in rank order
-    int windows;                // ceil(n / 128)
     int n;
 };
 
@@ -408,88 +356,8 @@ struct FusedShared {
     int fidx[kMaxClusters];
     int list[kMaxClusters];     // the worklist, near to far
     int warp_sum[kWarps];
-    int window, prefix, finite;
+    int finite;
 };
-
-// the block's counts of `flag` per warp into sh.warp_sum; returns the
-// thread's rank among the flagged threads before it (call with every
-// thread; ends with a barrier)
-__device__ __forceinline__ int block_rank(bool flag, FusedShared& sh,
-                                          int& total) {
-    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const unsigned b = __ballot_sync(kFull, flag);
-    if (wl == 0) sh.warp_sum[warp] = __popc(b);
-    __syncthreads();
-    int before = 0;
-    total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-        const int s = sh.warp_sum[w];
-        before += w < warp ? s : 0;
-        total += s;
-    }
-    __syncthreads();
-    return before + __popc(b & ((1u << wl) - 1u));
-}
-
-__device__ __forceinline__ unsigned long long flag_word(unsigned status,
-                                                       int value) {
-    return (static_cast<unsigned long long>(status) << 32) |
-           static_cast<unsigned>(value);
-}
-
-// warp 0: publish window w's count `c`, look back over the windows before
-// it, publish its inclusive prefix; returns its exclusive prefix
-__device__ int look_back(unsigned long long* flags, int w, int c) {
-    const int wl = threadIdx.x & 31;
-    if (wl == 0) {
-        __threadfence();
-        atomicExch(flags + w, flag_word(w == 0 ? 2 : 1, c));
-    }
-    if (w == 0) return 0;
-    int excl = 0;
-    for (int j = w - 1;;) {
-        const int idx = j - wl;
-        const unsigned long long f =
-            idx >= 0 ? *reinterpret_cast<volatile unsigned long long*>(
-                           flags + idx)
-                     : flag_word(2, 0);
-        const unsigned status = static_cast<unsigned>(f >> 32);
-        if (__any_sync(kFull, status == 0)) continue;   // not yet published
-        const unsigned prefix = __ballot_sync(kFull, status >= 2);
-        const int stop = prefix ? __ffs(prefix) - 1 : 31;
-        excl += __reduce_add_sync(
-            kFull, wl <= stop ? static_cast<int>(static_cast<unsigned>(f))
-                              : 0);
-        if (prefix) break;
-        j -= 32;
-    }
-    if (wl == 0) {
-        __threadfence();
-        atomicExch(flags + w, flag_word(2, excl + c));
-    }
-    return excl;
-}
-
-// warp 0: wait until every window before w that holds a rank >= lo has
-// written its lanes to `ids` (status 3)
-__device__ void wait_ids(const unsigned long long* flags, int w, int lo) {
-    const int wl = threadIdx.x & 31;
-    for (int j = w - 1;; j -= 32) {
-        const int idx = j - wl;
-        unsigned long long f = flag_word(3, 0);
-        for (;;) {
-            if (idx >= 0)
-                f = *reinterpret_cast<const volatile unsigned long long*>(
-                    flags + idx);
-            if (!__any_sync(kFull, (f >> 32) != 3)) break;
-        }
-        // window idx ends at rank `f`; the windows before it end earlier
-        if (__any_sync(kFull, static_cast<int>(static_cast<unsigned>(f)) <=
-                                  lo))
-            break;
-    }
-    __threadfence();
-}
 
 // K7's slab test of box `b`: whether it passes, and the entry t
 __device__ __forceinline__ bool key_slab(const float* b, const Ray& r,
@@ -508,16 +376,14 @@ __device__ __forceinline__ bool key_slab(const float* b, const Ray& r,
 // one of its lanes passes the group's box: rounding is monotonic, so a
 // box inside another passes the slab test only if the outer one does,
 // and the skipped clusters are exactly those with no passing lane.
-template <bool GROUPS>
 __device__ __forceinline__ void tile_list(const Fused& p, FusedShared& sh,
                                           const Ray& r, bool act) {
-    const int wl = threadIdx.x & 31;
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int c = threadIdx.x; c < p.nc; c += kBlock) sh.key[c] = INT_MAX;
     __syncthreads();
     for (int g = 0; g * kGroup < p.nc; ++g) {
         float tn;
-        if (GROUPS &&
-            !__any_sync(kFull, act && key_slab(sh.group_box + 6 * g, r, tn)))
+        if (!__any_sync(kFull, act && key_slab(sh.group_box + 6 * g, r, tn)))
             continue;
         const int last = min(p.nc, (g + 1) * kGroup);
         for (int c = g * kGroup; c < last; ++c) {
@@ -532,13 +398,20 @@ __device__ __forceinline__ void tile_list(const Fused& p, FusedShared& sh,
         }
     }
     __syncthreads();
-    // the finite keys, compacted, then ranked by (key, cluster)
+    // the finite keys, compacted in cluster order, then ranked by (key,
+    // cluster)
     const int c = threadIdx.x;
     bool finite = false;
     if (c < p.nc && sh.key[c] != INT_MAX)
         finite = isfinite(__int_as_float(ordered(sh.key[c])));
-    int m = 0;
-    const int at = block_rank(finite, sh, m);
+    const unsigned b = __ballot_sync(kFull, finite);
+    if (wl == 0) sh.warp_sum[warp] = __popc(b);
+    __syncthreads();
+    int at = __popc(b & ((1u << wl) - 1u)), m = 0;
+    for (int w = 0; w < kWarps; ++w) {
+        at += w < warp ? sh.warp_sum[w] : 0;
+        m += sh.warp_sum[w];
+    }
     if (finite) {
         sh.fkey[at] = sh.key[c];
         sh.fidx[at] = c;
@@ -557,35 +430,9 @@ __device__ __forceinline__ void tile_list(const Fused& p, FusedShared& sh,
     __syncthreads();
 }
 
-// one tile: thread t holds lane `lane` (< 0: none); its list and walk,
-// then the lane's result
-template <bool ANY_HIT, int MODE>
-__device__ __forceinline__ void run_tile(const Fused& p, FusedShared& sh,
-                                         WalkShared& ws,
-                                         long long lane) {
-    using F = FusedFlags<MODE>;
-    const bool in = lane >= 0;
-    const Ray r = in ? load_ray(p.orig, p.dirs, p.t_max, lane) : idle_ray();
-    const bool act = in && (F::compact || p.active[lane] != 0);
-    tile_list<F::groups>(p, sh, r, act);
-    float best = r.tmax;
-    int slot = -1, visits = 0;
-    if (F::lists)
-        slot = sh.finite;
-    else
-        walk<ANY_HIT, kWalk, F::prefetch, F::coop_max>(
-            sh.box, sh.list, sh.finite, p.tri12, ws, r, act, best, slot,
-            visits);
-    if (in) {
-        p.t_out[lane] = best;
-        p.slot_out[lane] = slot;
-    }
-    __syncthreads();
-}
-
+// one tile: its keys, its worklist and the walk, then each lane's result
 template <bool ANY_HIT, int MODE>
 __global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
-    using F = FusedFlags<MODE>;
     __shared__ FusedShared sh;
     __shared__ WalkShared ws;
     for (int k = threadIdx.x; k < p.nc * 6; k += kBlock) sh.box[k] = p.aabb[k];
@@ -600,108 +447,42 @@ __global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
             sh.group_box[g * 6 + k] = v;
         }
     }
-    for (;;) {
-        if (threadIdx.x == 0) sh.window = atomicAdd(p.next_window, 1);
-        __syncthreads();
-        const int w = sh.window;
-        if (w >= p.windows) break;
-        const long long lane = (long long)w * kBlock + threadIdx.x;
-        const bool in = lane < p.n;
-        if (!F::compact) {
-            run_tile<ANY_HIT, MODE>(p, sh, ws, in ? lane : -1);
-            continue;
-        }
-        const bool act = in && p.active[lane] != 0;
-        if (in && !act) {               // no tile holds an inactive lane
-            p.t_out[lane] = p.t_max[lane];
-            p.slot_out[lane] = F::lists ? 0 : -1;
-        }
-        int c = 0;
-        const int pos = block_rank(act, sh, c);
-        if (threadIdx.x < 32) {
-            const int excl = look_back(p.flags, w, c);
-            if (threadIdx.x == 0) sh.prefix = excl;
-        }
-        __syncthreads();
-        const int start = sh.prefix, end = start + c;
-        if (act) p.ids[start + pos] = static_cast<int>(lane);
-        __threadfence();
-        __syncthreads();
-        if (threadIdx.x == 0) atomicExch(p.flags + w, flag_word(3, end));
-        // the tiles whose last lane is in this window: tile k ends at
-        // rank 128k + 127; the last window also ends the partial last
-        // tile
-        for (int k = start >> 7; k <= end >> 7; ++k) {
-            const int lo = k * kBlock;
-            const int hi = min(lo + kBlock, end);
-            const bool full = lo + kBlock - 1 >= start && lo + kBlock <= end;
-            const bool last = w == p.windows - 1 && hi > lo &&
-                              lo + kBlock > end;
-            if (!full && !last) continue;
-            if (lo < start && threadIdx.x < 32) wait_ids(p.flags, w, lo);
-            __syncthreads();
-            const int mine =
-                threadIdx.x < hi - lo ? __ldcg(p.ids + lo + threadIdx.x) : -1;
-            run_tile<ANY_HIT, MODE>(p, sh, ws, mine);
-        }
-    }
-}
-
-template <bool ANY_HIT, int MODE>
-int launch_fused(const Fused& p, cudaStream_t stream) {
-    const auto kernel = mt_dense_fused_kernel<ANY_HIT, MODE>;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                            kBlock, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    long long blocks = (long long)(per_sm > 0 ? per_sm : 1) * sms;
-    if (blocks > p.windows) blocks = p.windows;
-    kernel<<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(p);
-    return static_cast<int>(cudaGetLastError());
-}
-
-template <bool ANY_HIT>
-int launch_fused_mode(const Fused& p, int mode, cudaStream_t stream) {
-    switch (mode) {
-    case kFused: return launch_fused<ANY_HIT, kFused>(p, stream);
-    case kNoCompact: return launch_fused<ANY_HIT, kNoCompact>(p, stream);
-    case kLists: return launch_fused<ANY_HIT, kLists>(p, stream);
-    case kNoGroups: return launch_fused<ANY_HIT, kNoGroups>(p, stream);
-    case kPrefetch: return launch_fused<ANY_HIT, kPrefetch>(p, stream);
-    case kPerLane: return launch_fused<ANY_HIT, kPerLane>(p, stream);
-    case kAllCoop: return launch_fused<ANY_HIT, kAllCoop>(p, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    // tile_list's first barrier orders the group boxes before their reads
+    const long long lane = (long long)blockIdx.x * kBlock + threadIdx.x;
+    const bool in = lane < p.n;
+    const Ray r = in ? load_ray(p.orig, p.dirs, p.t_max, lane) : idle_ray();
+    const bool act = in && p.active[lane] != 0;
+    tile_list(p, sh, r, act);
+    float best = r.tmax;
+    int slot = -1, visits = 0;
+    if (MODE == kLists)
+        slot = sh.finite;
+    else
+        walk<ANY_HIT, kWalk>(sh.box, sh.list, sh.finite, p.tri12, ws, r, act,
+                             best, slot, visits);
+    if (in) {
+        p.t_out[lane] = best;
+        p.slot_out[lane] = slot;
     }
 }
 
 int fused(const float* aabb, const float* tri12, int nc, const float* orig,
           const float* dirs, const float* t_max, const uint8_t* active,
-          float* t_out, int32_t* slot_out, unsigned long long* scratch,
-          int32_t* ids, int n, int any_hit, int mode, cudaStream_t stream) {
-    if (nc < 1 || nc > kMaxClusters || n < 1)
+          float* t_out, int32_t* slot_out, int n, int any_hit, int mode,
+          cudaStream_t stream) {
+    if (nc < 1 || nc > kMaxClusters || n < 1 ||
+        (mode != kFused && mode != kLists))
         return static_cast<int>(cudaErrorInvalidValue);
-    Fused p;
-    p.aabb = aabb;
-    p.tri12 = reinterpret_cast<const float4*>(tri12);
-    p.nc = nc;
-    p.orig = orig;
-    p.dirs = dirs;
-    p.t_max = t_max;
-    p.active = active;
-    p.t_out = t_out;
-    p.slot_out = slot_out;
-    p.windows = (n + kBlock - 1) / kBlock;
-    p.flags = scratch;
-    p.next_window = reinterpret_cast<int*>(scratch + p.windows);
-    p.ids = ids;
-    p.n = n;
-    return any_hit ? launch_fused_mode<true>(p, mode, stream)
-                   : launch_fused_mode<false>(p, mode, stream);
+    const Fused p{aabb, reinterpret_cast<const float4*>(tri12), nc, orig,
+                  dirs, t_max, active, t_out, slot_out, n};
+    const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
+    if (mode == kLists)   // the lists do not depend on any_hit
+        mt_dense_fused_kernel<false, kLists><<<blocks, kBlock, 0, stream>>>(p);
+    else if (any_hit)
+        mt_dense_fused_kernel<true, kFused><<<blocks, kBlock, 0, stream>>>(p);
+    else
+        mt_dense_fused_kernel<false, kFused><<<blocks, kBlock, 0, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 __global__ void tile_keys_kernel(const float* __restrict__ aabb, int nc,
@@ -815,26 +596,25 @@ int launch_k1(const float* aabb, const float* tri12, int nc,
 
 }  // namespace
 
-// one dense trace: tiles of active lanes, their worklists and the walk
+// one dense trace: each tile's worklist and the walk
 RTXPT_API int rtxpt_mt_dense_fused(const float* aabb, const float* tri12,
                                    int nc, const float* orig,
                                    const float* dirs, const float* t_max,
                                    const uint8_t* active, float* t_out,
-                                   int32_t* slot_out,
-                                   unsigned long long* scratch, int32_t* ids,
-                                   int n, int any_hit, cudaStream_t stream) {
+                                   int32_t* slot_out, int n, int any_hit,
+                                   cudaStream_t stream) {
     return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
-                 scratch, ids, n, any_hit, kFused, stream);
+                 n, any_hit, kFused, stream);
 }
 
 // the fused kernel in one of its lab modes (enum FusedMode)
 RTXPT_API int rtxpt_mt_dense_fused_variant(
     const float* aabb, const float* tri12, int nc, const float* orig,
     const float* dirs, const float* t_max, const uint8_t* active,
-    float* t_out, int32_t* slot_out, unsigned long long* scratch,
-    int32_t* ids, int n, int any_hit, int mode, cudaStream_t stream) {
+    float* t_out, int32_t* slot_out, int n, int any_hit, int mode,
+    cudaStream_t stream) {
     return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
-                 scratch, ids, n, any_hit, mode, stream);
+                 n, any_hit, mode, stream);
 }
 
 RTXPT_API int rtxpt_mt_dense(const float* aabb, const float* tri12, int nc,

@@ -43,9 +43,8 @@ SIGNATURES = {
     "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, P),
     "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_variant": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
-    "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
-    "rtxpt_mt_dense_fused_variant": (P, P, I, P, P, P, P, P, P, P, P, I, I,
-                                     I, P),
+    "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, P),
+    "rtxpt_mt_dense_fused_variant": (P, P, I, P, P, P, P, P, P, I, I, I, P),
     "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),

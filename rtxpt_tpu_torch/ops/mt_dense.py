@@ -6,15 +6,15 @@ the recentered (p0, e1, e2) table `tri9` (column 9: original triangle
 id), which `resolve_hits` and the plain versions read; the kernels read
 the same rows as `tri12` (p0.xyz + id, e1.xyz + 0, e2.xyz + 0: three
 16-byte vectors a row). A trace is one launch of the fused kernel
-(``csrc/mt_dense.cu`` `rtxpt_mt_dense_fused`, `trace_dense_fused`): it
-gathers the active lanes into tiles of TILE (in ascending lane order),
-builds each tile's worklist (the clusters some lane of the tile can
-enter, nearest slab entry first: the work of the reference's prepass),
-and walks it one thread per ray, slab-gating each cluster AABB against
-the lane's running closest t and running Möller–Trumbore on the
-cluster's rows. The prepass K7 (`tile_keys`, tiles of lane indices) and
-K1 walking worklists it is given (`trace_dense`) keep their entry points
-for the checks and the labs; no trace of the renderer launches them. The
+(``csrc/mt_dense.cu`` `rtxpt_mt_dense_fused`, `trace_dense_fused`): per
+tile of TILE lanes it builds the tile's worklist (the clusters some
+active lane of the tile can enter, nearest slab entry first: the work of
+the reference's prepass, `tile_worklists` in plain form) and walks it
+one thread per ray, slab-gating each cluster AABB against the lane's
+running closest t and running Möller–Trumbore on the cluster's rows.
+The prepass K7 (`tile_keys`) and K1 walking worklists it is given
+(`trace_dense`) keep their entry points for the checks and the labs; no
+trace of the renderer launches them. The
 TPU expressed the test as a W(RC,16) @ x(16,TILE) matmul over
 [o (x) d, d, o, 1] features and picked winners on a quantized t; the
 port tests triangles directly and selects exactly: smallest t, ties to
@@ -394,19 +394,6 @@ def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
     return torch.cat(ts), torch.cat(slots)
 
 
-def active_tile_worklists(aabb, origins, dirs, t_max, active,
-                          tile: int = TILE):
-    """Plain: the tiles and worklists the fused kernel builds, (lanes,
-    counts, order): tile k holds the active lanes of ranks [k*tile,
-    (k+1)*tile) in ascending lane order (`lanes`, (A,) int64: the active
-    lanes in that order; the last tile holds the rest), and its worklist
-    is that of `tile_worklists` over those lanes."""
-    lanes = torch.nonzero(active)[:, 0]
-    keys = tile_keys_plain(aabb, origins[lanes], dirs[lanes], t_max[lanes],
-                           torch.ones_like(lanes, dtype=torch.bool), tile)
-    return (lanes, *worklists_from_keys(keys))
-
-
 def _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active):
     """Validate a trace's tensors (either device) -> (n, nc)."""
     n, nc = origins_c.shape[0], aabb_c.shape[0]
@@ -470,10 +457,10 @@ def trace_dense_fused(aabb_c, tri12, origins_c, dirs, t_max, active,
     t_max (N,), active (N,) bool -> (t (N,) f32, slot (N,) i32). slot is
     the winning row (-1: no hit) and t its distance (t_max where none):
     the exact smallest t over all triangles, ties to the lowest slot;
-    any_hit stops at the first hit it finds. The kernel tiles the active
-    lanes and builds each tile's worklist itself (`active_tile_worklists`
-    is its plain form); on CPU tensors, `trace_dense_plain` over all
-    clusters, whose winners are the kernel's."""
+    any_hit stops at the first hit it finds. The kernel builds each
+    tile's worklist itself (`tile_worklists` is its plain form); on CPU
+    tensors, `trace_dense_plain` over all clusters, whose winners are the
+    kernel's."""
     if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
         _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
         return trace_dense_plain(aabb_c, tri9_from_tri12(tri12), origins_c,
@@ -484,24 +471,18 @@ def trace_dense_fused(aabb_c, tri12, origins_c, dirs, t_max, active,
 
 def launch_fused(entry: str, counter: str, aabb_c, tri12, origins_c, dirs,
                  t_max, active, any_hit: bool, *extra):
-    """Check a fused trace's CUDA tensors, allocate its outputs, its
-    zeroed scratch (a look-back word per window of TILE lanes, then the
-    window counter) and its list of active lanes, and launch C entry
-    point `entry`
-    (``rtxpt_mt_dense_fused``, or the lab's variant with its mode in
-    `extra`), counting the launch on wrapper `counter`."""
+    """Check a fused trace's CUDA tensors, allocate its outputs and launch
+    C entry point `entry` (``rtxpt_mt_dense_fused``, or the lab's variant
+    with its mode in `extra`), counting the launch on wrapper
+    `counter`."""
     n, nc = _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
     t, slot = _outputs(n, dirs.device)
     if n:
-        scratch = torch.zeros(((n + TILE - 1) // TILE + 1,),
-                              dtype=torch.int64, device=dirs.device)
-        ids = torch.empty((n,), dtype=torch.int32, device=dirs.device)
         cuda_lib.bump(counter)
         cuda_lib.launch(entry, aabb_c.data_ptr(), tri12.data_ptr(), nc,
                         origins_c.data_ptr(), dirs.data_ptr(),
                         t_max.data_ptr(), active.data_ptr(), t.data_ptr(),
-                        slot.data_ptr(), scratch.data_ptr(), ids.data_ptr(),
-                        n, int(any_hit), *extra)
+                        slot.data_ptr(), n, int(any_hit), *extra)
     return t, slot
 
 

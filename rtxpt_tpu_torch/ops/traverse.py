@@ -3,7 +3,7 @@
 The trace structure's type picks the path, in the reference's tier order:
 a `DenseMT` (at most 8,192 triangles) goes to the dense trace
 (``ops/mt_dense.py``: one launch of `trace_dense_fused` per trace, which
-tiles the active lanes and builds their worklists itself), a
+builds its tiles' worklists itself), a
 `BVH8TwoLevel` (over 45,000 triangles) to
 ``ops/bvh2l.py`` (the whole two-level trace in one launch of
 ``traverse_bvh8.trace_bvh8_2l``), a single `BVH8` to K5

@@ -133,8 +133,8 @@ def test_trace_kernel_matches_plain(dev, any_hit, n):
 @pytest.mark.parametrize("share", [1.0, 0.5, 0.05])
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_fused_trace_matches_plain(dev, any_hit, share, n):
-    """The fused trace (tiles of active lanes and their worklists built
-    in the kernel; N not a multiple of the 128-lane tile; mixed t_max)
+    """The fused trace (each tile's worklist built in the kernel; N not a
+    multiple of the 128-lane tile; mixed t_max)
     against the plain version over all clusters: one launch, the same
     slot (closest) or occlusion flag (any-hit) on >= 99.99% of active
     lanes, t within rtol 1e-5 / atol 1e-6 (bit-equality is expected),
@@ -182,8 +182,7 @@ def test_fused_trace_tie_goes_to_lower_slot_visited_later(dev):
     """The tie of the next test on the fused kernel: its tile's worklist
     visits cluster 1 first, and slot 0 must still win."""
     args = _tie_args(dev)
-    lanes, counts, order = mt_dense.active_tile_worklists(
-        args[0], *args[2:])
+    counts, order = mt_dense.tile_worklists(args[0], *args[2:])
     assert counts.tolist() == [2, 2, 2]
     assert order[:, :2].tolist() == [[1, 0]] * 3
     t, slot = mt_dense.trace_dense_fused(*args, any_hit=False)

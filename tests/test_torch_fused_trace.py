@@ -1,11 +1,11 @@
 """The fused dense trace (rtxpt_tpu_torch/ops/mt_dense.py
 `trace_dense_fused`) on the CPU: its row table `tri12`, its wrapper's
-dispatch and checks, and the tiles of active lanes its kernel builds
-(`active_tile_worklists`): the plain trace walking those tiles'
-worklists keeps the winners of the trace over all clusters, and both
-agree with the reference's dense trace (its Pallas kernel in interpret
-mode) at 5% and 50% active lanes, with the tolerances of
-tests/test_torch_mt_dense.py."""
+dispatch and checks, and the worklists its kernel builds for its tiles
+of TILE lanes (`tile_worklists`) when few of the lanes are active: the
+plain trace walking them keeps the winners of the trace over all
+clusters, and both agree with the reference's dense trace (its Pallas
+kernel in interpret mode) at 5% and 50% active lanes, with the
+tolerances of tests/test_torch_mt_dense.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,23 +96,25 @@ def test_fused_wrapper_takes_plain_on_cpu_and_checks_arguments():
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_active_tiles_keep_winners_and_match_reference(share, any_hit):
     pos, idx = _scene(7, n_tris=2000)
-    n = 6000                # at 5%: two full tiles of active lanes and more
+    n = 6000                # 47 tiles, the last one partial
     o, d, tmax, act = _rays(11, n, share)
     dmt = TMT.build_dense(pos, idx, device="cpu")
     o_c = torch.as_tensor(o) - dmt.center
     dt, tt, at = (torch.as_tensor(a) for a in (d, tmax, act))
-    lanes, counts, order = TMT.active_tile_worklists(dmt.aabb_c, o_c, dt,
-                                                     tt, at)
-    assert torch.equal(lanes, torch.nonzero(at)[:, 0])
-    assert counts.numel() == (lanes.numel() + TMT.TILE - 1) // TMT.TILE
-    assert (counts > 0).all() and (counts < dmt.num_clusters).any()
-    t_w, s_w = TMT.trace_dense_plain(
-        dmt.aabb_c, dmt.tri9, o_c[lanes], dt[lanes], tt[lanes],
-        torch.ones_like(lanes, dtype=torch.bool), any_hit, (counts, order))
+    counts, order = TMT.tile_worklists(dmt.aabb_c, o_c, dt, tt, at)
+    tiles = (n + TMT.TILE - 1) // TMT.TILE
+    assert counts.shape == (tiles,) and order.shape == (tiles,
+                                                        dmt.num_clusters)
+    assert (counts > 0).any() and (counts < dmt.num_clusters).any()
+    busy = torch.zeros(tiles, dtype=torch.bool)
+    busy[torch.nonzero(at)[:, 0] // TMT.TILE] = True
+    assert (counts[~busy] == 0).all()   # no active lane: an empty list
+    t_w, s_w = TMT.trace_dense_plain(dmt.aabb_c, dmt.tri9, o_c, dt, tt, at,
+                                     any_hit, (counts, order))
     t_all, s_all = TMT.trace_dense_plain(dmt.aabb_c, dmt.tri9, o_c, dt, tt,
                                          at, any_hit)
     assert (s_all[~at] == -1).all() and (s_all[at] >= 0).any()
-    assert torch.equal(s_w >= 0, s_all[lanes] >= 0)
+    assert torch.equal(s_w >= 0, s_all >= 0)
     jd = JMT.build_dense(pos, idx)
     ja = (jd, jnp.asarray(o), jnp.asarray(d))
     jkw = dict(t_max=jnp.asarray(tmax), active=jnp.asarray(act),
@@ -123,7 +125,7 @@ def test_active_tiles_keep_winners_and_match_reference(share, any_hit):
         assert (got == ref).mean() > 0.995
         assert not got[~act].any()
         return
-    assert torch.equal(s_w, s_all[lanes]) and torch.equal(t_w, t_all[lanes])
+    assert torch.equal(s_w, s_all) and torch.equal(t_w, t_all)
     ref = JMT.trace_closest(*ja, **jkw)
     hit = TMT.resolve_hits(dmt, o_c, dt, t_all, s_all)
     rp, gp = np.asarray(ref.prim), hit.prim.numpy()

@@ -2,9 +2,9 @@
 (K9). On the bench config's first traces of programmer-art at 800x600
 (the camera rays, the first bounce's scatter rays, the first NEE rays),
 prints the worklist statistics (visits per tile: the exact and interval
-prepasses over tiles of 128 and 1024 lane indices, and the fused
-kernel's tiles of 128 active lanes), the time of K7, of K1 walking K7's
-lists and of the fused trace, and the time of the lab modes of both.
+prepasses over tiles of 128 and 1024 lane indices; the fused kernel's
+tiles are the 128-lane ones), the time of K7, of K1 walking K7's lists
+and of the fused trace, and the time of the lab modes of both.
 
 K1 walking given worklists (`rtxpt_mt_dense_variant`, closest hit):
 
@@ -18,17 +18,8 @@ K1 walking given worklists (`rtxpt_mt_dense_variant`, closest hit):
 The fused trace (`rtxpt_mt_dense_fused_variant`, closest and any-hit):
 
     fused      the main path's kernel
-    nocompact  tiles of 128 lane indices, active or not (as K1 + K7)
-    lists      tiles and worklists only: each active lane's list length,
-               held against `active_tile_worklists`
-    nogroups   every lane slab-tests every cluster box for the keys (no
-               group boxes)
-    prefetch   the next list entry's rows copied while the block tests
-               the current one
-    perlane    each live lane tests a cluster's 64 rows itself, however
-               few lanes need the cluster
-    allcoop    the block shares out the (lane, row) tests of every
-               cluster, however many lanes need it (fused: up to 64)
+    lists      keys and worklists only: each lane's tile's list length,
+               held against `tile_worklists`
 
     python -m tools_torch.profile_mt_kernel
 
@@ -46,8 +37,7 @@ from tools_torch.kernel_lab import time_ms
 MODES = ("full", "noskip", "nogate", "gate", "inorder")
 _KERNEL_MODE = {"full": 0, "noskip": 1, "nogate": 2, "gate": 3,
                 "inorder": 0}       # csrc/mt_dense.cu enum Mode
-FUSED_MODES = ("fused", "nocompact", "lists", "nogroups", "prefetch",
-               "perlane", "allcoop")
+FUSED_MODES = ("fused", "lists")
 _FUSED_MODE = {m: i for i, m in enumerate(FUSED_MODES)}   # enum FusedMode
 SOURCE = "rtxpt_tpu_torch/csrc/mt_dense.cu"
 REPLACES = "tools/profile_mt_kernel.py:171"
@@ -94,8 +84,8 @@ def trace_variant(aabb_c, tri9, origins_c, dirs, t_max, active, mode: str,
 def trace_fused_variant(aabb_c, tri12, origins_c, dirs, t_max, active,
                         mode: str, any_hit: bool):
     """The fused trace in lab mode `mode` -> (t, slot); in mode "lists",
-    slot holds each active lane's worklist length (0 on inactive lanes)
-    and t its t_max."""
+    slot holds the length of each lane's tile's worklist and t its
+    t_max."""
     if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
         raise ValueError("the dense-trace lab runs on a CUDA device")
     return M.launch_fused("rtxpt_mt_dense_fused_variant",
@@ -104,26 +94,20 @@ def trace_fused_variant(aabb_c, tri12, origins_c, dirs, t_max, active,
 
 
 def list_lengths_plain(aabb_c, origins_c, dirs, t_max, active):
-    """Plain version of mode "lists": each active lane's worklist length
-    over the fused kernel's tiles (`M.active_tile_worklists`), 0
-    elsewhere (int32)."""
-    lanes, counts, _ = M.active_tile_worklists(aabb_c, origins_c, dirs,
-                                               t_max, active)
-    out = torch.zeros(active.shape, dtype=torch.int32, device=active.device)
-    tile = torch.arange(lanes.numel(), device=lanes.device) // M.TILE
-    out[lanes] = counts[tile]
-    return out
+    """Plain version of mode "lists": the length of each lane's tile's
+    worklist (`M.tile_worklists`; int32)."""
+    counts, _ = M.tile_worklists(aabb_c, origins_c, dirs, t_max, active)
+    lanes = torch.arange(active.shape[0], device=active.device)
+    return counts[lanes // M.TILE]
 
 
 def list_visits(args):
     """(visits, tiles) of the fused kernel's worklists on a trace's
     arguments, both on the device: the lists' total length and the
     number of tiles (mode "lists"; no host sync)."""
-    aabb_c, tri12, o_c, d, tmax, act = args
     _, lengths = trace_fused_variant(*args, mode="lists", any_hit=False)
-    rank = torch.cumsum(act, 0) - 1
-    first = act & (rank % M.TILE == 0)
-    return lengths[first].sum(), first.sum()
+    first = lengths[::M.TILE]
+    return first.sum(), first.numel()
 
 
 def run_fused_modes(args, kw) -> dict:
@@ -262,9 +246,6 @@ def main():
             iv = M.tile_worklists_interval(aabb_c, o_c, d, tmax, act, tile)
             print(f"visits/tile at tile {tile}: exact {visits(ex[0])}; "
                   f"interval {visits(iv[0])}")
-        fused_lists = M.active_tile_worklists(aabb_c, o_c, d, tmax, act)
-        print(f"visits/tile of the fused kernel's tiles of {M.TILE} active "
-              f"lanes: {visits(fused_lists[1])}")
         k7 = time_ms(lambda: M.tile_keys(aabb_c, o_c, d, tmax, act), 20)
         trace = time_ms(lambda: M.trace_dense(*args, **kw), 20)
         fused = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)

@@ -11,11 +11,12 @@ timed wall, and the profiled render's device time and launches grouped by
 kernel: the two-level trace (one launch per trace), K6 (BVH8 probe), K5
 (BVH8 walk of one table), the fused dense trace (one launch per trace),
 K1 walking given worklists, K7 (worklists), K4 (shade), K2/K3 (gathers)
-and the PyTorch kernels of the tensor code around them, with the device's busy share of the profiled wall; then the
-device time of the kernels that ran inside the closest-hit and any-hit
-trace calls (the trace kernels and the PyTorch code around them) beside
-the device span of those calls, and the PyTorch kernels that take the
-most device time. Bench config: 6 bounces, 4 diffuse, NEE 1+1.
+and the PyTorch kernels of the tensor code around them, with the
+device's busy share of the profiled wall; then the device time of the
+kernels that ran inside the closest-hit and any-hit trace calls (the
+trace kernels and the PyTorch code around them) beside the device span
+of those calls, and the PyTorch kernels that take the most device time.
+Bench config: 6 bounces, 4 diffuse, NEE 1+1.
 
 `--mode realtime` profiles one frame of the default realtime pipeline
 (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; 30 bounces / 3 diffuse,
