@@ -7,15 +7,22 @@ Phases (any failure exits non-zero before the result line; each prints
 its seconds):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from csrc/ with nvcc for sm_90a, the renderer's library and the K8
-     lab's (one nvcc per source, all started together);
+     lab's (one nvcc per source, all started together), and print ptxas's
+     registers, shared memory and spills of every kernel instance of
+     csrc/gather.cu (none may spill);
   2. hold the fused dense trace (`mt_dense_fused`: each tile's worklist
      and the walk in one launch), K1 walking K7's
-     worklists, K2-K4 and K7 against their plain PyTorch versions on the
+     worklists, the surface fetch (`gather_surface`: K2 + K3 in one
+     launch), K2-K4 and K7 against their plain PyTorch versions on the
      card, on the inputs of the first bounces of an 800x600 programmer-art
      render (480,000 camera rays, then scattered and NEE rays), and time
-     both (and K2 against torch.index_select); K7's worklist keys must be
-     bit-equal on every captured dense trace; the active lanes, tiles and
-     visits per tile and the fused kernel's lab modes are printed;
+     both (K2 beside torch.index_select, on each table the path gathers
+     from, those inside the surface fetch included; the surface fetch
+     bit-equal to its plain version and to the four-launch composition it
+     replaced, K2, K3, K2, K2, timed beside it; K3 on the surface fetch's
+     blend); K7's worklist keys must be bit-equal on every captured dense
+     trace; the active lanes, tiles and visits per tile and the fused
+     kernel's lab modes are printed;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
      cross-platform gate); hold the 64x48 GPU render against the port's
@@ -23,7 +30,8 @@ its seconds):
   4. render the bench workload (800x600, 6 bounces / 4 diffuse, NEE 1+1,
      8 spp as one regenerating wavefront) with every launch counter set to
      0 just before, and require the fused dense trace once per dense trace
-     call, K1 and K7 not at all, and K2-K4 to have launched; then render
+     call, K1 and K7 not at all, the surface fetch once per load_surface
+     call, K3 not at all, and K2 and K4 to have launched; then render
      it once more unsorted and once with wavefront_sort="raystream", print
      both walls and the fused kernel's visits per tile (its lab mode
      "lists" on every trace), require the same launches and the sorted
@@ -36,12 +44,13 @@ its seconds):
      composition, K6 against its plain version on those rays with their
      nearest subtree and K5 on the largest subtree's table with the rays
      that overlap its box, and time them (and the two-level kernel's lab
-     modes, tools_torch/profile_bvh8.py); K2-K4 on the gathers and the
-     shade pass of that bounce; render it at 1920x1080, bench config, 2
-     spp as one regenerating chunk, after a warm-up render, with the
-     counters set to 0 just before, and require K2-K4 to have launched,
-     `bvh8_trace_2l` once per two-level trace call, and K5 and K6 not at
-     all; hold a 64x36 GPU render against the port's CPU render (PSNR >
+     modes, tools_torch/profile_bvh8.py); the surface fetch, K2-K4 on the
+     gathers and the shade pass of that bounce, as in 2.; render it at
+     1920x1080, bench config, 2 spp as one regenerating chunk, after a
+     warm-up render, with the counters set to 0 just before, and require
+     K2 and K4 to have launched, the surface fetch once per load_surface
+     call and K3 not at all, `bvh8_trace_2l` once per two-level trace
+     call, and K5 and K6 not at all; hold a 64x36 GPU render against the port's CPU render (PSNR >
      40 dB);
   6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
@@ -51,13 +60,15 @@ its seconds):
      FILL, the first FILL NEE trace that casts a ray, the fused ReSTIR
      final shade's visibility trace) and hold each kernel of the path
      against its plain version on them (city: the two-level launch, K6
-     and K5 as in 5., K2, K3, K4 FILL; 360p: the fused dense trace, K1,
-     K7, K2, K3, K4 FILL, as in 2.); after the no-history and the history
-     warm-up frames, time 3 frames with the counters set to 0 just
-     before, and require the path's kernels to have launched (the city:
-     `bvh8_trace_2l` once per two-level trace call, K5 and K6 not at all;
-     360p: `mt_dense_fused` once per dense trace call, K1 and K7 not at
-     all) and the frame to be finite and not black. Then the
+     and K5 as in 5., the surface fetch, K2, K3, K4 FILL; 360p: the fused
+     dense trace, K1, K7, the surface fetch, K2, K3, K4 FILL, as in 2.);
+     after the no-history and the history warm-up frames, time 3 frames
+     with the counters set to 0 just before, and require the path's
+     kernels to have launched (the city: `bvh8_trace_2l` once per
+     two-level trace call, K5 and K6 not at all; 360p: `mt_dense_fused`
+     once per dense trace call, K1 and K7 not at all; both: the surface
+     fetch once per load_surface call, K3 not at all) and the frame to be
+     finite and not black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
      3 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card: the mean of 32
@@ -78,13 +89,18 @@ each output written once) over 3.35 TB/s and its float operations over
 67 TFLOP/s (H100 SXM, NVIDIA's data sheet), for the work of the launches
 its `ms` sums. The kernels are built with --fmad=false, so their exact
 float32 arithmetic cannot run faster than about twice an operation
-bound.
+bound. Most kernels are timed with CUDA events around back-to-back
+launches (`time_ms`); the row gathers, whose launches can take less
+device time than their host calls, by the device time the profiler
+records (`device_ms`), with the CUDA-event time beside it (`paced_ms`).
 
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
 """
 import concurrent.futures
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -104,6 +120,9 @@ KERNELS = {
     "gather_rows_interp": ("gather_rows_interp",
                            "rtxpt_tpu_torch/csrc/gather.cu",
                            "rtxpt_tpu/ops/gather_pallas.py:183"),
+    # load_surface's four fetches (K2, K3, K2, K2) in one launch
+    "gather_surface": ("gather_surface", "rtxpt_tpu_torch/csrc/gather.cu",
+                       "rtxpt_tpu/ops/gather_pallas.py:128 + :183"),
     "shade_nee": ("shade_nee", "rtxpt_tpu_torch/csrc/shade_kernel.cu",
                   "rtxpt_tpu/pt/shade_kernel.py:1049"),
     "shade_nee_fill": ("shade_nee_fill",
@@ -121,13 +140,12 @@ KERNELS = {
                   "rtxpt_tpu/ops/mt_dense.py:490"),
 }
 # the kernels each main path must launch
-BENCH_PATH = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
+BENCH_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
               "shade_nee")
-CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
-             "shade_nee")
-RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
+CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface", "shade_nee")
+RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
                 "shade_nee_fill")
-RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
+RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                "shade_nee_fill")
 # a kernel that runs once per trace call: (the module whose trace_closest
 # and trace_anyhit make those calls, the kernels its path no longer runs)
@@ -188,6 +206,26 @@ def time_ms(fn, iters: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Mean device time of the work fn() launches: the summed durations of
+    the device events torch.profiler records over `iters` calls, after a
+    warm-up call. Unlike time_ms, it leaves out the host time between
+    launches, which sets time_ms where a launch takes less device time
+    than its host call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    require(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 class Capture:
     """Records the arguments of the first calls of kernel wrappers during
     one render (the inputs the main path gives each kernel), up to
@@ -195,7 +233,7 @@ class Capture:
     the calls made inside all of those stages' functions. Captures nest."""
     MODULES = {"trace_dense_fused": "rtxpt_tpu_torch.ops.mt_dense",
                "gather_rows": "rtxpt_tpu_torch.ops.gather",
-               "gather_rows_interp": "rtxpt_tpu_torch.ops.gather",
+               "gather_surface": "rtxpt_tpu_torch.ops.gather",
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8"}
@@ -256,7 +294,7 @@ class Capture:
 
 
 FIRST_BOUNCE = {"trace_dense_fused": 3, "gather_rows": 16,
-                "gather_rows_interp": 1, "shade_nee": 1}
+                "gather_surface": 1, "shade_nee": 1}
 
 
 def dense_visits(args, kw, t, slot, worklists, rows: bool = False):
@@ -571,11 +609,13 @@ def check_dense(accel, traces, label) -> dict:
 def check_gathers(calls, label, lanes=None) -> dict:
     """K2 on each distinct captured gather (table, index count), with
     `lanes` rows when given: bit-equal to the plain version; kernel, plain
-    and torch.index_select times summed over them."""
+    and torch.index_select device times (device_ms; the kernel's CUDA-event
+    time too, `paced_ms`), each table's instance (row width, word size)
+    under `tables`, and their sums."""
     from rtxpt_tpu_torch.ops import gather
     ms_sum = plain_sum = lib_sum = 0.0
     nbytes = 0
-    seen = set()
+    seen, tables = set(), []
     for args, _ in calls:
         table, idx = args
         key = (tuple(table.shape), table.dtype, idx.numel())
@@ -586,57 +626,154 @@ def check_gathers(calls, label, lanes=None) -> dict:
         ref = gather.gather_rows_plain(table, idx)
         require(torch.equal(got, ref), f"K2 {label}: gather of a "
                 f"{tuple(table.shape)} table not bit-equal")
-        ms = time_ms(lambda: gather.gather_rows(table, idx), 50)
-        pms = time_ms(lambda: gather.gather_rows_plain(table, idx), 50)
+        ms = device_ms(lambda: gather.gather_rows(table, idx))
+        paced = time_ms(lambda: gather.gather_rows(table, idx), 50)
+        pms = device_ms(lambda: gather.gather_rows_plain(table, idx))
         # the library call: torch.index_select on the clamped indices
         safe = torch.clamp(idx.reshape(-1), 0, table.shape[0] - 1)
-        lms = time_ms(lambda: torch.index_select(table, 0, safe), 50)
+        lms = device_ms(lambda: torch.index_select(table, 0, safe))
         uniq = torch.unique(safe).numel()
-        nbytes += (uniq + idx.numel()) * table.shape[1] \
-            * table.element_size() + idx.numel() * idx.element_size()
+        nb = (uniq + idx.numel()) * table.shape[1] * table.element_size() \
+            + idx.numel() * idx.element_size()
+        inst = gather.instance(table)
         print(f"K2 {label} {tuple(table.shape)} {table.dtype} x "
-              f"{idx.numel()} rows: bit-equal, kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, index_select {lms:.4f} ms")
+              f"{idx.numel()} rows ({inst}): bit-equal, kernel {ms:.4f} ms "
+              f"(CUDA events {paced:.4f}), plain {pms:.4f} ms, index_select "
+              f"{lms:.4f} ms, bound {bound(nb, 0)[0]:.4f} ms")
+        tables.append(dict(table=list(table.shape), dtype=str(table.dtype),
+                           rows=idx.numel(), instance=inst, ms=ms,
+                           paced_ms=paced, plain_ms=pms, library_ms=lms,
+                           bound_ms=bound(nb, 0)[0]))
+        nbytes += nb
         ms_sum += ms
         plain_sum += pms
         lib_sum += lms
     require(len(seen) >= 5, f"K2 {label}: too few gathers captured")
     b_ms, b_by = bound(nbytes, 0)
     return dict(max_abs_err=0.0, ms=ms_sum, plain_ms=plain_sum,
-                library_ms=lib_sum, bound_ms=b_ms, bound_by=b_by)
+                library_ms=lib_sum, bound_ms=b_ms, bound_by=b_by,
+                tables=tables)
 
 
 def check_interp(args, label) -> dict:
-    """K3 on one captured barycentric blend, within rtol/atol 1e-6."""
+    """K3 on one barycentric blend, within rtol/atol 1e-6 (max |diff|
+    recorded); device times (device_ms) and the kernel's CUDA-event time."""
     from rtxpt_tpu_torch.ops import gather
     got = gather.gather_rows_interp(*args)
     ref = gather.gather_rows_interp_plain(*args)
     err = float((got - ref).abs().max())
     require(torch.allclose(got, ref, rtol=1e-6, atol=1e-6),
             f"K3 {label} outside rtol 1e-6 / atol 1e-6 (max |diff| {err})")
-    ms = time_ms(lambda: gather.gather_rows_interp(*args), 50)
-    pms = time_ms(lambda: gather.gather_rows_interp_plain(*args), 50)
+    ms = device_ms(lambda: gather.gather_rows_interp(*args))
+    paced = time_ms(lambda: gather.gather_rows_interp(*args), 50)
+    pms = device_ms(lambda: gather.gather_rows_interp_plain(*args))
     table, i3, w3 = args
     nb = (torch.unique(i3).numel() + i3.shape[0]) * table.shape[1] * 4 \
         + i3.numel() * i3.element_size() + w3.numel() * 4
     b_ms, b_by = bound(nb, i3.shape[0] * table.shape[1] * 5)
-    print(f"K3 {label} {i3.shape[0]} lanes: max |diff| {err:.3g}, kernel "
-          f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+    inst = gather.instance(table, gather.INTERP_TEMPLATES)
+    print(f"K3 {label} {i3.shape[0]} lanes ({inst}): max |diff| {err:.3g}, "
+          f"kernel {ms:.4f} ms (CUDA events {paced:.4f}), plain {pms:.4f} "
+          f"ms, bound {b_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, paced_ms=paced, plain_ms=pms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, instance=inst)
+
+
+def parent_surface(tri_pack, vert_pack, tri_geom_pack, mat_pack, prim,
+                   bary, rows=None, interp=None):
+    """The surface fetch as pt/shading.py `load_surface` made it before the
+    one-launch kernel: K2 on tri_pack, K3 on vert_pack, K2 on tri_geom_pack
+    and on mat_pack, with the PyTorch ops between them (K2 and K3: `rows`
+    and `interp`, by default this tree's gather_rows and
+    gather_rows_interp)."""
+    from rtxpt_tpu_torch.ops import gather
+    rows = rows or gather.gather_rows
+    interp = interp or gather.gather_rows_interp
+    prim = torch.clamp(prim, min=0)
+    tp = rows(tri_pack, prim)
+    tri = tp[..., :3]
+    mid = tp[..., 3]
+    w = torch.stack([1.0 - bary[..., 0] - bary[..., 1],
+                     bary[..., 0], bary[..., 1]], dim=-1)
+    vi = interp(vert_pack, tri.contiguous(), w)
+    geom = rows(tri_geom_pack, prim)
+    mrow = rows(mat_pack, mid)
+    return vi, geom, mrow, mid
+
+
+def surface_inputs(args):
+    """The K2 and K3 calls inside one captured surface fetch (the parent's
+    composition): [(tri_pack, prim), (tri_geom_pack, prim), (mat_pack,
+    mid)] and K3's (vert_pack, tri, w)."""
+    from rtxpt_tpu_torch.ops import gather
+    tri_pack, vert_pack, tri_geom, mat_pack, prim, bary = args
+    p = torch.clamp(prim, min=0)
+    tp = gather.gather_rows_plain(tri_pack, p)
+    w = torch.stack([1.0 - bary[:, 0] - bary[:, 1], bary[:, 0], bary[:, 1]],
+                    dim=-1)
+    k2 = [((tri_pack, p), {}), ((tri_geom, p), {}),
+          ((mat_pack, tp[:, 3].contiguous()), {})]
+    return k2, (vert_pack, tp[:, :3].contiguous(), w)
+
+
+def check_surface(args, label) -> dict:
+    """The surface fetch on one captured call: bit-equal to its plain
+    version on all four outputs (the parent's composition too); kernel,
+    plain and the parent's composition (parent_surface) timed by device
+    time (device_ms), the kernel and the composition also by CUDA events
+    (which count the host time between the composition's launches); the
+    bound:
+    prim and bary read once, each distinct row of the four tables read
+    once, the 256 bytes per lane written."""
+    from rtxpt_tpu_torch.ops import gather
+    tri_pack, vert_pack, tri_geom, mat_pack, prim, bary = args
+    got = gather.gather_surface(*args)
+    for what, ref in (("plain version", gather.gather_surface_plain(*args)),
+                      ("parent's composition", parent_surface(*args))):
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                f"gather_surface {label}: not bit-equal to the {what}")
+    ms = device_ms(lambda: gather.gather_surface(*args))
+    paced = time_ms(lambda: gather.gather_surface(*args), 50)
+    pms = device_ms(lambda: gather.gather_surface_plain(*args))
+    cms = device_ms(lambda: parent_surface(*args))
+    c_paced = time_ms(lambda: parent_surface(*args), 50)
+    n = prim.shape[0]
+    p = torch.clamp(prim.long(), 0, tri_pack.shape[0] - 1)
+    tp = tri_pack[p].long()
+    verts = torch.clamp(tp[:, :3], 0, vert_pack.shape[0] - 1)
+    mats = torch.clamp(tp[:, 3], 0, mat_pack.shape[0] - 1)
+    nbytes = n * (prim.element_size() + 8 + 256) \
+        + torch.unique(p).numel() * (16 + 20) \
+        + torch.unique(verts).numel() * 48 + torch.unique(mats).numel() * 184
+    b_ms, b_by = bound(nbytes, n * (2 + 12 * 5))
+    inst = gather.surface_instance(tri_pack, vert_pack, mat_pack)
+    print(f"gather_surface {label} {n} lanes ({int((prim < 0).sum())} "
+          f"misses; {inst}): bit-equal to the plain version and the "
+          f"parent's composition; kernel {ms:.4f} ms (CUDA events "
+          f"{paced:.4f}), plain {pms:.4f} ms, parent's composition (K2, K3, "
+          f"K2, K2 and the ops between) {cms:.4f} ms (CUDA events "
+          f"{c_paced:.4f}), bound {b_ms:.4f} ms ({b_by}; {nbytes / n:.1f} B "
+          "per lane)", flush=True)
+    return dict(max_abs_err=0.0, ms=ms, paced_ms=paced, plain_ms=pms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                composition_ms=cms, composition_paced_ms=c_paced,
+                instance=inst)
 
 
 def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
-    """K2, K3 and K4 (fill: K4 FILL) on the calls a Capture of one first
-    bounce recorded -> {kernel name: result}; raises where a kernel
-    disagrees."""
+    """The surface fetch, K2, K3 and K4 (fill: K4 FILL) on the calls a
+    Capture of one first bounce recorded -> {kernel name: result}; K2 also
+    on the three table fetches inside the surface fetch and K3 on its
+    blend, the parent's calls; raises where a kernel disagrees."""
     shade = "shade_nee_fill" if fill else "shade_nee"
-    require(cap.calls["gather_rows_interp"] and cap.calls[shade],
-            f"{label}: no K3 or {shade} launch captured")
-    out = {"gather_rows": check_gathers(cap.calls["gather_rows"], label,
+    require(cap.calls["gather_surface"] and cap.calls[shade],
+            f"{label}: no surface fetch or {shade} launch captured")
+    args = cap.calls["gather_surface"][0][0]
+    k2, k3 = surface_inputs(args)
+    out = {"gather_surface": check_surface(args, label),
+           "gather_rows": check_gathers(cap.calls["gather_rows"] + k2, label,
                                         lanes),
-           "gather_rows_interp": check_interp(
-               cap.calls["gather_rows_interp"][0][0], label)}
+           "gather_rows_interp": check_interp(k3, label)}
     args, kw = cap.calls[shade][0]
     out[shade] = check_shade(args, kw, label, fill=fill)
     return out
@@ -732,7 +869,8 @@ def bench(card: str) -> dict:
     torch.cuda.synchronize()
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
-    with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc:
+    with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc, \
+            SurfaceCalls() as sc:
         t0 = time.perf_counter()
         hdr = r.render(w, h, spp)
         torch.cuda.synchronize()
@@ -743,12 +881,13 @@ def bench(card: str) -> dict:
             and out.mean() > 0.0, "bench render: bad output")
     mpaths = w * h * spp / wall / 1e6
     print(f"bench {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
-          f"wall, {mpaths:.3f} Mpaths/s on {card}; {tc.n} dense traces; "
-          f"launches {counts}")
+          f"wall, {mpaths:.3f} Mpaths/s on {card}; {tc.n} dense traces, "
+          f"{sc.n} load_surface calls; launches {counts}")
     for name in BENCH_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the bench path")
     require_one_launch_per_trace(counts, tc.n, "bench", "mt_dense_fused")
+    require_one_surface_fetch(counts, sc.n, "bench")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1097,6 +1236,34 @@ class TraceCalls:
             setattr(self.mod, name, fn)
 
 
+class SurfaceCalls:
+    """Counts the pt/shading.py `load_surface` calls with at least one lane
+    while active."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.pt import shading
+        self.mod, self.orig, self.n = shading, shading.load_surface, 0
+
+        def counted(scene, prim, *args, **kw):
+            self.n += prim.shape[0] > 0
+            return self.orig(scene, prim, *args, **kw)
+        shading.load_surface = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.load_surface = self.orig
+
+
+def require_one_surface_fetch(counts, n_calls, what):
+    """One `gather_surface` launch per load_surface call, and no K3."""
+    require(counts["gather_surface"] == n_calls > 0,
+            f"{what}: {counts['gather_surface']} gather_surface launches for "
+            f"{n_calls} load_surface calls")
+    require(counts["gather_rows_interp"] == 0,
+            f"{what}: gather_rows_interp launched beside gather_surface: "
+            f"{counts}")
+
+
 def require_one_launch_per_trace(counts, n_traces, what,
                                  kernel="bvh8_trace_2l"):
     """`kernel` launched once per trace call (ONE_LAUNCH), and the
@@ -1161,7 +1328,8 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     torch.cuda.synchronize()
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
-    with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc:
+    with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc, \
+            SurfaceCalls() as sc:
         t0 = time.perf_counter()
         hdr = r.render(w, h, spp)
         torch.cuda.synchronize()
@@ -1172,11 +1340,13 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
             and out.mean() > 0.0, "city render: bad output")
     print(f"city {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {w * h * spp / wall / 1e6:.3f} Mpaths/s on {card}; "
-          f"{tc.n} two-level traces; launches {counts}", flush=True)
+          f"{tc.n} two-level traces, {sc.n} load_surface calls; launches "
+          f"{counts}", flush=True)
     for name in CITY_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the city path")
     require_one_launch_per_trace(counts, tc.n, "city render")
+    require_one_surface_fetch(counts, sc.n, "city render")
 
     # the port on the card against the port's plain versions on the CPU
     imgs = []
@@ -1206,7 +1376,7 @@ def capture_realtime_frame(r, w, h):
     else:
         traces = {"trace_dense_fused": 1}
     with Capture(traces, during=("build",)) as build, \
-            Capture(dict(gather_rows=16, gather_rows_interp=1,
+            Capture(dict(gather_rows=16, gather_surface=1,
                          shade_nee_fill=1), during=("fill",)) as fill, \
             Capture(traces, during=("fill", "busy_anyhit")) as nee, \
             Capture(traces, during=("restir", "busy_anyhit")) as restir:
@@ -1262,7 +1432,7 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     cuda_lib.reset_launch_counts()
     walls, fills = [], []
     kernel = next(k for k in ONE_LAUNCH if k in path)
-    with TraceCalls(ONE_LAUNCH[kernel][0]) as tc:
+    with TraceCalls(ONE_LAUNCH[kernel][0]) as tc, SurfaceCalls() as sc:
         for _ in range(frames):
             t0 = time.perf_counter()
             img = r.render_frame(w, h)
@@ -1277,12 +1447,13 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     ms = [x * 1e3 for x in walls]
     print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
           f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms; FILL bounces "
-          f"{fills}) on {card}; {tc.n} trace calls; launches over {frames} "
-          f"frames {counts}", flush=True)
+          f"{fills}) on {card}; {tc.n} trace calls, {sc.n} load_surface "
+          f"calls; launches over {frames} frames {counts}", flush=True)
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
     require_one_launch_per_trace(counts, tc.n, f"realtime {label}", kernel)
+    require_one_surface_fetch(counts, sc.n, f"realtime {label}")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1368,6 +1539,42 @@ def realtime(results: dict, card: str, host_city) -> dict:
     return launches
 
 
+def gather_instances(report: str):
+    """Print the registers, shared memory and spills of every kernel
+    instance of csrc/gather.cu from ptxas's report; none may spill."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, spill])
+            name = None
+    require(rows, "ptxas reported no kernel of gather.cu")
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, demangled in zip(rows, names):
+                r[0] = demangled
+    except OSError:
+        pass                         # keep the mangled names
+    for kname, regs, smem, spill in rows:
+        print(f"ptxas gather.cu {kname}: {regs} registers, {smem} B shared, "
+              f"{spill} B spilled", flush=True)
+    require(all(r[3] == 0 for r in rows), "a gather.cu kernel spills")
+
+
 def phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1390,12 +1597,15 @@ def main() -> int:
     from rtxpt_tpu_torch.ops import cuda_lib
     from tools_torch import kernel_lab
     t0 = time.time()
-    # the renderer's library and the K8 lab's, every nvcc started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(cuda_lib.lib), pool.submit(kernel_lab.library)]:
-            f.result()
+    # the renderer's library and the K8 lab's, every nvcc started together,
+    # and gather.cu once more for ptxas's report on its instances
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        futures = [pool.submit(cuda_lib.lib), pool.submit(kernel_lab.library),
+                   pool.submit(cuda_lib.ptxas_report, "gather.cu")]
+        report = [f.result() for f in futures][2]
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
           f"({cuda_lib.build()} and the lab's)", flush=True)
+    gather_instances(report)
 
     # each path's kernel checks, {path: {kernel name: result}}
     results = {p: {} for p in PATHS}

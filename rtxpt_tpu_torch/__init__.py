@@ -14,7 +14,8 @@ TPU kernels of that path rewritten as hand-written CUDA kernels for
   K1 ops/mt_dense.py       closest/any-hit ray-triangle trace (dense scenes;
                            with K7's worklists, one fused launch per trace)
   K2 ops/gather.py         row gather
-  K3 ops/gather.py         barycentric 3-row blend
+  K3 ops/gather.py         barycentric 3-row blend (with K2, one fused
+                           surface-fetch launch per load_surface call)
   K4 pt/shade_kernel.py    fused shade + NEE bounce
   K5 ops/traverse_bvh8.py  BVH8 closest/any-hit traversal
   K6 ops/traverse_bvh8.py  the same over stacked subtree tables, one

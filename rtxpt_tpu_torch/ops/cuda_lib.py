@@ -39,8 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every entry point returns the cudaError_t of its launch
 SIGNATURES = {
-    "rtxpt_gather_rows": (P, I, I, P, P, I, P),
-    "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, P),
+    "rtxpt_gather_rows": (P, I, I, P, P, I, I, P),
+    "rtxpt_gather_rows_interp": (P, I, I, P, P, P, I, I, P),
+    "rtxpt_gather_surface": (P, I, I, P, I, I, P, P, I, I, P, P, P, P, P, P,
+                             I, P),
     "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_variant": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, P),
@@ -121,20 +123,21 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
-def source_hash(sources=SOURCES) -> str:
+def source_hash(sources=SOURCES, csrc: Path = CSRC) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in HEADERS + tuple(sources):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def build(verbose: bool = False, stem: str = "rtxpt_kernels",
-          sources=SOURCES) -> Path:
-    """Compile `sources` from csrc/ (one nvcc process per file, in
-    parallel) and link them into one .so; returns its path. Reuses a
-    library already built from the same sources and flags."""
-    so = BUILD_DIR / f"lib{stem}_{source_hash(sources)}.so"
+          sources=SOURCES, csrc: Path = CSRC) -> Path:
+    """Compile `sources` from `csrc` (default: this package's csrc/; one
+    nvcc process per file, in parallel) and link them into one .so;
+    returns its path. Reuses a library already built from the same
+    sources and flags."""
+    so = BUILD_DIR / f"lib{stem}_{source_hash(sources, csrc)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -143,7 +146,7 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
         objs, procs = [], []
         for src in sources:
             obj = Path(tmp) / (src + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(csrc / src), "-o", str(obj)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs.append((src, subprocess.Popen(
@@ -166,10 +169,26 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
     return so
 
 
-def load(stem: str, sources, signatures: dict) -> ctypes.CDLL:
-    """Build (on first use) and load library `stem` from `sources`, with
-    the C signatures of its entry points."""
-    handle = ctypes.CDLL(str(build(stem=stem, sources=sources)))
+def ptxas_report(source: str) -> str:
+    """nvcc's ``-Xptxas=-v`` report on csrc/`source` compiled with the
+    library's flags: each kernel's registers, shared memory and spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        p = subprocess.run(
+            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", str(CSRC / source),
+             "-o", str(Path(tmp) / (source + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    out = p.stdout.decode(errors="replace")
+    if p.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{out}")
+    return out
+
+
+def load(stem: str, sources, signatures: dict,
+         csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build (on first use) and load library `stem` from `sources` in
+    `csrc`, with the C signatures of its entry points."""
+    handle = ctypes.CDLL(str(build(stem=stem, sources=sources, csrc=csrc)))
     for name, args in signatures.items():
         fn = getattr(handle, name)
         fn.argtypes = list(args)

@@ -1,10 +1,10 @@
 """Surface loading + shading frame (counterpart of rtxpt_tpu/pt/shading.py;
 Bridge::loadSurface, PathTracerBridgeDonut.hlsli:364-528).
 
-A wavefront of hits is loaded with the row-gather kernels of
-ops/gather.py: the triangle row (K2, i32), the barycentric blend of the
-three vertex rows (K3), the per-triangle constants (K2) and the material
-row (K2) — the reference's TPU path, with plain loads instead of one-hot
+A wavefront of hits is loaded with the surface fetch of ops/gather.py
+(K2 + K3 in one launch): the triangle row, the barycentric blend of its
+three vertex rows, its per-triangle constants and its material row — the
+reference's four TPU fetches, with plain loads instead of one-hot
 matmuls. Textured materials come with the texture queue; the Renderer
 refuses textured scenes until then.
 """
@@ -112,14 +112,11 @@ def load_surface(scene: ST.SceneArrays, prim, bary, ray_dir,
     """Gather + interpolate surface attributes for a wavefront of hits and
     build StandardBSDFData like the bridge. prim (N,) triangle ids (miss
     lanes are masked downstream); bary (N,2); ray_dir (N,3)."""
-    prim = torch.clamp(prim, min=0)
-    tp = gather.gather_rows(scene.tri_pack, prim)              # (N,4) i32
-    tri = tp[..., :3]
-    mid = tp[..., 3]
-    w = torch.stack([1.0 - bary[..., 0] - bary[..., 1],
-                     bary[..., 0], bary[..., 1]], dim=-1)      # (N,3)
-    vi = gather.gather_rows_interp(scene.vert_pack, tri.contiguous(), w)
-    geom = gather.gather_rows(scene.tri_geom_pack, prim)       # (N,5)
+    # the triangle row, its vertices blended by (1 - b0 - b1, b0, b1), its
+    # geometry row (N,5) and its material row (N,46): one launch
+    vi, geom, mrow, mid = gather.gather_surface(
+        scene.tri_pack, scene.vert_pack, scene.tri_geom_pack, scene.mat_pack,
+        prim, bary)
     face_n = geom[..., 0:3]
 
     pos = vi[..., 0:3]
@@ -137,7 +134,6 @@ def load_surface(scene: ST.SceneArrays, prim, bary, ray_dir,
     n, t, b = _adjust_shading_normal(vertex_n, v, oriented_ng, tan)
 
     # material fetch + conversion (BridgeDonut:444-521)
-    mrow = gather.gather_rows(scene.mat_pack, mid)             # (N,46)
     base_color = mrow[..., ST.MP_BASE:ST.MP_BASE + 3]
     metalness = mrow[..., ST.MP_METAL]
     roughness = mrow[..., ST.MP_ROUGH]

@@ -52,6 +52,111 @@ def test_gather_kernels_match_plain(dev):
                                rtol=1e-6, atol=1e-6)
 
 
+def _at_offset(table, words):
+    """`table`'s values in a contiguous tensor that starts `words` 4-byte
+    words into its allocation (not 16-byte aligned for words 1-3)."""
+    out = table.new_empty(table.numel() + words)[words:].view(table.shape)
+    out.copy_(table)
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["f32", "i32"])
+@pytest.mark.parametrize("width", [4, 5, 10, 12, 24, 46, 7])
+def test_gather_rows_kernel_bit_equal(dev, width, kind, offset):
+    """K2 at every compile-time width and a run-time width, on a table at
+    a 16-byte aligned address and at one that is not."""
+    r = np.random.RandomState(width)
+    a = r.normal(size=(1000, width)).astype(np.float32) if kind == "f32" \
+        else r.randint(-(1 << 30), 1 << 30, (1000, width)).astype(np.int32)
+    table = _at_offset(torch.as_tensor(a, device=dev), offset)
+    for n in (1, 4097, 100_003):
+        idx = torch.as_tensor(r.randint(-3, 1003, n), device=dev)
+        got = gather.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather.gather_rows_plain(table, idx)), \
+            gather.instance(table)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("width", [12, 7])
+def test_gather_interp_kernel_bit_equal(dev, width, offset):
+    r = np.random.RandomState(width + offset)
+    table = _at_offset(torch.as_tensor(
+        (r.normal(size=(700, width)) * 10).astype(np.float32), device=dev),
+        offset)
+    for n in (1, 999, 70_001):
+        i3 = torch.as_tensor(r.randint(-2, 702, (n, 3)).astype(np.int32),
+                             device=dev)
+        w3 = torch.as_tensor(r.dirichlet([1.0, 1.0, 1.0], n).astype(
+            np.float32), device=dev)
+        got = gather.gather_rows_interp(table, i3, w3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, gather.gather_rows_interp_plain(table, i3,
+                                                                w3))
+
+
+def _surface_tables(dev, source, offset=0):
+    """(tri_pack, vert_pack, tri_geom_pack, mat_pack) on the card: the
+    programmer-art scene's, or random ones whose material ids run past
+    mat_pack; each at `offset` words into its allocation."""
+    if source == "programmer-art":
+        from rtxpt_tpu_torch.scene import build as TB
+        s = TB.to_device(procedural.build_programmer_art().finish(), dev)
+        tables = (s.tri_pack, s.vert_pack, s.tri_geom_pack, s.mat_pack)
+    else:
+        r = np.random.RandomState(11)
+        tables = tuple(torch.as_tensor(a, device=dev) for a in (
+            np.concatenate([r.randint(0, 5000, (3000, 3)),
+                            r.randint(0, 40, (3000, 1))], 1).astype(np.int32),
+            r.normal(size=(5000, 12)).astype(np.float32),
+            r.normal(size=(3000, 5)).astype(np.float32),
+            r.uniform(0, 2, (32, 46)).astype(np.float32)))
+    return tuple(_at_offset(t, offset) for t in tables)
+
+
+@pytest.mark.parametrize("n", [1, 127, 4097, 480_000])
+@pytest.mark.parametrize("source", ["random", "programmer-art"])
+def test_gather_surface_bit_equal_to_plain(dev, source, n):
+    """The surface fetch against its plain version (load_surface's K2, K3,
+    K2, K2 chain) on all four outputs, with miss lanes (-1) and ids past
+    the triangle table."""
+    tables = _surface_tables(dev, source)
+    r = np.random.RandomState(n)
+    n_tris = tables[0].shape[0]
+    prim = r.randint(0, n_tris, n).astype(np.int32)
+    prim[r.rand(n) < 0.2] = -1
+    prim[r.rand(n) < 0.02] = n_tris + 3
+    bary = r.dirichlet([1.0, 1.0, 1.0], n)[:, 1:].astype(np.float32)
+    prim, bary = (torch.as_tensor(a, device=dev) for a in (prim, bary))
+    cuda_lib.reset_launch_counts()
+    got = gather.gather_surface(*tables, prim, bary)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts()["gather_surface"] == 1
+    for a, b in zip(got, gather.gather_surface_plain(*tables, prim, bary)):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_gather_surface_unaligned_tables_bit_equal(dev, offset):
+    """Tables 4 or 8 bytes past a 16-byte boundary take the narrower
+    words (gather.surface_instance) and give the same bits."""
+    tables = _surface_tables(dev, "random", offset)
+    r = np.random.RandomState(offset)
+    prim = torch.as_tensor(r.randint(-1, 3000, 4097).astype(np.int32),
+                           device=dev)
+    bary = torch.as_tensor(r.rand(4097, 2).astype(np.float32), device=dev)
+    want = {1: "tri_pack 4-byte loads, vert_pack 4-byte words, mat_pack "
+               "4-byte words",
+            2: "tri_pack 4-byte loads, vert_pack 8-byte words, mat_pack "
+               "8-byte words"}[offset]
+    assert gather.surface_instance(tables[0], tables[1], tables[3]) == want
+    got = gather.gather_surface(*tables, prim, bary)
+    torch.cuda.synchronize()
+    for a, b in zip(got, gather.gather_surface_plain(*tables, prim, bary)):
+        assert torch.equal(a, b)
+
+
 def _dense_rays(dev, n, seed=1, active=0.9):
     """A 1000-triangle dense table and n rays through it: origins inside
     and around it (some at cluster centers), finite and infinite t_max,
@@ -261,17 +366,18 @@ def test_shade_fill_kernel_matches_plain(dev):
 
 def test_realtime_frame_launches_fill_and_matches_cpu(dev):
     """A default realtime frame on the card goes through the fused dense
-    trace (neither K1 walking given worklists nor K7), K2, K3 and K4's
-    FILL variant (not the non-FILL K4), and its second frame agrees with
-    the CPU port's."""
+    trace (neither K1 walking given worklists nor K7), K2, the surface
+    fetch (not K3 alone) and K4's FILL variant (not the non-FILL K4), and
+    its second frame agrees with the CPU port's."""
     cuda_lib.reset_launch_counts()
     r = _realtime(dev)
     r.render_frame(32, 24)
     gpu = r.render_frame(32, 24).cpu()
     counts = cuda_lib.launch_counts()
-    for k in ("mt_dense_fused", "gather_rows", "gather_rows_interp",
+    for k in ("mt_dense_fused", "gather_rows", "gather_surface",
               "shade_nee_fill"):
         assert counts[k] > 0, counts
+    assert counts["gather_rows_interp"] == 0, counts
     assert counts["shade_nee"] == 0, counts
     assert counts["mt_dense"] == counts["tile_keys"] == 0, counts
     c = _realtime("cpu")
@@ -282,14 +388,15 @@ def test_realtime_frame_launches_fill_and_matches_cpu(dev):
 
 def test_render_launches_every_kernel_and_matches_cpu(dev):
     """Programmer-art takes the dense tier: the fused dense trace (one
-    launch per trace: neither K1 walking given worklists nor K7), K2-K4,
-    and neither K5 nor K6."""
+    launch per trace: neither K1 walking given worklists nor K7), K2, the
+    surface fetch (not K3 alone), K4, and neither K5 nor K6."""
     cuda_lib.reset_launch_counts()
     gpu = _renderer(dev, max_bounces=3).render(32, 24, 2).cpu()
     counts = cuda_lib.launch_counts()
-    dense_path = ("mt_dense_fused", "gather_rows", "gather_rows_interp",
+    dense_path = ("mt_dense_fused", "gather_rows", "gather_surface",
                   "shade_nee")
     assert all(counts[k] > 0 for k in dense_path), counts
+    assert counts["gather_rows_interp"] == 0, counts
     assert counts["mt_dense"] == counts["tile_keys"] == 0, counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     assert counts["bvh8_trace_2l"] == 0, counts
@@ -431,9 +538,10 @@ def test_city_render_launches_two_level_trace_and_matches_cpu(dev):
     cuda_lib.reset_launch_counts()
     gpu = render(dev).cpu()
     counts = cuda_lib.launch_counts()
-    for k in ("bvh8_trace_2l", "gather_rows", "gather_rows_interp",
+    for k in ("bvh8_trace_2l", "gather_rows", "gather_surface",
               "shade_nee"):
         assert counts[k] > 0, counts
+    assert counts["gather_rows_interp"] == 0, counts
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     assert counts["mt_dense"] == counts["mt_dense_fused"] == 0
     torch.testing.assert_close(gpu, render("cpu"), rtol=1e-3, atol=1e-3)

@@ -20,11 +20,20 @@ def _tables(seed):
     return f, i
 
 
+def _table(kind, width, seed):
+    r = np.random.RandomState(seed)
+    if kind == "f32":
+        return r.normal(size=(700, width)).astype(np.float32) * 10.0
+    return r.randint(-(1 << 22), 1 << 22, size=(700, width)).astype(np.int32)
+
+
+# the kernel's compile-time row widths (the main paths' tables) and one
+# width that takes its run-time-width instance
+@pytest.mark.parametrize("width", [4, 5, 10, 12, 24, 46, 7])
 @pytest.mark.parametrize("kind", ["f32", "i32"])
 @pytest.mark.parametrize("shape", [(1000,), (40, 25)])
-def test_gather_rows_matches_reference(kind, shape):
-    f, i = _tables(0)
-    table = f if kind == "f32" else i
+def test_gather_rows_matches_reference(kind, shape, width):
+    table = _table(kind, width, width)
     idx = np.random.RandomState(1).randint(0, 700, size=shape)
     ref = np.asarray(jnp.asarray(table)[jnp.asarray(idx)])
     got = gather.gather_rows(torch.as_tensor(table), torch.as_tensor(idx))
@@ -76,3 +85,30 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         gather.gather_rows(torch.zeros((4, 2)),
                            torch.zeros(3, dtype=torch.int32, device="meta"))
+
+
+def _at_offset(table, words):
+    """`table`'s values in a contiguous tensor that starts `words` 4-byte
+    words into its allocation."""
+    out = table.new_empty(table.numel() + words)[words:].view(table.shape)
+    out.copy_(table)
+    return out
+
+
+@pytest.mark.parametrize("width, offset, word, kind", [
+    (4, 0, 16, "template"), (4, 2, 8, "run-time width"),
+    (4, 1, 4, "run-time width"), (5, 0, 4, "template"),
+    (10, 0, 8, "template"), (10, 1, 4, "run-time width"),
+    (12, 0, 16, "template"), (12, 2, 8, "run-time width"),
+    (24, 0, 16, "template"), (46, 0, 8, "template"),
+    (46, 1, 4, "run-time width"), (7, 0, 4, "run-time width"),
+    (8, 0, 16, "run-time width")])
+def test_instance_follows_row_stride_and_address(width, offset, word, kind):
+    table = _at_offset(torch.as_tensor(_table("f32", width, 9)), offset)
+    assert table.is_contiguous()
+    assert gather.word_bytes(table) == word
+    assert gather.instance(table) == f"width {width}, {word}-byte words, " \
+        f"{kind}"
+    idx = torch.as_tensor(np.random.RandomState(2).randint(-2, 703, 300))
+    assert torch.equal(gather.gather_rows(table, idx),
+                       gather.gather_rows_plain(table.clone(), idx))

@@ -10,12 +10,13 @@ synchronize), then once under torch.profiler, and prints the card, the
 timed wall, and the profiled render's device time and launches grouped by
 kernel: the two-level trace (one launch per trace), K6 (BVH8 probe), K5
 (BVH8 walk of one table), the fused dense trace (one launch per trace),
-K1 walking given worklists, K7 (worklists), K4 (shade), K2/K3 (gathers)
-and the PyTorch kernels of the tensor code around them, with the
-device's busy share of the profiled wall; then the device time of the
-kernels that ran inside the closest-hit and any-hit trace calls (the
-trace kernels and the PyTorch code around them) beside the device span
-of those calls, and the PyTorch kernels that take the most device time.
+K1 walking given worklists, K7 (worklists), K4 (shade), K2/K3 (gathers,
+with the surface fetch: K2 + K3 in one launch) and the PyTorch kernels of
+the tensor code around them, with the device's busy share of the profiled
+wall; then the device time of the kernels that ran inside the closest-hit
+and any-hit trace calls (the trace kernels and the PyTorch code around
+them) beside the device span of those calls, and the PyTorch kernels that
+take the most device time.
 Bench config: 6 bounces, 4 diffuse, NEE 1+1.
 
 `--mode realtime` profiles one frame of the default realtime pipeline
@@ -50,7 +51,8 @@ GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K1 dense trace", ("mt_dense_kernel",)),
           ("K7 worklists (tile_keys)", ("tile_keys_kernel",)),
           ("K4 shade", ("shade_nee_kernel",)),
-          ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel")))
+          ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel",
+                             "gather_surface_kernel")))
 
 
 def _group(name: str) -> str:
