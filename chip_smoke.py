@@ -91,8 +91,8 @@ its `ms` sums. The kernels are built with --fmad=false, so their exact
 float32 arithmetic cannot run faster than about twice an operation
 bound. Most kernels are timed with CUDA events around back-to-back
 launches (`time_ms`); the row gathers, whose launches can take less
-device time than their host calls, by the device time the profiler
-records (`device_ms`), with the CUDA-event time beside it (`paced_ms`).
+device time than their host calls, by replaying a CUDA graph of their
+launches (`device_ms`), with the CUDA-event time beside it (`paced_ms`).
 
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
@@ -206,24 +206,29 @@ def time_ms(fn, iters: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
-    """Mean device time of the work fn() launches: the summed durations of
-    the device events torch.profiler records over `iters` calls, after a
-    warm-up call. Unlike time_ms, it leaves out the host time between
-    launches, which sets time_ms where a launch takes less device time
-    than its host call."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def device_ms(fn, iters: int = 10, reps: int = 5) -> float:
+    """Mean device time of the work fn() launches: `iters` calls captured
+    in a CUDA graph (after a warm-up call) and the graph replayed `reps`
+    times between CUDA events. Unlike time_ms, it leaves out the host time
+    between launches, which sets time_ms where a launch takes less device
+    time than its host call."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    require(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * reps)
 
 
 class Capture:
@@ -722,9 +727,8 @@ def check_surface(args, label) -> dict:
     plain and the parent's composition (parent_surface) timed by device
     time (device_ms), the kernel and the composition also by CUDA events
     (which count the host time between the composition's launches); the
-    bound:
-    prim and bary read once, each distinct row of the four tables read
-    once, the 256 bytes per lane written."""
+    bound: prim and bary read once, each distinct row of the four tables
+    read once, the 256 bytes per lane written."""
     from rtxpt_tpu_torch.ops import gather
     tri_pack, vert_pack, tri_geom, mat_pack, prim, bary = args
     got = gather.gather_surface(*args)

@@ -19,10 +19,10 @@ PyTorch ops between, chip_smoke.py `parent_surface`) on this tree's and
 on the other checkout's K2/K3, all bit-equal; K2 on each distinct table
 the path gathers from (those inside the surface fetch included) with
 torch.index_select beside it; K3 on the surface fetch's blend. Times are
-device times (chip_smoke.py `device_ms`: the profiler's summed device
-events, no host time between launches) with CUDA-event times (which
-include it) in brackets; bounds as chip_smoke.py counts them. Needs a
-CUDA GPU.
+device times (chip_smoke.py `device_ms`: a CUDA graph of the launches
+replayed, no host time between launches) with the CUDA-event times of
+launches from the host (which include it) in brackets; bounds as
+chip_smoke.py counts them. Needs a CUDA GPU.
 """
 from __future__ import annotations
 
