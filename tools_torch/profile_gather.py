@@ -6,9 +6,9 @@ library of its own) on the same inputs, in one process on one card.
     python -m tools_torch.profile_gather --parent DIR
 
 DIR is the root of the other checkout (its ``rtxpt_tpu_torch/csrc`` must
-hold a gather.cu with the C entry points ``rtxpt_gather_rows`` and
-``rtxpt_gather_rows_interp`` of PR 1-6: no word-size argument). Without
---parent only this tree's kernels are timed.
+hold a gather.cu whose C entry points ``rtxpt_gather_rows`` and
+``rtxpt_gather_rows_interp`` take no word-size argument, as before the
+surface fetch). Without --parent only this tree's kernels are timed.
 
 Paths (chip_smoke.py's): bench (programmer-art 800x600, bench config,
 the first bounce of one sample), city (1920x1080), realtime city
