@@ -9,7 +9,9 @@ its seconds):
      from csrc/ with nvcc for sm_90a, the renderer's library and the K8
      lab's (one nvcc per source, all started together), and print ptxas's
      registers, shared memory and spills of every kernel instance of
-     csrc/gather.cu (none may spill);
+     csrc/gather.cu (none may spill) and of the main paths' K4 and K4 FILL
+     instantiations with their float operations per lane, counted from
+     the built library's SASS (`cuobjdump -sass`; K4's operation bound);
   2. hold the fused dense trace (`mt_dense_fused`: each tile's worklist
      and the walk in one launch), K1 walking K7's
      worklists, the surface fetch (`gather_surface`: K2 + K3 in one
@@ -31,7 +33,8 @@ its seconds):
      8 spp as one regenerating wavefront) with every launch counter set to
      0 just before, and require the fused dense trace once per dense trace
      call, K1 and K7 not at all, the surface fetch once per load_surface
-     call, K3 not at all, and K2 and K4 to have launched; then render
+     call, K3 not at all, K4 once per bounce and K2 to have launched; then
+     render
      it once more unsorted and once with wavefront_sort="raystream", print
      both walls and the fused kernel's visits per tile (its lab mode
      "lists" on every trace), require the same launches and the sorted
@@ -48,10 +51,10 @@ its seconds):
      gathers and the shade pass of that bounce, as in 2.; render it at
      1920x1080, bench config, 2 spp as one regenerating chunk, after a
      warm-up render, with the counters set to 0 just before, and require
-     K2 and K4 to have launched, the surface fetch once per load_surface
-     call and K3 not at all, `bvh8_trace_2l` once per two-level trace
-     call, and K5 and K6 not at all; hold a 64x36 GPU render against the port's CPU render (PSNR >
-     40 dB);
+     K2 to have launched, K4 once per bounce, the surface fetch once per
+     load_surface call and K3 not at all, `bvh8_trace_2l` once per
+     two-level trace call, and K5 and K6 not at all; hold a 64x36 GPU
+     render against the port's CPU render (PSNR > 40 dB);
   6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
      1920x1080 and on programmer-art at 640x360 (the bench's realtime
@@ -67,8 +70,9 @@ its seconds):
      kernels to have launched (the city: `bvh8_trace_2l` once per
      two-level trace call, K5 and K6 not at all; 360p: `mt_dense_fused`
      once per dense trace call, K1 and K7 not at all; both: the surface
-     fetch once per load_surface call, K3 not at all) and the frame to be
-     finite and not black. Then the
+     fetch once per load_surface call, K3 not at all, K4 FILL once per
+     FILL bounce and K4 not at all) and the frame to be finite and not
+     black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
      3 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card: the mean of 32
@@ -87,9 +91,11 @@ its seconds):
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
 67 TFLOP/s (H100 SXM, NVIDIA's data sheet), for the work of the launches
-its `ms` sums. The kernels are built with --fmad=false, so their exact
-float32 arithmetic cannot run faster than about twice an operation
-bound. Most kernels are timed with CUDA events around back-to-back
+its `ms` sums; K4's operations are counted from its SASS (`sass_ops`).
+Each K4 check prints the instantiation's registers, shared bytes and
+spills (none allowed) and its bound's kind. The kernels are built with
+--fmad=false, so their exact float32 arithmetic cannot run faster than
+about twice an operation bound. Most kernels are timed with CUDA events around back-to-back
 launches (`time_ms`); the row gathers, whose launches can take less
 device time than their host calls, by replaying a CUDA graph of their
 launches (`device_ms`), with the CUDA-event time beside it (`paced_ms`).
@@ -163,8 +169,19 @@ NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
 TRI_OPS = 45                   # one Möller–Trumbore test
 TRI_U_OPS = 22                 # its operations up to the u test (h, a, s, u)
 GROUP = 8                      # clusters under one group box (mt_dense.cu)
-SHADE_LANE_OPS = 2000          # K4 at NEE 1+1, an estimate from its source
-SHADE_NEE_OPS = 600            # each further NEE sample (its fused BSDF eval)
+# K4's operations per lane are counted from the built library's SASS
+# (`sass_ops`): each float32 instruction that issues at the FP32 pipe's
+# rate counts 1 (an FFMA 2, as the 67 TFLOP/s peak counts it); MUFU and
+# the float conversions, which issue at 16 per clock per SM against 128
+# FP32 lanes, count 8
+SASS_OP_WEIGHTS = dict.fromkeys(
+    ("FADD", "FADD32I", "FMUL", "FMUL32I", "FMNMX", "FSETP", "FSET", "FSEL",
+     "FCHK", "FSWZADD", "I2FP", "F2IP"), 1)
+SASS_OP_WEIGHTS.update(FFMA=2, FFMA32I=2, MUFU=8, F2I=8, I2F=8, F2F=8,
+                       FRND=8)
+# (nee_distant, nee_local, rr, fill) -> registers, shared bytes, spills and
+# SASS operations per lane of that K4 instantiation (filled by main)
+SHADE = {}
 PSNR_MIN, SMAPE_MAX = 40.0, 0.02            # cross-platform golden gate
 FAST_PSNR, FAST_SMAPE = 45.0, 0.01          # same-platform fast gate
 
@@ -783,12 +800,97 @@ def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
     return out
 
 
+def sass_ops(so) -> dict:
+    """{mangled kernel name: weighted float32 operations} of every kernel
+    in the shared library `so`, from `cuobjdump -sass` (SASS_OP_WEIGHTS).
+    A static count: K4's device functions are straight-line code with
+    selects, so each instruction runs once per lane; the rarely taken slow
+    paths of IEEE division, square root and sin/cos range reduction are
+    counted once each, so the count is a little above the common path's."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                             text=True, timeout=600)
+    except OSError as e:
+        raise RuntimeError(f"cuobjdump is needed to count K4's operations: "
+                           f"{e}") from e
+    require(out.returncode == 0, f"cuobjdump -sass {so} failed: "
+            f"{out.stderr[-2000:]}")
+    ops, name = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            ops[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                     r"([A-Z][A-Z0-9]*)", line)
+        if m and name:
+            ops[name] += SASS_OP_WEIGHTS.get(m.group(1), 0)
+    require(ops, f"cuobjdump found no kernel in {so}")
+    return ops
+
+
+def ptxas_kernels(report: str) -> list:
+    """[[mangled name, registers, static shared bytes, spilled bytes]] of
+    every kernel in an nvcc -Xptxas=-v report."""
+    rows, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([name, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, spill])
+            name = None
+    return rows
+
+
+SHADE_NAME = re.compile(r"shade_nee_kernelILi(\d)ELi(\d)ELb([01])ELb([01])E")
+
+
+def shade_instances(report: str, so, smem_bytes) -> dict:
+    """{(nee_distant, nee_local, rr, fill): registers, shared (static +
+    dynamic) bytes, spilled bytes, SASS operations per lane} of every K4
+    instantiation, from ptxas's report on csrc/shade_kernel.cu, the SASS
+    of the library `so` and `smem_bytes(nee_distant, nee_local)`, the
+    dynamic shared memory of a block."""
+    out = {}
+    for name, regs, smem, spill in ptxas_kernels(report):
+        m = SHADE_NAME.search(name)
+        if m:
+            nd, nl = int(m.group(1)), int(m.group(2))
+            out[(nd, nl, m.group(3) == "1", m.group(4) == "1")] = dict(
+                registers=regs, shared=smem + smem_bytes(nd, nl),
+                spill=spill)
+    for name, ops in sass_ops(so).items():
+        m = SHADE_NAME.search(name)
+        if m:
+            key = (int(m.group(1)), int(m.group(2)), m.group(3) == "1",
+                   m.group(4) == "1")
+            out[key]["ops"] = ops
+    require(len(out) == 36 and all("ops" in v for v in out.values()),
+            "ptxas and cuobjdump do not report all 36 K4 instantiations")
+    return out
+
+
 def check_shade(args, kw, label="bench", fill=False) -> dict:
     """K4 (fill: its FILL variant) against its plain version: lobe and
     flags equal on >= 99.99% of lanes, the rest within rtol 2e-4 / atol
-    2e-5 on those lanes (FILL: max |diff| < 1e-5); both timed."""
+    2e-5 on those lanes (FILL: max |diff| < 1e-5); both timed. Prints the
+    instantiation's registers, shared bytes and spills (none allowed)
+    and its bound: the larger of its bytes and its SASS operation count."""
     from rtxpt_tpu_torch.pt import shade_kernel as SK
     kernel = SK.shade_nee_fill if fill else SK.shade_nee
+    key = (kw["nee_distant"], kw["nee_local"], bool(kw["rr"]), fill)
+    inst = SHADE[key]
     got = kernel(*args, **kw)
     ref = SK.shade_nee_plain(*args, fill=fill, **kw)
     L = SK.out_layout(kw["nee_distant"], kw["nee_local"], fill)
@@ -811,13 +913,19 @@ def check_shade(args, kw, label="bench", fill=False) -> dict:
     ms = time_ms(lambda: kernel(*args, **kw), 20)
     pms = time_ms(lambda: SK.shade_nee_plain(*args, fill=fill, **kw), 5)
     planes, n = args[0], args[0].shape[1]
-    ops = n * (SHADE_LANE_OPS + SHADE_NEE_OPS
-               * (kw["nee_distant"] + kw["nee_local"] - 2))
-    b_ms, b_by = bound((planes.shape[0] + L.rows) * n * 4, ops)
-    print(f"{what}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}; {planes.shape[0]} + {L.rows} rows)")
+    b_ms, b_by = bound((planes.shape[0] + L.rows) * n * 4, n * inst["ops"])
+    print(f"{what}: {inst['registers']} registers, {inst['shared']} B "
+          f"shared, {inst['spill']} B spilled, "
+          f"{SK.copy_mode(n, planes.data_ptr())} copies; kernel {ms:.4f} "
+          f"ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ("
+          f"{'operations (SASS count)' if b_by == 'operations' else b_by}; "
+          f"{planes.shape[0]} + {L.rows} rows, {inst['ops']} operations a "
+          f"lane)", flush=True)
+    require(inst["spill"] == 0, f"{what}: the kernel spills")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, registers=inst["registers"],
+                shared_bytes=inst["shared"], spill_bytes=inst["spill"],
+                ops_per_lane=inst["ops"])
 
 
 def render(w, h, spp, device, cfg=None, env_height=64):
@@ -874,7 +982,7 @@ def bench(card: str) -> dict:
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
     with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc, \
-            SurfaceCalls() as sc:
+            SurfaceCalls() as sc, ShadeCalls() as shc:
         t0 = time.perf_counter()
         hdr = r.render(w, h, spp)
         torch.cuda.synchronize()
@@ -886,12 +994,13 @@ def bench(card: str) -> dict:
     mpaths = w * h * spp / wall / 1e6
     print(f"bench {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {mpaths:.3f} Mpaths/s on {card}; {tc.n} dense traces, "
-          f"{sc.n} load_surface calls; launches {counts}")
+          f"{sc.n} load_surface calls, {shc.n} bounces; launches {counts}")
     for name in BENCH_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the bench path")
     require_one_launch_per_trace(counts, tc.n, "bench", "mt_dense_fused")
     require_one_surface_fetch(counts, sc.n, "bench")
+    require_one_shade_per_bounce(counts, shc.n, "bench")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1258,6 +1367,36 @@ class SurfaceCalls:
         self.mod.load_surface = self.orig
 
 
+class ShadeCalls:
+    """Counts the bounces with at least one lane (pt/integrator.py
+    `_shade_step` calls, each of which runs K4 or K4 FILL once) while
+    active."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.pt import integrator
+        self.mod, self.orig, self.n = integrator, integrator._shade_step, 0
+
+        def counted(assets, cfg, consts4, path, surf, shade, *args, **kw):
+            self.n += shade.shape[0] > 0
+            return self.orig(assets, cfg, consts4, path, surf, shade, *args,
+                             **kw)
+        integrator._shade_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._shade_step = self.orig
+
+
+def require_one_shade_per_bounce(counts, n_bounces, what, fill=False):
+    """One K4 (fill: K4 FILL) launch per bounce, and the other variant
+    not at all."""
+    name, other = ("shade_nee_fill", "shade_nee") if fill \
+        else ("shade_nee", "shade_nee_fill")
+    require(counts[name] == n_bounces > 0 and counts[other] == 0,
+            f"{what}: {counts[name]} {name} and {counts[other]} {other} "
+            f"launches for {n_bounces} bounces")
+
+
 def require_one_surface_fetch(counts, n_calls, what):
     """One `gather_surface` launch per load_surface call, and no K3."""
     require(counts["gather_surface"] == n_calls > 0,
@@ -1333,7 +1472,7 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     r.reset_accumulation()
     cuda_lib.reset_launch_counts()
     with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc, \
-            SurfaceCalls() as sc:
+            SurfaceCalls() as sc, ShadeCalls() as shc:
         t0 = time.perf_counter()
         hdr = r.render(w, h, spp)
         torch.cuda.synchronize()
@@ -1344,13 +1483,14 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
             and out.mean() > 0.0, "city render: bad output")
     print(f"city {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {w * h * spp / wall / 1e6:.3f} Mpaths/s on {card}; "
-          f"{tc.n} two-level traces, {sc.n} load_surface calls; launches "
-          f"{counts}", flush=True)
+          f"{tc.n} two-level traces, {sc.n} load_surface calls, {shc.n} "
+          f"bounces; launches {counts}", flush=True)
     for name in CITY_PATH:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the city path")
     require_one_launch_per_trace(counts, tc.n, "city render")
     require_one_surface_fetch(counts, sc.n, "city render")
+    require_one_shade_per_bounce(counts, shc.n, "city render")
 
     # the port on the card against the port's plain versions on the CPU
     imgs = []
@@ -1436,7 +1576,8 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     cuda_lib.reset_launch_counts()
     walls, fills = [], []
     kernel = next(k for k in ONE_LAUNCH if k in path)
-    with TraceCalls(ONE_LAUNCH[kernel][0]) as tc, SurfaceCalls() as sc:
+    with TraceCalls(ONE_LAUNCH[kernel][0]) as tc, SurfaceCalls() as sc, \
+            ShadeCalls() as shc:
         for _ in range(frames):
             t0 = time.perf_counter()
             img = r.render_frame(w, h)
@@ -1452,12 +1593,15 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
           f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms; FILL bounces "
           f"{fills}) on {card}; {tc.n} trace calls, {sc.n} load_surface "
-          f"calls; launches over {frames} frames {counts}", flush=True)
+          f"calls, {shc.n} bounces; launches over {frames} frames {counts}",
+          flush=True)
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
     require_one_launch_per_trace(counts, tc.n, f"realtime {label}", kernel)
     require_one_surface_fetch(counts, sc.n, f"realtime {label}")
+    require_one_shade_per_bounce(counts, shc.n, f"realtime {label}",
+                                 fill=True)
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1546,22 +1690,7 @@ def realtime(results: dict, card: str, host_city) -> dict:
 def gather_instances(report: str):
     """Print the registers, shared memory and spills of every kernel
     instance of csrc/gather.cu from ptxas's report; none may spill."""
-    rows, name = [], None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name, spill = m.group(1), 0
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            spill = int(m.group(1)) + int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            smem = re.search(r"(\d+) bytes smem", line)
-            rows.append([name, int(m.group(1)),
-                         int(smem.group(1)) if smem else 0, spill])
-            name = None
+    rows = ptxas_kernels(report)
     require(rows, "ptxas reported no kernel of gather.cu")
     filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     try:
@@ -1602,14 +1731,24 @@ def main() -> int:
     from tools_torch import kernel_lab
     t0 = time.time()
     # the renderer's library and the K8 lab's, every nvcc started together,
-    # and gather.cu once more for ptxas's report on its instances
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # and gather.cu and shade_kernel.cu once more for ptxas's reports on
+    # their instances
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(cuda_lib.lib), pool.submit(kernel_lab.library),
-                   pool.submit(cuda_lib.ptxas_report, "gather.cu")]
-        report = [f.result() for f in futures][2]
+                   pool.submit(cuda_lib.ptxas_report, "gather.cu"),
+                   pool.submit(cuda_lib.ptxas_report, "shade_kernel.cu")]
+        report, shade_report = [f.result() for f in futures][2:]
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
           f"({cuda_lib.build()} and the lab's)", flush=True)
     gather_instances(report)
+    SHADE.update(shade_instances(shade_report, cuda_lib.build(),
+                                 cuda_lib.lib().rtxpt_shade_smem_bytes))
+    for (nd, nl, rr, fill), inst in sorted(SHADE.items()):
+        if rr and nd == nl and nd > 0:        # the main paths' instances
+            print(f"K4{' FILL' if fill else ''} NEE {nd}+{nl}: "
+                  f"{inst['registers']} registers, {inst['shared']} B "
+                  f"shared, {inst['spill']} B spilled, {inst['ops']} SASS "
+                  f"operations a lane", flush=True)
 
     # each path's kernel checks, {path: {kernel name: result}}
     results = {p: {} for p in PATHS}

@@ -10,16 +10,34 @@
 // the same float32 operations in the same order (built without fast math
 // and without FMA contraction).
 //
-// Bound on the H100: per-lane arithmetic with many transcendentals
-// (sqrt, sin, cos; about 2k float operations a lane at NEE 1+1) and the
-// register pressure of one long straight-line program; memory traffic is
-// one read of C_IN and one write of C_OUT float rows per lane (101 + 43
-// rows at NEE 1+1, 0.6 KB a lane). Design: scalar per-thread code over
-// the planar (C, N) layout of the reference, so row r of lane i is at
-// r*N + i and every load and store is coalesced; the NEE sample counts
-// and Russian roulette are template parameters (NEE 0..2 each), the bounce
-// limits and thresholds are arguments; the RNG uniforms arrive as input
-// rows, so the kernel is deterministic and needs no generator.
+// Bound on the H100: bytes. A lane reads C_IN float rows and writes C_OUT
+// (101 + 43 at NEE 1+1; 137 + 59 at 2+2, 137 + 77 in the FILL variant:
+// 0.6-0.86 KB a lane). Its arithmetic, counted from the built kernel's
+// SASS (chip_smoke.py: float32 instructions, an FFMA as two, MUFU and
+// conversions as eight), needs less time than those bytes at every NEE
+// count the main paths run. The kernel is one long straight-line program
+// of 150-170 registers, so only 3 blocks of 128 threads fit on an SM:
+// loads issued where the arithmetic first uses them left each warp a few
+// rows in flight, far too few to keep HBM busy.
+//
+// Design: a block takes a tile of TILE = 128 lanes and first copies the
+// tile's slice of every input row into shared memory (C_IN x 512 B,
+// 70,144 B at NEE 2+2), issuing all of it before any arithmetic, so a
+// whole tile's input is in flight at once. The copies go in phases, the
+// fixed rows and then each NEE sample's rows, each phase waited for just
+// before its first use, so the shade / BSDF part runs while the NEE rows
+// still arrive. Two copy paths: where every row segment starts 16-byte
+// aligned (N % 4 == 0 and an aligned plane pointer) warp 0 issues one
+// cp.async.bulk per row (512 B) and each phase completes an mbarrier;
+// otherwise every thread issues a 4-byte cp.async per row for its own
+// lane and each phase is one commit group (no barrier: a thread reads
+// only what it copied). The arithmetic then reads its inputs from shared
+// memory where the plain order uses them; outputs are stored from
+// registers, each output row a warp-contiguous 512-B run per block. Row
+// offsets are 32-bit (the wrapper requires C x N < 2^31). The NEE sample
+// counts and Russian roulette are template parameters (NEE 0..2 each),
+// the bounce limits and thresholds are arguments; the RNG uniforms arrive
+// as input rows, so the kernel is deterministic and needs no generator.
 //
 // The FILL variant (template flag FILL, entry point rtxpt_shade_nee_fill)
 // is the reference kernel's `fill=True` body for the realtime mode's
@@ -215,21 +233,196 @@ __device__ __forceinline__ V3 from_local(V3 v, V3 t, V3 b, V3 n) {
               v.x * t.z + v.y * b.z + v.z * n.z);
 }
 
-// ---- plane access --------------------------------------------------------
-struct Planes {
-    const float* __restrict__ in;
-    float* __restrict__ out;
+// ---- plane access and staging --------------------------------------------
+constexpr int TILE = 128;        // lanes per block, one thread each
+#ifndef SHADE_MIN_BLOCKS
+#define SHADE_MIN_BLOCKS 3       // blocks an SM must fit (__launch_bounds__)
+#endif
+#ifndef SHADE_LOCAL_SLOTS
+#define SHADE_LOCAL_SLOTS 2      // local samples' rows staged at once
+#endif
+
+template <int ND, int NL>
+struct Shape {
+    static constexpr int local_base = IN_FIXED + DIST_ROWS * ND;
+    static constexpr int in_rows = local_base + LOCAL_ROWS * NL;
+    // local samples staged at once; below NL they take turns in a ring
+    static constexpr int slots = NL < SHADE_LOCAL_SLOTS ? NL
+                                                         : SHADE_LOCAL_SLOTS;
+    static constexpr bool ring = slots < NL;
+    static constexpr int staged_rows = local_base + LOCAL_ROWS * slots;
+    // copy phases: the fixed rows, then each distant and each local sample
+    static constexpr int phases = 1 + ND + NL;
+    // the staged tile, then one 8-byte mbarrier per phase
+    static constexpr int smem_bytes = staged_rows * TILE * 4 + 8 * phases;
+    __host__ __device__ static constexpr int phase_rows(int k) {
+        return k == 0 ? IN_FIXED : (k <= ND ? DIST_ROWS : LOCAL_ROWS);
+    }
+    __device__ static int phase_of(int r) {
+        return r < IN_FIXED ? 0
+               : (r < local_base ? 1 + (r - IN_FIXED) / DIST_ROWS
+                                 : 1 + ND + (r - local_base) / LOCAL_ROWS);
+    }
+    // the staged row that holds input row r
+    __host__ __device__ static constexpr int srow(int r) {
+        return r < local_base
+                   ? r
+                   : local_base +
+                         ((r - local_base) / LOCAL_ROWS) %
+                             (slots > 0 ? slots : 1) * LOCAL_ROWS +
+                         (r - local_base) % LOCAL_ROWS;
+    }
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` of this thread's commit groups are in
+// flight (a constant once the phase loops are unrolled)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+    switch (pending) {
+        case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+        case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+        case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+        case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+        default: asm volatile("cp.async.wait_group 4;\n" ::: "memory");
+    }
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar) {
+    asm volatile(
+        "{\n\t.reg .pred P1;\n"
+        "LAB_WAIT:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n\t"
+        "@P1 bra LAB_DONE;\n\t"
+        "bra LAB_WAIT;\n"
+        "LAB_DONE:\n\t}\n" ::"r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes, unsigned bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(bar)
+        : "memory");
+}
+
+// The copy of one tile's input rows into shared memory, in phases.
+template <int ND, int NL>
+struct Stage {
+    using S = Shape<ND, NL>;
+    bool bulk;
+    unsigned bars;               // shared address of the phases' mbarriers
+    float* col;                  // this thread's column of the staged tile
+    const float* src;            // its lane of the input planes
     int n;
-    int lane;
+
+    // Starts every copy that has a place; called by all threads of the
+    // block. Bulk (never with a ring): warp 0 issues one cp.async.bulk per
+    // row segment (n % 4 == 0 and an aligned `in`, so each segment's start
+    // and length are multiples of 16 B). Otherwise each thread of a lane
+    // below n issues a 4-byte cp.async per row into its own column, one
+    // commit group per phase.
+    __device__ __forceinline__ Stage(float* tile, const float* in, int n_,
+                                     int tile0, bool bulk_)
+        : bulk(bulk_ && !S::ring),
+          bars(smem_addr(tile + S::staged_rows * TILE)),
+          col(tile + threadIdx.x),
+          src(in + (tile0 + static_cast<int>(threadIdx.x))),
+          n(n_) {
+        const int t = threadIdx.x;
+        if (bulk) {
+            if (t == 0) {
+                for (int k = 0; k < S::phases; ++k) mbar_init(bars + 8 * k);
+                asm volatile("fence.mbarrier_init.release.cluster;\n" :::
+                                 "memory");
+            }
+            __syncthreads();
+            if (t < 32) {
+                const int lanes = min(TILE, n - tile0);
+                const unsigned seg = static_cast<unsigned>(lanes) * 4u;
+                if (t == 0) {
+                    for (int k = 0; k < S::phases; ++k)
+                        mbar_expect_tx(bars + 8 * k, S::phase_rows(k) * seg);
+                }
+                __syncwarp();
+                for (int r = t; r < S::in_rows; r += 32)
+                    bulk_copy(tile + r * TILE, in + (r * n + tile0), seg,
+                              bars + 8 * S::phase_of(r));
+            }
+        } else if (tile0 + t < n) {
+            int r = 0;
+            for (int k = 0; k < 1 + ND + S::slots; ++k) {
+                const int end = r + S::phase_rows(k);
+                for (; r < end; ++r) cp_async4(col + r * TILE, src + r * n);
+                cp_async_commit();
+            }
+        }
+    }
+
+    // Ring only: copy local sample j's rows into its slot, which sample
+    // j - slots has left (its rows were read into registers before this
+    // call, and the asm's memory clobber keeps those reads before it).
+    __device__ __forceinline__ void refill(int j) const {
+        const int r0 = S::local_base + LOCAL_ROWS * j;
+        for (int r = r0; r < r0 + LOCAL_ROWS; ++r)
+            cp_async4(col + S::srow(r) * TILE, src + r * n);
+        cp_async_commit();
+    }
+
+    // Block until phase k's rows are in shared memory. With a ring, the
+    // commit group of local sample j >= slots is the last one committed
+    // when it is waited for.
+    __device__ __forceinline__ void wait(int k) const {
+        if (bulk) {
+            mbar_wait(bars + 8 * k);
+        } else {
+            const int committed = k + 1 > 1 + ND + S::slots ? k + 1
+                                                            : 1 + ND + S::slots;
+            cp_async_wait(committed - 1 - k);
+        }
+    }
+};
+
+// One lane's view: inputs from its column of the staged tile, outputs to
+// its column of the (C_OUT, N) planes (32-bit row offsets).
+template <int ND, int NL>
+struct Planes {
+    const float* s;
+    float* o;
+    int n;
     __device__ __forceinline__ float g(int r) const {
-        return in[(long long)r * n + lane];
+        return s[Shape<ND, NL>::srow(r) * TILE];
     }
     __device__ __forceinline__ V3 g3(int r) const {
         return mk(g(r), g(r + 1), g(r + 2));
     }
-    __device__ __forceinline__ void p(int r, float v) const {
-        out[(long long)r * n + lane] = v;
-    }
+    __device__ __forceinline__ void p(int r, float v) const { o[r * n] = v; }
     __device__ __forceinline__ void p3(int r, V3 v) const {
         p(r, v.x);
         p(r + 1, v.y);
@@ -700,7 +893,8 @@ struct LightSample {
     bool valid, delta;
 };
 
-__device__ __forceinline__ LightSample local_light_sample(const Planes& P,
+template <class PL>
+__device__ __forceinline__ LightSample local_light_sample(const PL& P,
                                                           int base, V3 pos) {
     float kind_f = P.g(base + LOC_KIND);
     V3 p0 = P.g3(base + LOC_P0), e1 = P.g3(base + LOC_E1);
@@ -785,14 +979,18 @@ __device__ __forceinline__ LightSample local_light_sample(const Planes& P,
 }
 
 template <int ND, int NL, bool RR, bool FILL>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(TILE, SHADE_MIN_BLOCKS)
 shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
                  float* __restrict__ out, int n, int max_bounces,
                  int max_diffuse_bounces, float spec_rough_threshold,
-                 float local_pdf_k) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+                 float local_pdf_k, int bulk) {
+    extern __shared__ __align__(16) float tile[];
+    const int tile0 = blockIdx.x * TILE;
+    const int lane = tile0 + threadIdx.x;
+    const Stage<ND, NL> st(tile, in, n, tile0, bulk != 0);
     if (lane >= n) return;
-    const Planes P{in, out, n, lane};
+    const Planes<ND, NL> P{tile + threadIdx.x, out + lane, n};
+    st.wait(0);                        // the fixed rows
     const float firefly_threshold = c4[0];
     const float atten = c4[1];
     const float nee_min_rad = c4[2];
@@ -938,6 +1136,7 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
 
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
+        st.wait(1 + i);
         const int base = IN_FIXED + DIST_ROWS * i;
         const float ls_pdf = P.g(base + DIST_PDF);
         nee_one(P.g3(base + DIST_DIR), P.g(base + DIST_DIST),
@@ -947,8 +1146,11 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     }
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
+        st.wait(1 + ND + j);
         const int base = IN_FIXED + DIST_ROWS * ND + LOCAL_ROWS * j;
         const LightSample ls = local_light_sample(P, base, pos);
+        if (Shape<ND, NL>::ring && j + Shape<ND, NL>::slots < NL)
+            st.refill(j + Shape<ND, NL>::slots);
         nee_one(ls.dir, ls.dist, ls.li, local_pdf_k, ls.pdf, ls.valid,
                 1.0f / (float)NL, ND + j, true, ls.delta);
     }
@@ -980,17 +1182,35 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     if (FILL) P.p3(OUT_PRE_SCATTER_THP, pre_scatter_thp);
 }
 
-using KernelFn = void (*)(const float*, const float*, float*, int, int, int,
-                          float, float);
+using LaunchFn = int (*)(const float*, const float*, float*, int, int, int,
+                         float, float, int, cudaStream_t);
+
+// one instantiation: allow its dynamic shared memory (once), then launch
+template <int ND, int NL, bool RR, bool FILL>
+int launch_one(const float* planes_in, const float* consts4,
+               float* planes_out, int n, int max_bounces,
+               int max_diffuse_bounces, float spec_rough_threshold,
+               float local_pdf_k, int bulk, cudaStream_t stream) {
+    constexpr int smem = Shape<ND, NL>::smem_bytes;
+    static const cudaError_t allowed = cudaFuncSetAttribute(
+        shade_nee_kernel<ND, NL, RR, FILL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+    const unsigned blocks = static_cast<unsigned>((n + TILE - 1) / TILE);
+    shade_nee_kernel<ND, NL, RR, FILL><<<blocks, TILE, smem, stream>>>(
+        planes_in, consts4, planes_out, n, max_bounces, max_diffuse_bounces,
+        spec_rough_threshold, local_pdf_k, bulk);
+    return static_cast<int>(cudaGetLastError());
+}
 
 template <int ND, int NL, bool FILL>
-KernelFn pick_rr(bool rr) {
-    return rr ? shade_nee_kernel<ND, NL, true, FILL>
-              : shade_nee_kernel<ND, NL, false, FILL>;
+LaunchFn pick_rr(bool rr) {
+    return rr ? launch_one<ND, NL, true, FILL>
+              : launch_one<ND, NL, false, FILL>;
 }
 
 template <int ND, bool FILL>
-KernelFn pick_nl(int nl, bool rr) {
+LaunchFn pick_nl(int nl, bool rr) {
     switch (nl) {
         case 0: return pick_rr<ND, 0, FILL>(rr);
         case 1: return pick_rr<ND, 1, FILL>(rr);
@@ -1000,7 +1220,7 @@ KernelFn pick_nl(int nl, bool rr) {
 }
 
 template <bool FILL>
-KernelFn pick(int nd, int nl, bool rr) {
+LaunchFn pick(int nd, int nl, bool rr) {
     switch (nd) {
         case 0: return pick_nl<0, FILL>(nl, rr);
         case 1: return pick_nl<1, FILL>(nl, rr);
@@ -1009,30 +1229,53 @@ KernelFn pick(int nd, int nl, bool rr) {
     return nullptr;
 }
 
-int launch(KernelFn fn, const float* planes_in, const float* consts4,
+// bulk: copy the input rows with cp.async.bulk, which needs every row
+// segment 16-byte aligned (n % 4 == 0 and a 16-byte aligned planes_in)
+int launch(LaunchFn fn, const float* planes_in, const float* consts4,
            float* planes_out, int n, int max_bounces,
            int max_diffuse_bounces, float spec_rough_threshold,
-           float local_pdf_k, cudaStream_t stream) {
-    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 128;
-    unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-    fn<<<blocks, threads, 0, stream>>>(planes_in, consts4, planes_out, n,
-                                       max_bounces, max_diffuse_bounces,
-                                       spec_rough_threshold, local_pdf_k);
-    return static_cast<int>(cudaGetLastError());
+           float local_pdf_k, int bulk, cudaStream_t stream) {
+    if (fn == nullptr || n <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (bulk && (n % 4 != 0 ||
+                 reinterpret_cast<unsigned long long>(planes_in) % 16 != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return fn(planes_in, consts4, planes_out, n, max_bounces,
+              max_diffuse_bounces, spec_rough_threshold, local_pdf_k, bulk,
+              stream);
+}
+
+template <int ND>
+int smem_nl(int nl) {
+    switch (nl) {
+        case 0: return Shape<ND, 0>::smem_bytes;
+        case 1: return Shape<ND, 1>::smem_bytes;
+        case 2: return Shape<ND, 2>::smem_bytes;
+    }
+    return -1;
 }
 
 }  // namespace
+
+// dynamic shared memory of a block at NEE nee_distant + nee_local
+RTXPT_API int rtxpt_shade_smem_bytes(int nee_distant, int nee_local) {
+    switch (nee_distant) {
+        case 0: return smem_nl<0>(nee_local);
+        case 1: return smem_nl<1>(nee_local);
+        case 2: return smem_nl<2>(nee_local);
+    }
+    return -1;
+}
 
 RTXPT_API int rtxpt_shade_nee(const float* planes_in, const float* consts4,
                               float* planes_out, int n, int nee_distant,
                               int nee_local, int rr, int max_bounces,
                               int max_diffuse_bounces,
                               float spec_rough_threshold, float local_pdf_k,
-                              cudaStream_t stream) {
+                              int bulk, cudaStream_t stream) {
     return launch(pick<false>(nee_distant, nee_local, rr != 0), planes_in,
                   consts4, planes_out, n, max_bounces, max_diffuse_bounces,
-                  spec_rough_threshold, local_pdf_k, stream);
+                  spec_rough_threshold, local_pdf_k, bulk, stream);
 }
 
 RTXPT_API int rtxpt_shade_nee_fill(const float* planes_in,
@@ -1041,8 +1284,9 @@ RTXPT_API int rtxpt_shade_nee_fill(const float* planes_in,
                                    int rr, int max_bounces,
                                    int max_diffuse_bounces,
                                    float spec_rough_threshold,
-                                   float local_pdf_k, cudaStream_t stream) {
+                                   float local_pdf_k, int bulk,
+                                   cudaStream_t stream) {
     return launch(pick<true>(nee_distant, nee_local, rr != 0), planes_in,
                   consts4, planes_out, n, max_bounces, max_diffuse_bounces,
-                  spec_rough_threshold, local_pdf_k, stream);
+                  spec_rough_threshold, local_pdf_k, bulk, stream);
 }

@@ -48,8 +48,9 @@ SIGNATURES = {
     "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_fused_variant": (P, P, I, P, P, P, P, P, P, I, I, I, P),
     "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
-    "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
-    "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),
+    "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, I, P),
+    "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, I, P),
+    "rtxpt_shade_smem_bytes": (I, I),
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,
                              P),
@@ -123,8 +124,8 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
-def source_hash(sources=SOURCES, csrc: Path = CSRC) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def source_hash(sources=SOURCES, csrc: Path = CSRC, flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for name in HEADERS + tuple(sources):
         h.update(name.encode())
         h.update((csrc / name).read_bytes())
@@ -132,12 +133,14 @@ def source_hash(sources=SOURCES, csrc: Path = CSRC) -> str:
 
 
 def build(verbose: bool = False, stem: str = "rtxpt_kernels",
-          sources=SOURCES, csrc: Path = CSRC) -> Path:
+          sources=SOURCES, csrc: Path = CSRC, flags=()) -> Path:
     """Compile `sources` from `csrc` (default: this package's csrc/; one
-    nvcc process per file, in parallel) and link them into one .so;
-    returns its path. Reuses a library already built from the same
-    sources and flags."""
-    so = BUILD_DIR / f"lib{stem}_{source_hash(sources, csrc)}.so"
+    nvcc process per file, in parallel) with NVCC_FLAGS and `flags` (e.g.
+    a -D for a lab's variant) and link them into one .so; returns its
+    path. Reuses a library already built from the same sources and
+    flags."""
+    so = BUILD_DIR / f"lib{stem}_{source_hash(sources, csrc, flags)}.so"
+    flags = NVCC_FLAGS + tuple(flags)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -146,7 +149,7 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
         objs, procs = [], []
         for src in sources:
             obj = Path(tmp) / (src + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(csrc / src), "-o", str(obj)]
+            cmd = [nvcc, *flags, "-c", str(csrc / src), "-o", str(obj)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs.append((src, subprocess.Popen(
@@ -160,7 +163,7 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
                 print(f"[nvcc {src}]\n{out}", flush=True)
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp_so)],
+            [nvcc, *flags, "-shared", *objs, "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n"
@@ -169,14 +172,15 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
     return so
 
 
-def ptxas_report(source: str) -> str:
-    """nvcc's ``-Xptxas=-v`` report on csrc/`source` compiled with the
-    library's flags: each kernel's registers, shared memory and spills."""
+def ptxas_report(source: str, csrc: Path = CSRC, flags=()) -> str:
+    """nvcc's ``-Xptxas=-v`` report on `csrc`/`source` compiled with the
+    library's flags and `flags`: each kernel's registers, static shared
+    memory and spills."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         p = subprocess.run(
-            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", str(CSRC / source),
-             "-o", str(Path(tmp) / (source + ".o"))],
+            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, *flags, "-c",
+             str(csrc / source), "-o", str(Path(tmp) / (source + ".o"))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     out = p.stdout.decode(errors="replace")
     if p.returncode != 0:
@@ -184,11 +188,12 @@ def ptxas_report(source: str) -> str:
     return out
 
 
-def load(stem: str, sources, signatures: dict,
-         csrc: Path = CSRC) -> ctypes.CDLL:
+def load(stem: str, sources, signatures: dict, csrc: Path = CSRC,
+         flags=()) -> ctypes.CDLL:
     """Build (on first use) and load library `stem` from `sources` in
-    `csrc`, with the C signatures of its entry points."""
-    handle = ctypes.CDLL(str(build(stem=stem, sources=sources, csrc=csrc)))
+    `csrc` with `flags`, with the C signatures of its entry points."""
+    handle = ctypes.CDLL(str(build(stem=stem, sources=sources, csrc=csrc,
+                                   flags=flags)))
     for name, args in signatures.items():
         fn = getattr(handle, name)
         fn.argtypes = list(args)

@@ -14,8 +14,10 @@ r of lane i sits at r*N + i (coalesced in the kernel). The RNG draws,
 light picks and row fetches stay outside, in the reference's order
 (pt/integrator.py `_kernel_shade_step`), so the pass is deterministic.
 
-K4 is ``csrc/shade_kernel.cu`` (one thread per lane);
-`shade_nee_plain` is the same arithmetic in PyTorch, built on the
+K4 is ``csrc/shade_kernel.cu`` (one thread per lane, blocks of `TILE`
+lanes that stage their input rows in shared memory before the arithmetic:
+`smem_bytes`, `copy_mode`); `shade_nee_plain` is the same arithmetic in
+PyTorch, built on the
 component-form BSDF of pt/bsdf.py. Its FILL variant (`shade_nee_fill`,
 the realtime mode's stable-planes FILL pass) exports the emission term,
 the pre-scatter throughput and each NEE sample's diffuse and specular
@@ -35,6 +37,7 @@ _LIGHT_TRIANGLE, _LIGHT_POINT, _LIGHT_DIRECTIONAL = 0, 1, 2
 _LIGHT_SPHERE, _LIGHT_SPOT = 3, 4
 _K_MAX_RAY_TRAVEL = 1e15
 MAX_NEE_SAMPLES = 2     # per kind; csrc/shade_kernel.cu instantiates 0..2
+TILE = 128              # lanes per block of csrc/shade_kernel.cu
 
 
 class Layout:
@@ -128,6 +131,28 @@ def out_layout(nee_distant: int, nee_local: int,
         else:
             L.add(f"nee_contrib{i}", 3)
     return L
+
+
+def smem_bytes(nee_distant: int, nee_local: int) -> int:
+    """Dynamic shared memory of a K4 block (csrc/shade_kernel.cu `Shape`):
+    the tile's input rows, then one 8-byte barrier per copy phase."""
+    return (in_layout(nee_distant, nee_local).rows * TILE * 4
+            + 8 * (1 + nee_distant + nee_local))
+
+
+def copy_mode(n: int, data_ptr: int) -> str:
+    """How K4 stages (C_IN, n) planes at address `data_ptr`: "bulk"
+    (cp.async.bulk, one 512-B row segment at a time) where every row
+    segment starts 16-byte aligned, else "4-byte" (cp.async per lane and
+    row)."""
+    return "bulk" if n % 4 == 0 and data_ptr % 16 == 0 else "4-byte"
+
+
+def check_offsets(rows: int, n: int):
+    """K4 computes row offsets r * n + lane in 32-bit ints."""
+    if rows * n >= 2 ** 31:
+        raise ValueError(f"shade kernel: {rows} rows x {n} lanes reach "
+                         "2^31 elements (32-bit row offsets)")
 
 
 def pack_inputs(L: Layout, n: int, values: dict) -> torch.Tensor:
@@ -486,16 +511,18 @@ def _launch(name: str, entry: str, planes_in, consts4, fill: bool, kw):
     n = planes_in.shape[1]
     cuda_lib.check(planes_in, "planes_in", torch.float32, (Lin.rows, n))
     cuda_lib.check(consts4, "consts4", torch.float32, (4,))
+    check_offsets(max(Lin.rows, Lout.rows), n)
     out = torch.empty((Lout.rows, n), dtype=torch.float32,
                       device=planes_in.device)
     if n:
+        bulk = copy_mode(n, planes_in.data_ptr()) == "bulk"
         cuda_lib.bump(name)
         cuda_lib.launch(entry, planes_in.data_ptr(), consts4.data_ptr(),
                         out.data_ptr(), n, nee_distant, nee_local,
                         int(kw["rr"]), int(kw["max_bounces"]),
                         int(kw["max_diffuse_bounces"]),
                         float(kw["spec_rough_threshold"]),
-                        float(kw["local_pdf_k"]))
+                        float(kw["local_pdf_k"]), int(bulk))
     return out
 
 

@@ -16,6 +16,7 @@ from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
 from rtxpt_tpu_torch.pt import shade_kernel as SK
 from rtxpt_tpu_torch.scene import envmap as EM
 from rtxpt_tpu_torch.scene import procedural
+from shade_planes import planes as shade_planes
 
 pytestmark = pytest.mark.cuda
 
@@ -325,6 +326,80 @@ def test_shade_kernel_matches_plain(dev):
         got = SK.shade_nee(planes, consts4, **kw)
         ref = SK.shade_nee_plain(planes, consts4, **kw)
         torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+SHADE_KW = dict(max_bounces=6, max_diffuse_bounces=4,
+                spec_rough_threshold=0.25, local_pdf_k=1.0)
+
+
+def _shade_case(dev, nd, nl, n, seed=0):
+    planes = shade_planes(nd, nl, seed=seed + 10 * nd + nl, min_rough=0.3,
+                          lanes=n).to(dev)
+    return planes, torch.tensor([2.0, 1.0, 1e-5, 0.002], device=dev)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 4099, 4096])
+@pytest.mark.parametrize("fill", [False, True])
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("nl", [0, 1, 2])
+@pytest.mark.parametrize("nd", [0, 1, 2])
+def test_shade_kernel_every_instance_matches_plain(dev, nd, nl, rr, fill,
+                                                   n):
+    """Every instantiation the wrapper can pick, at ragged widths (4,099 and
+    the narrower ones stage with 4-byte cp.async, 4,096 with
+    cp.async.bulk), against the plain version with chip_smoke.py
+    `check_shade`'s tolerances: lobe and flags equal on >= 99.99% of
+    lanes, the rest within rtol 2e-4 / atol 2e-5 on those lanes (FILL:
+    max |diff| < 1e-5)."""
+    planes, consts4 = _shade_case(dev, nd, nl, n)
+    kw = dict(SHADE_KW, nee_distant=nd, nee_local=nl, rr=rr)
+    kernel = SK.shade_nee_fill if fill else SK.shade_nee
+    cuda_lib.reset_launch_counts()
+    got = kernel(planes, consts4, **kw)
+    assert cuda_lib.launch_counts()[
+        "shade_nee_fill" if fill else "shade_nee"] == 1
+    ref = SK.shade_nee_plain(planes, consts4, fill=fill, **kw)
+    L = SK.out_layout(nd, nl, fill)
+    flags = [L.map[f][0] for f in ["lobe", "scatter_valid", "will_scatter",
+                                   "rr_kill", "non_delta_scatter"]
+             + [f"nee_need{i}" for i in range(nd + nl)]]
+    same = (got[flags] == ref[flags]).all(0)
+    assert same.float().mean() >= 0.9999
+    torch.testing.assert_close(got[:, same], ref[:, same], rtol=2e-4,
+                               atol=2e-5)
+    if fill:
+        assert (got[:, same] - ref[:, same]).abs().max() < 1e-5
+
+
+def test_shade_shared_memory_as_the_wrapper_computes(dev):
+    for nd in range(3):
+        for nl in range(3):
+            assert cuda_lib.lib().rtxpt_shade_smem_bytes(nd, nl) \
+                == SK.smem_bytes(nd, nl)
+
+
+@pytest.mark.parametrize("fill", [False, True])
+def test_shade_kernel_launches_bit_equal(dev, fill):
+    """Two launches on the same input give the same bits, and so do the
+    two copy paths: on an aligned input with N % 4 == 0 the wrapper takes
+    cp.async.bulk, and the 4-byte cp.async path, launched on the same
+    planes, must write every output bit alike."""
+    kw = dict(SHADE_KW, nee_distant=2, nee_local=2, rr=True)
+    kernel = SK.shade_nee_fill if fill else SK.shade_nee
+    for n in (4099, 4096):
+        planes, consts4 = _shade_case(dev, 2, 2, n, seed=5)
+        a, b = kernel(planes, consts4, **kw), kernel(planes, consts4, **kw)
+        assert torch.equal(a, b)
+    assert SK.copy_mode(n, planes.data_ptr()) == "bulk"
+    four = torch.empty_like(a)
+    cuda_lib.launch("rtxpt_shade_nee_fill" if fill else "rtxpt_shade_nee",
+                    planes.data_ptr(), consts4.data_ptr(), four.data_ptr(),
+                    n, 2, 2, 1, 6, 4, 0.25, 1.0, 0)
+    assert torch.equal(four, a)
+    with pytest.raises(RuntimeError):      # bulk copies need N % 4 == 0
+        cuda_lib.launch("rtxpt_shade_nee", planes.data_ptr(),
+                        consts4.data_ptr(), four.data_ptr(), n - 1, 2, 2, 1,
+                        6, 4, 0.25, 1.0, 1)
 
 
 def _realtime(device, w=32, h=24):

@@ -18,78 +18,10 @@ import torch
 from rtxpt_tpu.pt import shade_kernel as JSK
 from rtxpt_tpu_torch.ops import cuda_lib
 from rtxpt_tpu_torch.pt import shade_kernel as TSK
+from shade_planes import N, planes as _planes
 
-N = 700
 CU = os.path.join(os.path.dirname(__file__), "..", "rtxpt_tpu_torch", "csrc",
                   "shade_kernel.cu")
-
-
-def _unit(r, n):
-    v = r.normal(size=(n, 3))
-    return v / np.linalg.norm(v, axis=-1, keepdims=True)
-
-
-def _planes(nd, nl, seed, min_rough=0.2):
-    """Plausible per-lane inputs: orthonormal shading frames, BSDF data
-    over every lobe (diffuse, rough/delta metal, rough/delta glass, thin,
-    diffuse transmission), all local light kinds. Roughness is 0 (delta)
-    or at least `min_rough`."""
-    r = np.random.RandomState(seed)
-    n = _unit(r, N)
-    t = np.cross(n, _unit(r, N))
-    t /= np.linalg.norm(t, axis=-1, keepdims=True)
-    b = np.cross(n, t)
-    v = _unit(r, N)
-    v = np.where((np.sum(v * n, -1) < 0)[:, None] & (r.rand(N) < 0.9)[:, None],
-                 -v, v)
-    face_n = n + 0.1 * r.normal(size=(N, 3))
-    face_n /= np.linalg.norm(face_n, axis=-1, keepdims=True)
-    pick = lambda *opts: np.asarray(opts)[r.randint(0, len(opts), N)]
-    vals = dict(
-        pos=r.uniform(-3, 3, (N, 3)), n=n, t=t, b=b, face_n=face_n,
-        vertex_n=n, v=v,
-        emission=np.where(r.rand(N, 1) < 0.1, r.uniform(0, 20, (N, 3)), 0),
-        front_facing=r.rand(N) < 0.9, thin=r.rand(N) < 0.1,
-        shadow_fade=np.where(r.rand(N) < 0.2, r.uniform(0, 0.2, N), 0),
-        bd_diffuse=r.uniform(0, 1, (N, 3)),
-        bd_specular=r.uniform(0, 0.5, (N, 3)),
-        bd_rough=np.where(r.rand(N) < 0.3, 0.0, r.uniform(min_rough, 1, N)),
-        bd_metallic=np.where(r.rand(N) < 0.5, pick(0.0, 1.0), r.rand(N)),
-        bd_eta=pick(1.0, 1 / 1.5, 1.5, 1.33),
-        bd_trans=r.uniform(0.5, 1, (N, 3)),
-        bd_dtrans=np.where(r.rand(N) < 0.2, r.rand(N), 0),
-        bd_strans=np.where(r.rand(N) < 0.3, pick(1.0, 0.5), 0),
-        thp=r.uniform(0.05, 1.2, (N, 3)), radiance=r.uniform(0, 1, (N, 3)),
-        origin=r.uniform(-3, 3, (N, 3)), direction=-v,
-        firefly_k=r.uniform(1e-3, 1, N), emissive_mis=r.rand(N),
-        env_mis=r.rand(N), cone_spread=r.uniform(0, 0.1, N),
-        diffuse_bounces=r.randint(0, 6, N), vertex_index=r.randint(1, 8, N),
-        shade=r.rand(N) < 0.85, nee_skip=np.zeros(N), u_rr=r.rand(N),
-        u3=r.rand(N, 3))
-    for i in range(nd):
-        vals.update({f"ls_dir{i}": _unit(r, N),
-                     f"ls_dist{i}": np.full(N, 1e15),
-                     f"ls_li{i}": r.uniform(0, 5, (N, 3)),
-                     f"ls_pdf{i}": np.where(r.rand(N) < 0.1, 0,
-                                            r.uniform(0.01, 10, N)),
-                     f"ls_valid{i}": r.rand(N) < 0.9})
-    for j in range(nl):
-        e1, e2 = r.uniform(-1, 1, (N, 3)), r.uniform(-1, 1, (N, 3))
-        area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
-        vals.update({
-            f"lrow_p0{j}": r.uniform(-3, 3, (N, 3)), f"lrow_e1{j}": e1,
-            f"lrow_e2{j}": e2, f"lrow_pos{j}": r.uniform(-3, 3, (N, 3)),
-            f"lrow_radius{j}": r.uniform(0.05, 0.5, N),
-            f"lrow_rad{j}": r.uniform(0, 20, (N, 3)),
-            f"lrow_inv_area{j}": 1.0 / np.maximum(area, 1e-3),
-            f"lrow_kind{j}": pick(0, 0, 0, 1, 2, 3, 4),
-            f"lrow_axis{j}": _unit(r, N),
-            f"lrow_cos_cone{j}": r.uniform(0.3, 0.9, N),
-            f"lrow_soft{j}": pick(0.0, 0.3),
-            f"pick_pdf{j}": r.uniform(0.1, 1, N), f"u3l{j}": r.rand(N, 3)})
-    L = TSK.in_layout(nd, nl)
-    return TSK.pack_inputs(L, N, {k: torch.as_tensor(np.asarray(v))
-                                  for k, v in vals.items()})
 
 
 @pytest.mark.parametrize("nd,nl,rr,firefly", [
@@ -155,6 +87,32 @@ def test_fill_plain_matches_reference_kernel(nd, nl):
     skipped = planes[skip_row].numpy() != 0
     for i in range(nd + nl):
         assert not got[L.map[f"nee_need{i}"][0], skipped].any()
+    d0 = L.map["direction"][0]
+    rest = np.r_[0:d0, d0 + 3:L.rows]
+    np.testing.assert_allclose(got[rest], ref[rest], rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got[d0:d0 + 3], ref[d0:d0 + 3], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("fill", [False, True])
+@pytest.mark.parametrize("n", [129, 1029])
+def test_plain_matches_reference_kernel_ragged_widths(n, fill):
+    """Widths that are multiples neither of the port kernel's 128-lane tile
+    nor of the reference's 1024-lane tile (which pads them), at NEE 2+2,
+    both variants; tolerances as the main test's."""
+    planes = _planes(2, 2, seed=n + fill, min_rough=0.3, lanes=n)
+    consts4 = np.array([2.0, 1.0, 1e-5, 0.002], np.float32)
+    kw = dict(nee_distant=2, nee_local=2, rr=True, max_bounces=6,
+              max_diffuse_bounces=4, spec_rough_threshold=0.25,
+              local_pdf_k=1.0)
+    ref = np.asarray(JSK.shade_nee_pallas(
+        jnp.asarray(planes.numpy()), jnp.asarray(consts4), fill=fill,
+        interpret=True, **kw))
+    kernel = TSK.shade_nee_fill if fill else TSK.shade_nee
+    got = kernel(planes, torch.as_tensor(consts4), **kw).numpy()
+    L = TSK.out_layout(2, 2, fill)
+    assert got.shape == ref.shape == (L.rows, n)
+    assert np.isfinite(got).all()
     d0 = L.map["direction"][0]
     rest = np.r_[0:d0, d0 + 3:L.rows]
     np.testing.assert_allclose(got[rest], ref[rest], rtol=2e-4, atol=2e-5)
@@ -253,3 +211,38 @@ def test_cpu_planes_take_plain_version_without_launch():
                        local_pdf_k=1.0)
     counts = cuda_lib.launch_counts()
     assert counts["shade_nee"] == 0 and counts["shade_nee_fill"] == 0
+
+
+def test_kernel_tile_and_shared_memory():
+    """The wrapper's tile and shared-memory figures are the .cu file's: a
+    block stages its 128 lanes of every input row plus one 8-byte barrier
+    per copy phase, 70,184 B at NEE 2+2, so three blocks fit on an SM
+    (227 KB)."""
+    c = {k: int(v) for k, v in re.findall(
+        r"constexpr int ([A-Z0-9_]+) = (\d+);", open(CU).read())}
+    assert c["TILE"] == TSK.TILE == 128
+    for nd in range(3):
+        for nl in range(3):
+            rows = c["IN_FIXED"] + c["DIST_ROWS"] * nd + c["LOCAL_ROWS"] * nl
+            assert TSK.smem_bytes(nd, nl) == rows * 128 * 4 + 8 * (
+                1 + nd + nl)
+    assert TSK.smem_bytes(2, 2) == 70_184
+    assert 3 * TSK.smem_bytes(2, 2) <= 232_448 - 3 * 1024
+
+
+@pytest.mark.parametrize("n,ptr,mode", [
+    (4096, 0, "bulk"), (4096, 16, "bulk"), (4099, 0, "4-byte"),
+    (4096, 8, "4-byte"), (129, 256, "4-byte"), (1, 0, "4-byte")])
+def test_copy_mode_needs_aligned_row_segments(n, ptr, mode):
+    """cp.async.bulk needs each row segment (row r at r * n floats) to
+    start 16-byte aligned: n % 4 == 0 and an aligned plane pointer."""
+    assert TSK.copy_mode(n, ptr) == mode
+
+
+def test_row_offsets_checked_against_32_bits():
+    TSK.check_offsets(137, (2 ** 31 - 1) // 137)
+    with pytest.raises(ValueError):
+        TSK.check_offsets(137, 2 ** 31 // 137 + 1)
+    with pytest.raises(ValueError):
+        TSK.check_offsets(1, 2 ** 31)
+
