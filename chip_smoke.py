@@ -163,6 +163,9 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+# warp instructions the H100 SXM can issue: 132 SMs x 4 schedulers x one a
+# clock at 1.98 GHz (the clock of the 67 TFLOP/s peak)
+ISSUE_PER_S = 132 * 4 * 1.98e9
 # float operations of one unit of work (counted from the kernels' source)
 SLAB_OPS = 25                  # one ray-box slab test
 NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
@@ -801,9 +804,10 @@ def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
 
 
 def sass_ops(so) -> dict:
-    """{mangled kernel name: weighted float32 operations} of every kernel
-    in the shared library `so`, from `cuobjdump -sass` (SASS_OP_WEIGHTS).
-    A static count: K4's device functions are straight-line code with
+    """{mangled kernel name: (weighted float32 operations, instructions)}
+    of every kernel in the shared library `so`, from `cuobjdump -sass`
+    (SASS_OP_WEIGHTS; instructions: every one but NOP). A static count:
+    K4's device functions and its copy loops are straight-line code with
     selects, so each instruction runs once per lane; the rarely taken slow
     paths of IEEE division, square root and sin/cos range reduction are
     counted once each, so the count is a little above the common path's."""
@@ -821,14 +825,15 @@ def sass_ops(so) -> dict:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            ops[name] = 0
+            ops[name] = [0, 0]
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?"
                      r"([A-Z][A-Z0-9]*)", line)
-        if m and name:
-            ops[name] += SASS_OP_WEIGHTS.get(m.group(1), 0)
+        if m and name and m.group(1) != "NOP":
+            ops[name][0] += SASS_OP_WEIGHTS.get(m.group(1), 0)
+            ops[name][1] += 1
     require(ops, f"cuobjdump found no kernel in {so}")
-    return ops
+    return {name: tuple(v) for name, v in ops.items()}
 
 
 def ptxas_kernels(report: str) -> list:
@@ -858,10 +863,11 @@ SHADE_NAME = re.compile(r"shade_nee_kernelILi(\d)ELi(\d)ELb([01])ELb([01])E")
 
 def shade_instances(report: str, so, smem_bytes) -> dict:
     """{(nee_distant, nee_local, rr, fill): registers, shared (static +
-    dynamic) bytes, spilled bytes, SASS operations per lane} of every K4
-    instantiation, from ptxas's report on csrc/shade_kernel.cu, the SASS
-    of the library `so` and `smem_bytes(nee_distant, nee_local)`, the
-    dynamic shared memory of a block."""
+    dynamic) bytes, spilled bytes, SASS operations and instructions per
+    lane} of every K4 instantiation, from ptxas's report on
+    csrc/shade_kernel.cu, the SASS of the library `so` and
+    `smem_bytes(nee_distant, nee_local)`, a block's dynamic shared
+    memory."""
     out = {}
     for name, regs, smem, spill in ptxas_kernels(report):
         m = SHADE_NAME.search(name)
@@ -870,12 +876,12 @@ def shade_instances(report: str, so, smem_bytes) -> dict:
             out[(nd, nl, m.group(3) == "1", m.group(4) == "1")] = dict(
                 registers=regs, shared=smem + smem_bytes(nd, nl),
                 spill=spill)
-    for name, ops in sass_ops(so).items():
+    for name, (ops, instructions) in sass_ops(so).items():
         m = SHADE_NAME.search(name)
         if m:
             key = (int(m.group(1)), int(m.group(2)), m.group(3) == "1",
                    m.group(4) == "1")
-            out[key]["ops"] = ops
+            out[key].update(ops=ops, instructions=instructions)
     require(len(out) == 36 and all("ops" in v for v in out.values()),
             "ptxas and cuobjdump do not report all 36 K4 instantiations")
     return out
@@ -914,18 +920,25 @@ def check_shade(args, kw, label="bench", fill=False) -> dict:
     pms = time_ms(lambda: SK.shade_nee_plain(*args, fill=fill, **kw), 5)
     planes, n = args[0], args[0].shape[1]
     b_ms, b_by = bound((planes.shape[0] + L.rows) * n * 4, n * inst["ops"])
+    issue = issue_ms(n, inst["instructions"])
     print(f"{what}: {inst['registers']} registers, {inst['shared']} B "
-          f"shared, {inst['spill']} B spilled, "
-          f"{SK.copy_mode(n, planes.data_ptr())} copies; kernel {ms:.4f} "
-          f"ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms ("
+          f"shared, {inst['spill']} B spilled; kernel {ms:.4f} ms, plain "
+          f"{pms:.4f} ms, bound {b_ms:.4f} ms ("
           f"{'operations (SASS count)' if b_by == 'operations' else b_by}; "
           f"{planes.shape[0]} + {L.rows} rows, {inst['ops']} operations a "
-          f"lane)", flush=True)
+          f"lane); issue {issue:.4f} ms ({inst['instructions']} SASS "
+          "instructions a lane)", flush=True)
     require(inst["spill"] == 0, f"{what}: the kernel spills")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, registers=inst["registers"],
                 shared_bytes=inst["shared"], spill_bytes=inst["spill"],
-                ops_per_lane=inst["ops"])
+                ops_per_lane=inst["ops"], issue_ms=issue)
+
+
+def issue_ms(lanes: int, instructions: int) -> float:
+    """Least ms in which the card can issue `instructions` warp
+    instructions for each warp of `lanes` lanes (ISSUE_PER_S)."""
+    return -(-lanes // 32) * instructions / ISSUE_PER_S * 1e3
 
 
 def render(w, h, spp, device, cfg=None, env_height=64):

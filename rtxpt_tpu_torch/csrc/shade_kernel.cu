@@ -10,34 +10,33 @@
 // the same float32 operations in the same order (built without fast math
 // and without FMA contraction).
 //
-// Bound on the H100: bytes. A lane reads C_IN float rows and writes C_OUT
-// (101 + 43 at NEE 1+1; 137 + 59 at 2+2, 137 + 77 in the FILL variant:
-// 0.6-0.86 KB a lane). Its arithmetic, counted from the built kernel's
-// SASS (chip_smoke.py: float32 instructions, an FFMA as two, MUFU and
-// conversions as eight), needs less time than those bytes at every NEE
-// count the main paths run. The kernel is one long straight-line program
-// of 150-170 registers, so only 3 blocks of 128 threads fit on an SM:
-// loads issued where the arithmetic first uses them left each warp a few
-// rows in flight, far too few to keep HBM busy.
+// Bound on the H100: by the bytes-or-operations bound, bytes. A lane reads
+// C_IN float rows and writes C_OUT (101 + 43 at NEE 1+1; 137 + 59 at 2+2,
+// 137 + 77 in the FILL variant: 0.6-0.86 KB a lane), while its arithmetic,
+// counted from the built kernel's SASS (chip_smoke.py `sass_ops`: float32
+// instructions, an FFMA as two, MUFU and conversions as eight), is 5.6k
+// operations a lane at NEE 1+1 and 8.0k at 2+2, about half the bytes'
+// time. What holds it in practice is neither: it is one long
+// straight-line program (IEEE division, square root and sin/cos kept bit
+// for bit under --fmad=false) of 128 registers at NEE 1+1 and 140 at 2+2,
+// so 3-4 blocks of 128 threads share an SM and their dependent
+// instructions issue at a fraction of the SM's rate.
 //
-// Design: a block takes a tile of TILE = 128 lanes and first copies the
-// tile's slice of every input row into shared memory (C_IN x 512 B,
-// 70,144 B at NEE 2+2), issuing all of it before any arithmetic, so a
-// whole tile's input is in flight at once. The copies go in phases, the
-// fixed rows and then each NEE sample's rows, each phase waited for just
-// before its first use, so the shade / BSDF part runs while the NEE rows
-// still arrive. Two copy paths: where every row segment starts 16-byte
-// aligned (N % 4 == 0 and an aligned plane pointer) warp 0 issues one
-// cp.async.bulk per row (512 B) and each phase completes an mbarrier;
-// otherwise every thread issues a 4-byte cp.async per row for its own
-// lane and each phase is one commit group (no barrier: a thread reads
-// only what it copied). The arithmetic then reads its inputs from shared
-// memory where the plain order uses them; outputs are stored from
-// registers, each output row a warp-contiguous 512-B run per block. Row
-// offsets are 32-bit (the wrapper requires C x N < 2^31). The NEE sample
-// counts and Russian roulette are template parameters (NEE 0..2 each),
-// the bounce limits and thresholds are arguments; the RNG uniforms arrive
-// as input rows, so the kernel is deterministic and needs no generator.
+// Design: a block takes a tile of TILE = 128 lanes, one thread each, and
+// each thread first issues a 4-byte cp.async per input row for its lane
+// into its column of the tile in shared memory (C_IN x 512 B a block,
+// 70,144 B at NEE 2+2): the whole input is in flight before any
+// arithmetic, in phases (the fixed rows, then each NEE sample's rows), one
+// commit group each, so the shade / BSDF part runs while the NEE rows
+// still arrive. A thread reads only what it copied, so no barrier is
+// needed. The arithmetic reads its inputs from shared memory where the
+// plain order uses them; outputs are stored from registers, each output
+// row a warp-contiguous 512-B run per block. Row offsets are 32-bit (the
+// wrapper requires C x N < 2^31). __launch_bounds__(TILE, 3): 3 blocks is
+// what the 70 KB tile allows at NEE 2+2. The NEE sample counts and
+// Russian roulette are template parameters (NEE 0..2 each), the bounce
+// limits and thresholds are arguments; the RNG uniforms arrive as input
+// rows, so the kernel is deterministic and needs no generator.
 //
 // The FILL variant (template flag FILL, entry point rtxpt_shade_nee_fill)
 // is the reference kernel's `fill=True` body for the realtime mode's
@@ -238,49 +237,33 @@ constexpr int TILE = 128;        // lanes per block, one thread each
 #ifndef SHADE_MIN_BLOCKS
 #define SHADE_MIN_BLOCKS 3       // blocks an SM must fit (__launch_bounds__)
 #endif
-#ifndef SHADE_LOCAL_SLOTS
-#define SHADE_LOCAL_SLOTS 2      // local samples' rows staged at once
+#ifndef SHADE_COPY_ROLLED
+#define SHADE_COPY_ROLLED 0      // 1: the copy loops stay loops
+#endif
+#ifndef SHADE_LATE_NEE
+#define SHADE_LATE_NEE 0         // 1: NEE rows copied once the fixed rows landed
 #endif
 
 template <int ND, int NL>
 struct Shape {
-    static constexpr int local_base = IN_FIXED + DIST_ROWS * ND;
-    static constexpr int in_rows = local_base + LOCAL_ROWS * NL;
-    // local samples staged at once; below NL they take turns in a ring
-    static constexpr int slots = NL < SHADE_LOCAL_SLOTS ? NL
-                                                         : SHADE_LOCAL_SLOTS;
-    static constexpr bool ring = slots < NL;
-    static constexpr int staged_rows = local_base + LOCAL_ROWS * slots;
+    static constexpr int in_rows = IN_FIXED + DIST_ROWS * ND + LOCAL_ROWS * NL;
     // copy phases: the fixed rows, then each distant and each local sample
     static constexpr int phases = 1 + ND + NL;
-    // the staged tile, then one 8-byte mbarrier per phase
-    static constexpr int smem_bytes = staged_rows * TILE * 4 + 8 * phases;
-    __host__ __device__ static constexpr int phase_rows(int k) {
+    static constexpr int smem_bytes = in_rows * TILE * 4;
+    __device__ static constexpr int phase_rows(int k) {
         return k == 0 ? IN_FIXED : (k <= ND ? DIST_ROWS : LOCAL_ROWS);
     }
-    __device__ static int phase_of(int r) {
-        return r < IN_FIXED ? 0
-               : (r < local_base ? 1 + (r - IN_FIXED) / DIST_ROWS
-                                 : 1 + ND + (r - local_base) / LOCAL_ROWS);
-    }
-    // the staged row that holds input row r
-    __host__ __device__ static constexpr int srow(int r) {
-        return r < local_base
-                   ? r
-                   : local_base +
-                         ((r - local_base) / LOCAL_ROWS) %
-                             (slots > 0 ? slots : 1) * LOCAL_ROWS +
-                         (r - local_base) % LOCAL_ROWS;
+    __device__ static constexpr int phase_start(int k) {
+        return k == 0 ? 0
+                      : (k <= ND ? IN_FIXED + DIST_ROWS * (k - 1)
+                                 : IN_FIXED + DIST_ROWS * ND +
+                                       LOCAL_ROWS * (k - 1 - ND));
     }
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                     smem_addr(dst)),
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(src)
                  : "memory");
 }
@@ -301,124 +284,43 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     }
 }
 
-__device__ __forceinline__ void mbar_init(unsigned bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(bar), "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar) {
-    asm volatile(
-        "{\n\t.reg .pred P1;\n"
-        "LAB_WAIT:\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], 0;\n\t"
-        "@P1 bra LAB_DONE;\n\t"
-        "bra LAB_WAIT;\n"
-        "LAB_DONE:\n\t}\n" ::"r"(bar)
-        : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          unsigned bytes, unsigned bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(bar)
-        : "memory");
-}
-
-// The copy of one tile's input rows into shared memory, in phases.
+// Copies lane `src`'s input rows of phases k0 .. k1-1 into its column
+// `col` of the staged tile, one commit group per phase. A thread reads
+// only what it copied, so no barrier is needed.
 template <int ND, int NL>
-struct Stage {
-    using S = Shape<ND, NL>;
-    bool bulk;
-    unsigned bars;               // shared address of the phases' mbarriers
-    float* col;                  // this thread's column of the staged tile
-    const float* src;            // its lane of the input planes
-    int n;
-
-    // Starts every copy that has a place; called by all threads of the
-    // block. Bulk (never with a ring): warp 0 issues one cp.async.bulk per
-    // row segment (n % 4 == 0 and an aligned `in`, so each segment's start
-    // and length are multiples of 16 B). Otherwise each thread of a lane
-    // below n issues a 4-byte cp.async per row into its own column, one
-    // commit group per phase.
-    __device__ __forceinline__ Stage(float* tile, const float* in, int n_,
-                                     int tile0, bool bulk_)
-        : bulk(bulk_ && !S::ring),
-          bars(smem_addr(tile + S::staged_rows * TILE)),
-          col(tile + threadIdx.x),
-          src(in + (tile0 + static_cast<int>(threadIdx.x))),
-          n(n_) {
-        const int t = threadIdx.x;
-        if (bulk) {
-            if (t == 0) {
-                for (int k = 0; k < S::phases; ++k) mbar_init(bars + 8 * k);
-                asm volatile("fence.mbarrier_init.release.cluster;\n" :::
-                                 "memory");
-            }
-            __syncthreads();
-            if (t < 32) {
-                const int lanes = min(TILE, n - tile0);
-                const unsigned seg = static_cast<unsigned>(lanes) * 4u;
-                if (t == 0) {
-                    for (int k = 0; k < S::phases; ++k)
-                        mbar_expect_tx(bars + 8 * k, S::phase_rows(k) * seg);
-                }
-                __syncwarp();
-                for (int r = t; r < S::in_rows; r += 32)
-                    bulk_copy(tile + r * TILE, in + (r * n + tile0), seg,
-                              bars + 8 * S::phase_of(r));
-            }
-        } else if (tile0 + t < n) {
-            int r = 0;
-            for (int k = 0; k < 1 + ND + S::slots; ++k) {
-                const int end = r + S::phase_rows(k);
-                for (; r < end; ++r) cp_async4(col + r * TILE, src + r * n);
-                cp_async_commit();
-            }
-        }
-    }
-
-    // Ring only: copy local sample j's rows into its slot, which sample
-    // j - slots has left (its rows were read into registers before this
-    // call, and the asm's memory clobber keeps those reads before it).
-    __device__ __forceinline__ void refill(int j) const {
-        const int r0 = S::local_base + LOCAL_ROWS * j;
-        for (int r = r0; r < r0 + LOCAL_ROWS; ++r)
-            cp_async4(col + S::srow(r) * TILE, src + r * n);
+__device__ __forceinline__ void stage_rows(float* col, const float* src,
+                                           int n, int k0, int k1) {
+#if SHADE_COPY_ROLLED
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
+    for (int k = k0; k < k1; ++k) {
+        const int r0 = Shape<ND, NL>::phase_start(k);
+        const int r1 = r0 + Shape<ND, NL>::phase_rows(k);
+#if SHADE_COPY_ROLLED
+#pragma unroll 1
+#else
+#pragma unroll
+#endif
+        for (int r = r0; r < r1; ++r) cp_async4(col + r * TILE, src + r * n);
         cp_async_commit();
     }
+}
 
-    // Block until phase k's rows are in shared memory. With a ring, the
-    // commit group of local sample j >= slots is the last one committed
-    // when it is waited for.
-    __device__ __forceinline__ void wait(int k) const {
-        if (bulk) {
-            mbar_wait(bars + 8 * k);
-        } else {
-            const int committed = k + 1 > 1 + ND + S::slots ? k + 1
-                                                            : 1 + ND + S::slots;
-            cp_async_wait(committed - 1 - k);
-        }
-    }
-};
+// Blocks until phase k's rows are in shared memory, `committed` phases
+// having been committed.
+__device__ __forceinline__ void wait_phase(int k, int committed) {
+    cp_async_wait(committed - 1 - k);
+}
 
 // One lane's view: inputs from its column of the staged tile, outputs to
 // its column of the (C_OUT, N) planes (32-bit row offsets).
-template <int ND, int NL>
 struct Planes {
     const float* s;
     float* o;
     int n;
-    __device__ __forceinline__ float g(int r) const {
-        return s[Shape<ND, NL>::srow(r) * TILE];
-    }
+    __device__ __forceinline__ float g(int r) const { return s[r * TILE]; }
     __device__ __forceinline__ V3 g3(int r) const {
         return mk(g(r), g(r + 1), g(r + 2));
     }
@@ -893,8 +795,7 @@ struct LightSample {
     bool valid, delta;
 };
 
-template <class PL>
-__device__ __forceinline__ LightSample local_light_sample(const PL& P,
+__device__ __forceinline__ LightSample local_light_sample(const Planes& P,
                                                           int base, V3 pos) {
     float kind_f = P.g(base + LOC_KIND);
     V3 p0 = P.g3(base + LOC_P0), e1 = P.g3(base + LOC_E1);
@@ -983,14 +884,17 @@ __global__ void __launch_bounds__(TILE, SHADE_MIN_BLOCKS)
 shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
                  float* __restrict__ out, int n, int max_bounces,
                  int max_diffuse_bounces, float spec_rough_threshold,
-                 float local_pdf_k, int bulk) {
-    extern __shared__ __align__(16) float tile[];
-    const int tile0 = blockIdx.x * TILE;
-    const int lane = tile0 + threadIdx.x;
-    const Stage<ND, NL> st(tile, in, n, tile0, bulk != 0);
+                 float local_pdf_k) {
+    extern __shared__ float tile[];
+    const int lane = blockIdx.x * TILE + threadIdx.x;
     if (lane >= n) return;
-    const Planes<ND, NL> P{tile + threadIdx.x, out + lane, n};
-    st.wait(0);                        // the fixed rows
+    constexpr int phases = Shape<ND, NL>::phases;
+    constexpr int early = SHADE_LATE_NEE ? 1 : phases;
+    stage_rows<ND, NL>(tile + threadIdx.x, in + lane, n, 0, early);
+    const Planes P{tile + threadIdx.x, out + lane, n};
+    wait_phase(0, early);              // the fixed rows
+    if (early < phases)
+        stage_rows<ND, NL>(tile + threadIdx.x, in + lane, n, early, phases);
     const float firefly_threshold = c4[0];
     const float atten = c4[1];
     const float nee_min_rad = c4[2];
@@ -1136,7 +1040,7 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
 
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-        st.wait(1 + i);
+        wait_phase(1 + i, phases);
         const int base = IN_FIXED + DIST_ROWS * i;
         const float ls_pdf = P.g(base + DIST_PDF);
         nee_one(P.g3(base + DIST_DIR), P.g(base + DIST_DIST),
@@ -1146,11 +1050,9 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     }
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
-        st.wait(1 + ND + j);
+        wait_phase(1 + ND + j, phases);
         const int base = IN_FIXED + DIST_ROWS * ND + LOCAL_ROWS * j;
         const LightSample ls = local_light_sample(P, base, pos);
-        if (Shape<ND, NL>::ring && j + Shape<ND, NL>::slots < NL)
-            st.refill(j + Shape<ND, NL>::slots);
         nee_one(ls.dir, ls.dist, ls.li, local_pdf_k, ls.pdf, ls.valid,
                 1.0f / (float)NL, ND + j, true, ls.delta);
     }
@@ -1183,14 +1085,14 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
 }
 
 using LaunchFn = int (*)(const float*, const float*, float*, int, int, int,
-                         float, float, int, cudaStream_t);
+                         float, float, cudaStream_t);
 
 // one instantiation: allow its dynamic shared memory (once), then launch
 template <int ND, int NL, bool RR, bool FILL>
 int launch_one(const float* planes_in, const float* consts4,
                float* planes_out, int n, int max_bounces,
                int max_diffuse_bounces, float spec_rough_threshold,
-               float local_pdf_k, int bulk, cudaStream_t stream) {
+               float local_pdf_k, cudaStream_t stream) {
     constexpr int smem = Shape<ND, NL>::smem_bytes;
     static const cudaError_t allowed = cudaFuncSetAttribute(
         shade_nee_kernel<ND, NL, RR, FILL>,
@@ -1199,7 +1101,7 @@ int launch_one(const float* planes_in, const float* consts4,
     const unsigned blocks = static_cast<unsigned>((n + TILE - 1) / TILE);
     shade_nee_kernel<ND, NL, RR, FILL><<<blocks, TILE, smem, stream>>>(
         planes_in, consts4, planes_out, n, max_bounces, max_diffuse_bounces,
-        spec_rough_threshold, local_pdf_k, bulk);
+        spec_rough_threshold, local_pdf_k);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1229,20 +1131,14 @@ LaunchFn pick(int nd, int nl, bool rr) {
     return nullptr;
 }
 
-// bulk: copy the input rows with cp.async.bulk, which needs every row
-// segment 16-byte aligned (n % 4 == 0 and a 16-byte aligned planes_in)
 int launch(LaunchFn fn, const float* planes_in, const float* consts4,
            float* planes_out, int n, int max_bounces,
            int max_diffuse_bounces, float spec_rough_threshold,
-           float local_pdf_k, int bulk, cudaStream_t stream) {
+           float local_pdf_k, cudaStream_t stream) {
     if (fn == nullptr || n <= 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (bulk && (n % 4 != 0 ||
-                 reinterpret_cast<unsigned long long>(planes_in) % 16 != 0))
-        return static_cast<int>(cudaErrorInvalidValue);
     return fn(planes_in, consts4, planes_out, n, max_bounces,
-              max_diffuse_bounces, spec_rough_threshold, local_pdf_k, bulk,
-              stream);
+              max_diffuse_bounces, spec_rough_threshold, local_pdf_k, stream);
 }
 
 template <int ND>
@@ -1272,10 +1168,10 @@ RTXPT_API int rtxpt_shade_nee(const float* planes_in, const float* consts4,
                               int nee_local, int rr, int max_bounces,
                               int max_diffuse_bounces,
                               float spec_rough_threshold, float local_pdf_k,
-                              int bulk, cudaStream_t stream) {
+                              cudaStream_t stream) {
     return launch(pick<false>(nee_distant, nee_local, rr != 0), planes_in,
                   consts4, planes_out, n, max_bounces, max_diffuse_bounces,
-                  spec_rough_threshold, local_pdf_k, bulk, stream);
+                  spec_rough_threshold, local_pdf_k, stream);
 }
 
 RTXPT_API int rtxpt_shade_nee_fill(const float* planes_in,
@@ -1284,9 +1180,8 @@ RTXPT_API int rtxpt_shade_nee_fill(const float* planes_in,
                                    int rr, int max_bounces,
                                    int max_diffuse_bounces,
                                    float spec_rough_threshold,
-                                   float local_pdf_k, int bulk,
-                                   cudaStream_t stream) {
+                                   float local_pdf_k, cudaStream_t stream) {
     return launch(pick<true>(nee_distant, nee_local, rr != 0), planes_in,
                   consts4, planes_out, n, max_bounces, max_diffuse_bounces,
-                  spec_rough_threshold, local_pdf_k, bulk, stream);
+                  spec_rough_threshold, local_pdf_k, stream);
 }

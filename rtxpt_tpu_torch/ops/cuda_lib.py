@@ -48,8 +48,8 @@ SIGNATURES = {
     "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_fused_variant": (P, P, I, P, P, P, P, P, P, I, I, I, P),
     "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
-    "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, I, P),
-    "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, I, P),
+    "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
+    "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_shade_smem_bytes": (I, I),
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,

@@ -16,8 +16,8 @@ light picks and row fetches stay outside, in the reference's order
 
 K4 is ``csrc/shade_kernel.cu`` (one thread per lane, blocks of `TILE`
 lanes that stage their input rows in shared memory before the arithmetic:
-`smem_bytes`, `copy_mode`); `shade_nee_plain` is the same arithmetic in
-PyTorch, built on the
+`smem_bytes`); `shade_nee_plain` is the same arithmetic in PyTorch, built
+on the
 component-form BSDF of pt/bsdf.py. Its FILL variant (`shade_nee_fill`,
 the realtime mode's stable-planes FILL pass) exports the emission term,
 the pre-scatter throughput and each NEE sample's diffuse and specular
@@ -135,17 +135,8 @@ def out_layout(nee_distant: int, nee_local: int,
 
 def smem_bytes(nee_distant: int, nee_local: int) -> int:
     """Dynamic shared memory of a K4 block (csrc/shade_kernel.cu `Shape`):
-    the tile's input rows, then one 8-byte barrier per copy phase."""
-    return (in_layout(nee_distant, nee_local).rows * TILE * 4
-            + 8 * (1 + nee_distant + nee_local))
-
-
-def copy_mode(n: int, data_ptr: int) -> str:
-    """How K4 stages (C_IN, n) planes at address `data_ptr`: "bulk"
-    (cp.async.bulk, one 512-B row segment at a time) where every row
-    segment starts 16-byte aligned, else "4-byte" (cp.async per lane and
-    row)."""
-    return "bulk" if n % 4 == 0 and data_ptr % 16 == 0 else "4-byte"
+    the tile's slice of every input row."""
+    return in_layout(nee_distant, nee_local).rows * TILE * 4
 
 
 def check_offsets(rows: int, n: int):
@@ -515,14 +506,13 @@ def _launch(name: str, entry: str, planes_in, consts4, fill: bool, kw):
     out = torch.empty((Lout.rows, n), dtype=torch.float32,
                       device=planes_in.device)
     if n:
-        bulk = copy_mode(n, planes_in.data_ptr()) == "bulk"
         cuda_lib.bump(name)
         cuda_lib.launch(entry, planes_in.data_ptr(), consts4.data_ptr(),
                         out.data_ptr(), n, nee_distant, nee_local,
                         int(kw["rr"]), int(kw["max_bounces"]),
                         int(kw["max_diffuse_bounces"]),
                         float(kw["spec_rough_threshold"]),
-                        float(kw["local_pdf_k"]), int(bulk))
+                        float(kw["local_pdf_k"]))
     return out
 
 

@@ -345,9 +345,9 @@ def _shade_case(dev, nd, nl, n, seed=0):
 @pytest.mark.parametrize("nd", [0, 1, 2])
 def test_shade_kernel_every_instance_matches_plain(dev, nd, nl, rr, fill,
                                                    n):
-    """Every instantiation the wrapper can pick, at ragged widths (4,099 and
-    the narrower ones stage with 4-byte cp.async, 4,096 with
-    cp.async.bulk), against the plain version with chip_smoke.py
+    """Every instantiation the wrapper can pick, at widths that end in a
+    ragged tile (all but 4,096) or fill their tiles, against the plain
+    version with chip_smoke.py
     `check_shade`'s tolerances: lobe and flags equal on >= 99.99% of
     lanes, the rest within rtol 2e-4 / atol 2e-5 on those lanes (FILL:
     max |diff| < 1e-5)."""
@@ -378,28 +378,15 @@ def test_shade_shared_memory_as_the_wrapper_computes(dev):
                 == SK.smem_bytes(nd, nl)
 
 
+@pytest.mark.parametrize("n", [4099, 4096])
 @pytest.mark.parametrize("fill", [False, True])
-def test_shade_kernel_launches_bit_equal(dev, fill):
-    """Two launches on the same input give the same bits, and so do the
-    two copy paths: on an aligned input with N % 4 == 0 the wrapper takes
-    cp.async.bulk, and the 4-byte cp.async path, launched on the same
-    planes, must write every output bit alike."""
+def test_shade_kernel_launches_bit_equal(dev, fill, n):
+    """Two launches on the same input give the same bits."""
     kw = dict(SHADE_KW, nee_distant=2, nee_local=2, rr=True)
     kernel = SK.shade_nee_fill if fill else SK.shade_nee
-    for n in (4099, 4096):
-        planes, consts4 = _shade_case(dev, 2, 2, n, seed=5)
-        a, b = kernel(planes, consts4, **kw), kernel(planes, consts4, **kw)
-        assert torch.equal(a, b)
-    assert SK.copy_mode(n, planes.data_ptr()) == "bulk"
-    four = torch.empty_like(a)
-    cuda_lib.launch("rtxpt_shade_nee_fill" if fill else "rtxpt_shade_nee",
-                    planes.data_ptr(), consts4.data_ptr(), four.data_ptr(),
-                    n, 2, 2, 1, 6, 4, 0.25, 1.0, 0)
-    assert torch.equal(four, a)
-    with pytest.raises(RuntimeError):      # bulk copies need N % 4 == 0
-        cuda_lib.launch("rtxpt_shade_nee", planes.data_ptr(),
-                        consts4.data_ptr(), four.data_ptr(), n - 1, 2, 2, 1,
-                        6, 4, 0.25, 1.0, 1)
+    planes, consts4 = _shade_case(dev, 2, 2, n, seed=5)
+    assert torch.equal(kernel(planes, consts4, **kw),
+                       kernel(planes, consts4, **kw))
 
 
 def _realtime(device, w=32, h=24):

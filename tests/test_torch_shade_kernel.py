@@ -215,28 +215,19 @@ def test_cpu_planes_take_plain_version_without_launch():
 
 def test_kernel_tile_and_shared_memory():
     """The wrapper's tile and shared-memory figures are the .cu file's: a
-    block stages its 128 lanes of every input row plus one 8-byte barrier
-    per copy phase, 70,184 B at NEE 2+2, so three blocks fit on an SM
-    (227 KB)."""
+    block stages its 128 lanes of every input row, 70,144 B at NEE 2+2,
+    so the three blocks its __launch_bounds__ asks for fit on an SM (228
+    KB, 1 KB of it reserved per block)."""
     c = {k: int(v) for k, v in re.findall(
         r"constexpr int ([A-Z0-9_]+) = (\d+);", open(CU).read())}
     assert c["TILE"] == TSK.TILE == 128
     for nd in range(3):
         for nl in range(3):
             rows = c["IN_FIXED"] + c["DIST_ROWS"] * nd + c["LOCAL_ROWS"] * nl
-            assert TSK.smem_bytes(nd, nl) == rows * 128 * 4 + 8 * (
-                1 + nd + nl)
-    assert TSK.smem_bytes(2, 2) == 70_184
-    assert 3 * TSK.smem_bytes(2, 2) <= 232_448 - 3 * 1024
-
-
-@pytest.mark.parametrize("n,ptr,mode", [
-    (4096, 0, "bulk"), (4096, 16, "bulk"), (4099, 0, "4-byte"),
-    (4096, 8, "4-byte"), (129, 256, "4-byte"), (1, 0, "4-byte")])
-def test_copy_mode_needs_aligned_row_segments(n, ptr, mode):
-    """cp.async.bulk needs each row segment (row r at r * n floats) to
-    start 16-byte aligned: n % 4 == 0 and an aligned plane pointer."""
-    assert TSK.copy_mode(n, ptr) == mode
+            assert TSK.smem_bytes(nd, nl) == rows * 128 * 4
+    assert TSK.smem_bytes(2, 2) == 70_144
+    assert 3 * (TSK.smem_bytes(2, 2) + 1024) <= 228 * 1024
+    assert "#define SHADE_MIN_BLOCKS 3" in open(CU).read()
 
 
 def test_row_offsets_checked_against_32_bits():

@@ -7,21 +7,20 @@ one process on one card.
     python -m tools_torch.profile_shade --parent DIR
 
 DIR is the root of the other checkout (its ``rtxpt_tpu_torch/csrc`` must
-hold a shade_kernel.cu whose C entry points take no copy-mode argument,
-as before the kernel staged its rows in shared memory). Without --parent
-only this tree's kernel and its variants are timed.
+hold a shade_kernel.cu with this tree's C entry points
+``rtxpt_shade_nee`` and ``rtxpt_shade_nee_fill``). Without --parent only
+this tree's kernel and its variants are timed.
 
 Cases: bench (programmer-art 800x600, bench config: NEE 1+1), bench NEE
 2+2 (the same frame under reference_config(), the goldens' config), city
 (1920x1080, bench config), realtime city (1920x1080) and realtime 360p
 (programmer-art 640x360; both K4 FILL at NEE 2+2 on the first FILL bounce
-of a default realtime frame). On each: this tree's kernel (the copy path
-its wrapper picks), the same kernel with the 4-byte cp.async path forced,
-each variant (`--variants`: this tree's source rebuilt with -D macros,
+of a default realtime frame). On each: this tree's kernel, each variant (`--variants`: this tree's source rebuilt with -D macros,
 e.g. SHADE_MIN_BLOCKS, the second argument of its __launch_bounds__) and
 the other checkout's kernel, every output row of each bit-equal to this
 tree's (torch.equal); the bound (chip_smoke.py: bytes, or the SASS
-operation count); and the device time of what surrounds the kernel on the
+operation count) and the issue time of all the SASS instructions
+(chip_smoke.py `issue_ms`); and the device time of what surrounds the kernel on the
 path: `pack_inputs` on the named inputs the integrator gave it, and the
 copies its consumers make of the unpacked (strided) output rows. Times
 are device times (chip_smoke.py `device_ms`: a CUDA graph of the launches
@@ -35,7 +34,6 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -46,13 +44,8 @@ import chip_smoke as CS
 from rtxpt_tpu_torch.ops import cuda_lib
 from rtxpt_tpu_torch.pt import shade_kernel as SK
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ENTRIES = ("rtxpt_shade_nee", "rtxpt_shade_nee_fill")
-SIGNATURES = {e: cuda_lib.SIGNATURES[e]
-              for e in ENTRIES + ("rtxpt_shade_smem_bytes",)}
-# the C entry points before the copy-mode argument
-PARENT_SIGNATURES = {e: (P, P, P, I, I, I, I, I, I, F, F, P)
-                     for e in ENTRIES}
+SIGNATURES = {e: cuda_lib.SIGNATURES[e] for e in ENTRIES}
 CASES = ("bench", "bench_nee22", "city", "realtime_city", "realtime_360p")
 
 
@@ -67,33 +60,34 @@ class Library:
     def build(self):
         stem = "rtxpt_shade_" + "".join(
             c if c.isalnum() else "_" for c in self.label)
-        sigs = PARENT_SIGNATURES if self.parent else SIGNATURES
+        sigs = dict(SIGNATURES) if self.parent else dict(
+            SIGNATURES, rtxpt_shade_smem_bytes=cuda_lib.SIGNATURES[
+                "rtxpt_shade_smem_bytes"])
         self.lib = cuda_lib.load(stem, ("shade_kernel.cu",), sigs,
                                  csrc=self.csrc, flags=self.flags)
         so = cuda_lib.build(stem=stem, sources=("shade_kernel.cu",),
                             csrc=self.csrc, flags=self.flags)
         report = cuda_lib.ptxas_report("shade_kernel.cu", csrc=self.csrc,
                                        flags=self.flags)
+        # the other checkout's kernel may stage nothing in dynamic shared
+        # memory and then has no rtxpt_shade_smem_bytes
         self.inst = CS.shade_instances(
             report, so, (lambda nd, nl: 0) if self.parent
             else self.lib.rtxpt_shade_smem_bytes)
         return self
 
-    def run(self, args, kw, fill, bulk=None):
+    def run(self, args, kw, fill):
         planes, consts4 = args
         n = planes.shape[1]
         rows = SK.out_layout(kw["nee_distant"], kw["nee_local"], fill).rows
         out = torch.empty((rows, n), dtype=torch.float32,
                           device=planes.device)
-        extra = () if self.parent else (int(
-            SK.copy_mode(n, planes.data_ptr()) == "bulk"
-            if bulk is None else bulk),)
         cuda_lib.launch(ENTRIES[fill], planes.data_ptr(), consts4.data_ptr(),
                         out.data_ptr(), n, kw["nee_distant"], kw["nee_local"],
                         int(kw["rr"]), int(kw["max_bounces"]),
                         int(kw["max_diffuse_bounces"]),
                         float(kw["spec_rough_threshold"]),
-                        float(kw["local_pdf_k"]), *extra, library=self.lib)
+                        float(kw["local_pdf_k"]), library=self.lib)
         return out
 
 
@@ -176,16 +170,12 @@ def run_case(case: str, this: Library, others: list) -> dict:
     Lout = SK.out_layout(key[0], key[1], fill)
     got = this.run(args, kw, fill)
     out = {"case": case, "lanes": n, "instance": list(key),
-           "copy_mode": SK.copy_mode(n, planes.data_ptr()),
            "rows": [planes.shape[0], Lout.rows]}
     inst = this.inst[key]
     b_ms, b_by = CS.bound((planes.shape[0] + Lout.rows) * n * 4,
                           n * inst["ops"])
     out["bound_ms"], out["bound_by"] = b_ms, b_by
     runs = {this.label: (this, lambda: this.run(args, kw, fill))}
-    if out["copy_mode"] == "bulk":
-        runs[this.label + ", 4-byte copies"] = (this, lambda: this.run(
-            args, kw, fill, bulk=False))
     for lib in others:
         runs[lib.label] = (lib, lambda lib=lib: lib.run(args, kw, fill))
     out["kernels"] = {}
@@ -195,19 +185,23 @@ def run_case(case: str, this: Library, others: list) -> dict:
                                                                 got[r])]
         CS.require(not differ, f"{case}: {label} differs from {this.label} "
                    f"on output rows {differ}")
-        out["kernels"][label] = dict(time=both(fn), **lib.inst[key])
+        out["kernels"][label] = dict(
+            time=both(fn), issue_ms=CS.issue_ms(n, lib.inst[key][
+                "instructions"]), **lib.inst[key])
     out["pack_inputs"] = both(lambda: SK.pack_inputs(L, n, values))
     unpacked = SK.unpack_out(Lout, got)
     out["consumer_copies"] = both(
         lambda: [v.contiguous() for v in unpacked.values()])
     print(f"{case}: K4{' FILL' if fill else ''} NEE {key[0]}+{key[1]}, "
-          f"{n} lanes, {out['copy_mode']} copies, {planes.shape[0]} + "
-          f"{Lout.rows} rows; bound {b_ms:.4f} ms ({b_by}); every output "
-          f"row bit-equal across {len(runs)} kernels", flush=True)
+          f"{n} lanes, {planes.shape[0]} + {Lout.rows} rows; bound "
+          f"{b_ms:.4f} ms ({b_by}); every output row bit-equal across "
+          f"{len(runs)} kernels", flush=True)
     for label, k in out["kernels"].items():
         print(f"  {label}: {fmt(k['time'])} ms; {k['registers']} registers,"
               f" {k['shared']} B shared, {k['spill']} B spilled, "
-              f"{k['ops']} SASS operations a lane", flush=True)
+              f"{k['ops']} SASS operations and {k['instructions']} "
+              f"instructions a lane (issue {k['issue_ms']:.4f} ms)",
+              flush=True)
     print(f"  pack_inputs {fmt(out['pack_inputs'])} ms; consumers' copies "
           f"of the unpacked rows {fmt(out['consumer_copies'])} ms",
           flush=True)
