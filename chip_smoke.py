@@ -95,10 +95,11 @@ its `ms` sums; K4's operations are counted from its SASS (`sass_ops`).
 Each K4 check prints the instantiation's registers, shared bytes and
 spills (none allowed) and its bound's kind. The kernels are built with
 --fmad=false, so their exact float32 arithmetic cannot run faster than
-about twice an operation bound. Most kernels are timed with CUDA events around back-to-back
-launches (`time_ms`); the row gathers, whose launches can take less
-device time than their host calls, by replaying a CUDA graph of their
-launches (`device_ms`), with the CUDA-event time beside it (`paced_ms`).
+about twice an operation bound. Most kernels are timed with CUDA events
+around back-to-back launches (`time_ms`); the row gathers, whose launches
+can take less device time than their host calls, by replaying a CUDA
+graph of their launches (`device_ms`), with the CUDA-event time beside it
+(`paced_ms`).
 
 Needs CUDA: exits non-zero without printing a result when
 torch.cuda.is_available() is false.
@@ -163,9 +164,9 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
-# warp instructions the H100 SXM can issue: 132 SMs x 4 schedulers x one a
-# clock at 1.98 GHz (the clock of the 67 TFLOP/s peak)
-ISSUE_PER_S = 132 * 4 * 1.98e9
+# warp instructions the H100 SXM can dispatch: 132 SMs x 4 schedulers x
+# one a clock at 1.98 GHz (the clock of the 67 TFLOP/s peak)
+DISPATCH_PER_S = 132 * 4 * 1.98e9
 # float operations of one unit of work (counted from the kernels' source)
 SLAB_OPS = 25                  # one ray-box slab test
 NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
@@ -173,9 +174,9 @@ TRI_OPS = 45                   # one Möller–Trumbore test
 TRI_U_OPS = 22                 # its operations up to the u test (h, a, s, u)
 GROUP = 8                      # clusters under one group box (mt_dense.cu)
 # K4's operations per lane are counted from the built library's SASS
-# (`sass_ops`): each float32 instruction that issues at the FP32 pipe's
+# (`sass_ops`): each float32 instruction that runs at the FP32 pipe's
 # rate counts 1 (an FFMA 2, as the 67 TFLOP/s peak counts it); MUFU and
-# the float conversions, which issue at 16 per clock per SM against 128
+# the float conversions, which run at 16 per clock per SM against 128
 # FP32 lanes, count 8
 SASS_OP_WEIGHTS = dict.fromkeys(
     ("FADD", "FADD32I", "FMUL", "FMUL32I", "FMNMX", "FSETP", "FSET", "FSEL",
@@ -807,10 +808,12 @@ def sass_ops(so) -> dict:
     """{mangled kernel name: (weighted float32 operations, instructions)}
     of every kernel in the shared library `so`, from `cuobjdump -sass`
     (SASS_OP_WEIGHTS; instructions: every one but NOP). A static count:
-    K4's device functions and its copy loops are straight-line code with
-    selects, so each instruction runs once per lane; the rarely taken slow
-    paths of IEEE division, square root and sin/cos range reduction are
-    counted once each, so the count is a little above the common path's."""
+    K4's arithmetic is straight-line code with selects, so each float
+    instruction runs once per lane; the rarely taken slow paths of IEEE
+    division, square root and sin/cos range reduction are counted once
+    each, so the operations are a little above the common path's. Its
+    copy loops (no float instruction) run once per input row and are
+    counted once, so its instructions are a little below a lane's."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -920,25 +923,25 @@ def check_shade(args, kw, label="bench", fill=False) -> dict:
     pms = time_ms(lambda: SK.shade_nee_plain(*args, fill=fill, **kw), 5)
     planes, n = args[0], args[0].shape[1]
     b_ms, b_by = bound((planes.shape[0] + L.rows) * n * 4, n * inst["ops"])
-    issue = issue_ms(n, inst["instructions"])
+    dispatch = dispatch_ms(n, inst["instructions"])
     print(f"{what}: {inst['registers']} registers, {inst['shared']} B "
           f"shared, {inst['spill']} B spilled; kernel {ms:.4f} ms, plain "
           f"{pms:.4f} ms, bound {b_ms:.4f} ms ("
           f"{'operations (SASS count)' if b_by == 'operations' else b_by}; "
           f"{planes.shape[0]} + {L.rows} rows, {inst['ops']} operations a "
-          f"lane); issue {issue:.4f} ms ({inst['instructions']} SASS "
+          f"lane); dispatch {dispatch:.4f} ms ({inst['instructions']} SASS "
           "instructions a lane)", flush=True)
     require(inst["spill"] == 0, f"{what}: the kernel spills")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, registers=inst["registers"],
                 shared_bytes=inst["shared"], spill_bytes=inst["spill"],
-                ops_per_lane=inst["ops"], issue_ms=issue)
+                ops_per_lane=inst["ops"], dispatch_ms=dispatch)
 
 
-def issue_ms(lanes: int, instructions: int) -> float:
-    """Least ms in which the card can issue `instructions` warp
-    instructions for each warp of `lanes` lanes (ISSUE_PER_S)."""
-    return -(-lanes // 32) * instructions / ISSUE_PER_S * 1e3
+def dispatch_ms(lanes: int, instructions: int) -> float:
+    """Least ms in which the card can dispatch `instructions` warp
+    instructions for each warp of `lanes` lanes (DISPATCH_PER_S)."""
+    return -(-lanes // 32) * instructions / DISPATCH_PER_S * 1e3
 
 
 def render(w, h, spp, device, cfg=None, env_height=64):

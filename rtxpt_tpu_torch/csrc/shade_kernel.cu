@@ -18,25 +18,28 @@
 // operations a lane at NEE 1+1 and 8.0k at 2+2, about half the bytes'
 // time. What holds it in practice is neither: it is one long
 // straight-line program (IEEE division, square root and sin/cos kept bit
-// for bit under --fmad=false) of 128 registers at NEE 1+1 and 140 at 2+2,
-// so 3-4 blocks of 128 threads share an SM and their dependent
-// instructions issue at a fraction of the SM's rate.
+// for bit under --fmad=false) of 128 registers at NEE 1+1 and 139-144 at
+// 2+2, so 4 (1+1) or 3 (2+2) blocks of 128 threads share an SM and its
+// dependent instructions dispatch at a half (1+1) to a quarter (2+2) of
+// the SM's rate.
 //
 // Design: a block takes a tile of TILE = 128 lanes, one thread each, and
-// each thread first issues a 4-byte cp.async per input row for its lane
+// each thread first starts a 4-byte cp.async per input row for its lane
 // into its column of the tile in shared memory (C_IN x 512 B a block,
 // 70,144 B at NEE 2+2): the whole input is in flight before any
 // arithmetic, in phases (the fixed rows, then each NEE sample's rows), one
 // commit group each, so the shade / BSDF part runs while the NEE rows
 // still arrive. A thread reads only what it copied, so no barrier is
 // needed. The arithmetic reads its inputs from shared memory where the
-// plain order uses them; outputs are stored from registers, each output
-// row a warp-contiguous 512-B run per block. Row offsets are 32-bit (the
-// wrapper requires C x N < 2^31). __launch_bounds__(TILE, 3): 3 blocks is
-// what the 70 KB tile allows at NEE 2+2. The NEE sample counts and
-// Russian roulette are template parameters (NEE 0..2 each), the bounce
-// limits and thresholds are arguments; the RNG uniforms arrive as input
-// rows, so the kernel is deterministic and needs no generator.
+// plain order uses them, so no loaded value holds a register across the
+// program; outputs are stored from registers, each output row a
+// warp-contiguous 512-B run per block. Row offsets are 32-bit (the
+// wrapper requires C x N < 2^31). __launch_bounds__(TILE, 3): 3 blocks
+// is what the 70 KB tile allows at NEE 2+2, and asking for 4 spills. The
+// NEE sample counts and Russian roulette are template parameters (NEE
+// 0..2 each), the bounce limits and thresholds are arguments; the RNG
+// uniforms arrive as input rows, so the kernel is deterministic and needs
+// no generator.
 //
 // The FILL variant (template flag FILL, entry point rtxpt_shade_nee_fill)
 // is the reference kernel's `fill=True` body for the realtime mode's
@@ -234,15 +237,6 @@ __device__ __forceinline__ V3 from_local(V3 v, V3 t, V3 b, V3 n) {
 
 // ---- plane access and staging --------------------------------------------
 constexpr int TILE = 128;        // lanes per block, one thread each
-#ifndef SHADE_MIN_BLOCKS
-#define SHADE_MIN_BLOCKS 3       // blocks an SM must fit (__launch_bounds__)
-#endif
-#ifndef SHADE_COPY_ROLLED
-#define SHADE_COPY_ROLLED 0      // 1: the copy loops stay loops
-#endif
-#ifndef SHADE_LATE_NEE
-#define SHADE_LATE_NEE 0         // 1: NEE rows copied once the fixed rows landed
-#endif
 
 template <int ND, int NL>
 struct Shape {
@@ -273,7 +267,7 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 
 // wait until at most `pending` of this thread's commit groups are in
-// flight (a constant once the phase loops are unrolled)
+// flight (a constant once the NEE loops are unrolled)
 __device__ __forceinline__ void cp_async_wait(int pending) {
     switch (pending) {
         case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
@@ -284,34 +278,27 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     }
 }
 
-// Copies lane `src`'s input rows of phases k0 .. k1-1 into its column
-// `col` of the staged tile, one commit group per phase. A thread reads
-// only what it copied, so no barrier is needed.
+// Copies lane `src`'s input rows into its column `col` of the staged
+// tile, one commit group per phase. A thread reads only what it copied,
+// so no barrier is needed. The loops stay loops: fully unrolled, a
+// thread's copies leave as one burst, which measured slower at NEE 2+2.
 template <int ND, int NL>
 __device__ __forceinline__ void stage_rows(float* col, const float* src,
-                                           int n, int k0, int k1) {
-#if SHADE_COPY_ROLLED
+                                           int n) {
 #pragma unroll 1
-#else
-#pragma unroll
-#endif
-    for (int k = k0; k < k1; ++k) {
+    for (int k = 0; k < Shape<ND, NL>::phases; ++k) {
         const int r0 = Shape<ND, NL>::phase_start(k);
         const int r1 = r0 + Shape<ND, NL>::phase_rows(k);
-#if SHADE_COPY_ROLLED
 #pragma unroll 1
-#else
-#pragma unroll
-#endif
         for (int r = r0; r < r1; ++r) cp_async4(col + r * TILE, src + r * n);
         cp_async_commit();
     }
 }
 
-// Blocks until phase k's rows are in shared memory, `committed` phases
-// having been committed.
-__device__ __forceinline__ void wait_phase(int k, int committed) {
-    cp_async_wait(committed - 1 - k);
+// Blocks until phase k's rows are in shared memory.
+template <int ND, int NL>
+__device__ __forceinline__ void wait_phase(int k) {
+    cp_async_wait(Shape<ND, NL>::phases - 1 - k);
 }
 
 // One lane's view: inputs from its column of the staged tile, outputs to
@@ -880,7 +867,7 @@ __device__ __forceinline__ LightSample local_light_sample(const Planes& P,
 }
 
 template <int ND, int NL, bool RR, bool FILL>
-__global__ void __launch_bounds__(TILE, SHADE_MIN_BLOCKS)
+__global__ void __launch_bounds__(TILE, 3)
 shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
                  float* __restrict__ out, int n, int max_bounces,
                  int max_diffuse_bounces, float spec_rough_threshold,
@@ -888,13 +875,9 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     extern __shared__ float tile[];
     const int lane = blockIdx.x * TILE + threadIdx.x;
     if (lane >= n) return;
-    constexpr int phases = Shape<ND, NL>::phases;
-    constexpr int early = SHADE_LATE_NEE ? 1 : phases;
-    stage_rows<ND, NL>(tile + threadIdx.x, in + lane, n, 0, early);
+    stage_rows<ND, NL>(tile + threadIdx.x, in + lane, n);
     const Planes P{tile + threadIdx.x, out + lane, n};
-    wait_phase(0, early);              // the fixed rows
-    if (early < phases)
-        stage_rows<ND, NL>(tile + threadIdx.x, in + lane, n, early, phases);
+    wait_phase<ND, NL>(0);             // the fixed rows
     const float firefly_threshold = c4[0];
     const float atten = c4[1];
     const float nee_min_rad = c4[2];
@@ -1040,7 +1023,7 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
 
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-        wait_phase(1 + i, phases);
+        wait_phase<ND, NL>(1 + i);
         const int base = IN_FIXED + DIST_ROWS * i;
         const float ls_pdf = P.g(base + DIST_PDF);
         nee_one(P.g3(base + DIST_DIR), P.g(base + DIST_DIST),
@@ -1050,7 +1033,7 @@ shade_nee_kernel(const float* __restrict__ in, const float* __restrict__ c4,
     }
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
-        wait_phase(1 + ND + j, phases);
+        wait_phase<ND, NL>(1 + ND + j);
         const int base = IN_FIXED + DIST_ROWS * ND + LOCAL_ROWS * j;
         const LightSample ls = local_light_sample(P, base, pos);
         nee_one(ls.dir, ls.dist, ls.li, local_pdf_k, ls.pdf, ls.valid,

@@ -124,8 +124,8 @@ def _nvcc() -> str:
                        "the CUDA toolkit's nvcc")
 
 
-def source_hash(sources=SOURCES, csrc: Path = CSRC, flags=()) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
+def source_hash(sources=SOURCES, csrc: Path = CSRC) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in HEADERS + tuple(sources):
         h.update(name.encode())
         h.update((csrc / name).read_bytes())
@@ -133,14 +133,12 @@ def source_hash(sources=SOURCES, csrc: Path = CSRC, flags=()) -> str:
 
 
 def build(verbose: bool = False, stem: str = "rtxpt_kernels",
-          sources=SOURCES, csrc: Path = CSRC, flags=()) -> Path:
+          sources=SOURCES, csrc: Path = CSRC) -> Path:
     """Compile `sources` from `csrc` (default: this package's csrc/; one
-    nvcc process per file, in parallel) with NVCC_FLAGS and `flags` (e.g.
-    a -D for a lab's variant) and link them into one .so; returns its
-    path. Reuses a library already built from the same sources and
-    flags."""
-    so = BUILD_DIR / f"lib{stem}_{source_hash(sources, csrc, flags)}.so"
-    flags = NVCC_FLAGS + tuple(flags)
+    nvcc process per file, in parallel) and link them into one .so;
+    returns its path. Reuses a library already built from the same
+    sources and flags."""
+    so = BUILD_DIR / f"lib{stem}_{source_hash(sources, csrc)}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -149,7 +147,7 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
         objs, procs = [], []
         for src in sources:
             obj = Path(tmp) / (src + ".o")
-            cmd = [nvcc, *flags, "-c", str(csrc / src), "-o", str(obj)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(csrc / src), "-o", str(obj)]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs.append((src, subprocess.Popen(
@@ -163,7 +161,7 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
                 print(f"[nvcc {src}]\n{out}", flush=True)
         tmp_so = Path(tmp) / so.name
         link = subprocess.run(
-            [nvcc, *flags, "-shared", *objs, "-o", str(tmp_so)],
+            [nvcc, *NVCC_FLAGS, "-shared", *objs, "-o", str(tmp_so)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n"
@@ -172,15 +170,15 @@ def build(verbose: bool = False, stem: str = "rtxpt_kernels",
     return so
 
 
-def ptxas_report(source: str, csrc: Path = CSRC, flags=()) -> str:
+def ptxas_report(source: str, csrc: Path = CSRC) -> str:
     """nvcc's ``-Xptxas=-v`` report on `csrc`/`source` compiled with the
-    library's flags and `flags`: each kernel's registers, static shared
-    memory and spills."""
+    library's flags: each kernel's registers, static shared memory and
+    spills."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         p = subprocess.run(
-            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, *flags, "-c",
-             str(csrc / source), "-o", str(Path(tmp) / (source + ".o"))],
+            [_nvcc(), "-Xptxas=-v", *NVCC_FLAGS, "-c", str(csrc / source),
+             "-o", str(Path(tmp) / (source + ".o"))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     out = p.stdout.decode(errors="replace")
     if p.returncode != 0:
@@ -188,12 +186,11 @@ def ptxas_report(source: str, csrc: Path = CSRC, flags=()) -> str:
     return out
 
 
-def load(stem: str, sources, signatures: dict, csrc: Path = CSRC,
-         flags=()) -> ctypes.CDLL:
+def load(stem: str, sources, signatures: dict,
+         csrc: Path = CSRC) -> ctypes.CDLL:
     """Build (on first use) and load library `stem` from `sources` in
-    `csrc` with `flags`, with the C signatures of its entry points."""
-    handle = ctypes.CDLL(str(build(stem=stem, sources=sources, csrc=csrc,
-                                   flags=flags)))
+    `csrc`, with the C signatures of its entry points."""
+    handle = ctypes.CDLL(str(build(stem=stem, sources=sources, csrc=csrc)))
     for name, args in signatures.items():
         fn = getattr(handle, name)
         fn.argtypes = list(args)

@@ -14,10 +14,9 @@ r of lane i sits at r*N + i (coalesced in the kernel). The RNG draws,
 light picks and row fetches stay outside, in the reference's order
 (pt/integrator.py `_kernel_shade_step`), so the pass is deterministic.
 
-K4 is ``csrc/shade_kernel.cu`` (one thread per lane, blocks of `TILE`
-lanes that stage their input rows in shared memory before the arithmetic:
-`smem_bytes`); `shade_nee_plain` is the same arithmetic in PyTorch, built
-on the
+K4 is ``csrc/shade_kernel.cu`` (one thread per lane, blocks of 128 lanes
+that stage their input rows in shared memory before the arithmetic);
+`shade_nee_plain` is the same arithmetic in PyTorch, built on the
 component-form BSDF of pt/bsdf.py. Its FILL variant (`shade_nee_fill`,
 the realtime mode's stable-planes FILL pass) exports the emission term,
 the pre-scatter throughput and each NEE sample's diffuse and specular
@@ -37,7 +36,6 @@ _LIGHT_TRIANGLE, _LIGHT_POINT, _LIGHT_DIRECTIONAL = 0, 1, 2
 _LIGHT_SPHERE, _LIGHT_SPOT = 3, 4
 _K_MAX_RAY_TRAVEL = 1e15
 MAX_NEE_SAMPLES = 2     # per kind; csrc/shade_kernel.cu instantiates 0..2
-TILE = 128              # lanes per block of csrc/shade_kernel.cu
 
 
 class Layout:
@@ -131,12 +129,6 @@ def out_layout(nee_distant: int, nee_local: int,
         else:
             L.add(f"nee_contrib{i}", 3)
     return L
-
-
-def smem_bytes(nee_distant: int, nee_local: int) -> int:
-    """Dynamic shared memory of a K4 block (csrc/shade_kernel.cu `Shape`):
-    the tile's slice of every input row."""
-    return in_layout(nee_distant, nee_local).rows * TILE * 4
 
 
 def check_offsets(rows: int, n: int):

@@ -213,21 +213,18 @@ def test_cpu_planes_take_plain_version_without_launch():
     assert counts["shade_nee"] == 0 and counts["shade_nee_fill"] == 0
 
 
-def test_kernel_tile_and_shared_memory():
-    """The wrapper's tile and shared-memory figures are the .cu file's: a
-    block stages its 128 lanes of every input row, 70,144 B at NEE 2+2,
-    so the three blocks its __launch_bounds__ asks for fit on an SM (228
-    KB, 1 KB of it reserved per block)."""
+def test_kernel_tile_fits_its_launch_bounds():
+    """A K4 block stages its 128 lanes of every input row, 70,144 B at NEE
+    2+2, so the three blocks its __launch_bounds__ asks for fit on an SM
+    (228 KB, 1 KB of it reserved per block)."""
+    src = open(CU).read()
     c = {k: int(v) for k, v in re.findall(
-        r"constexpr int ([A-Z0-9_]+) = (\d+);", open(CU).read())}
-    assert c["TILE"] == TSK.TILE == 128
-    for nd in range(3):
-        for nl in range(3):
-            rows = c["IN_FIXED"] + c["DIST_ROWS"] * nd + c["LOCAL_ROWS"] * nl
-            assert TSK.smem_bytes(nd, nl) == rows * 128 * 4
-    assert TSK.smem_bytes(2, 2) == 70_144
-    assert 3 * (TSK.smem_bytes(2, 2) + 1024) <= 228 * 1024
-    assert "#define SHADE_MIN_BLOCKS 3" in open(CU).read()
+        r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
+    rows = c["IN_FIXED"] + 2 * c["DIST_ROWS"] + 2 * c["LOCAL_ROWS"]
+    assert rows == TSK.in_layout(2, 2).rows == 137
+    assert rows * c["TILE"] * 4 == 70_144
+    assert "__launch_bounds__(TILE, 3)" in src
+    assert 3 * (rows * c["TILE"] * 4 + 1024) <= 228 * 1024
 
 
 def test_row_offsets_checked_against_32_bits():

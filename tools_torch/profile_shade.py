@@ -1,34 +1,32 @@
 """Shade-kernel lab: K4 and K4 FILL (``csrc/shade_kernel.cu``) on the
 first-bounce inputs of the four main paths and of the bench at NEE 2+2,
 against another checkout's shade kernel (built into a library of its own)
-and against this tree's kernel built as a variant, on the same inputs, in
-one process on one card.
+on the same inputs, in one process on one card.
 
     python -m tools_torch.profile_shade --parent DIR
 
 DIR is the root of the other checkout (its ``rtxpt_tpu_torch/csrc`` must
 hold a shade_kernel.cu with this tree's C entry points
-``rtxpt_shade_nee`` and ``rtxpt_shade_nee_fill``). Without --parent only
-this tree's kernel and its variants are timed.
+``rtxpt_shade_nee`` and ``rtxpt_shade_nee_fill``): the parent commit, or
+a copy of this tree with the kernel changed, to measure a variant.
+Without --parent only this tree's kernel is timed.
 
 Cases: bench (programmer-art 800x600, bench config: NEE 1+1), bench NEE
 2+2 (the same frame under reference_config(), the goldens' config), city
 (1920x1080, bench config), realtime city (1920x1080) and realtime 360p
 (programmer-art 640x360; both K4 FILL at NEE 2+2 on the first FILL bounce
-of a default realtime frame). On each: this tree's kernel, each variant (`--variants`: this tree's source rebuilt with -D macros,
-e.g. SHADE_MIN_BLOCKS, the second argument of its __launch_bounds__) and
-the other checkout's kernel, every output row of each bit-equal to this
-tree's (torch.equal); the bound (chip_smoke.py: bytes, or the SASS
-operation count) and the issue time of all the SASS instructions
-(chip_smoke.py `issue_ms`); and the device time of what surrounds the kernel on the
-path: `pack_inputs` on the named inputs the integrator gave it, and the
-copies its consumers make of the unpacked (strided) output rows. Times
-are device times (chip_smoke.py `device_ms`: a CUDA graph of the launches
-replayed) with the CUDA-event times of launches from the host in
-brackets. Registers, shared bytes and spills per instantiation come from
-ptxas's report on each source, operations per lane from each library's
-SASS (chip_smoke.py `shade_instances`). Needs a CUDA GPU and the CUDA
-toolkit's cuobjdump.
+of a default realtime frame). On each: this tree's kernel and the other
+checkout's, every output row of the other's bit-equal to this tree's
+(torch.equal); for each, its registers, shared bytes and spills (ptxas's
+report on its source), its SASS operations and instructions a lane and
+the time in which the card can dispatch those instructions (chip_smoke.py
+`shade_instances`, `dispatch_ms`); the bound (chip_smoke.py: bytes, or the
+SASS operation count); and the device time of what surrounds the kernel
+on the path: `pack_inputs` on the named inputs the integrator gave it,
+and the copies its consumers make of the unpacked (strided) output rows.
+Times are device times (chip_smoke.py `device_ms`: a CUDA graph of the
+launches replayed) with the CUDA-event times of launches from the host in
+brackets. Needs a CUDA GPU and the CUDA toolkit's cuobjdump.
 """
 from __future__ import annotations
 
@@ -45,35 +43,38 @@ from rtxpt_tpu_torch.ops import cuda_lib
 from rtxpt_tpu_torch.pt import shade_kernel as SK
 
 ENTRIES = ("rtxpt_shade_nee", "rtxpt_shade_nee_fill")
-SIGNATURES = {e: cuda_lib.SIGNATURES[e] for e in ENTRIES}
 CASES = ("bench", "bench_nee22", "city", "realtime_city", "realtime_360p")
 
 
-class Library:
-    """A shade-kernel library: `csrc`'s shade_kernel.cu with `flags`,
-    its ptxas report and its instantiations' figures."""
+def this_tree() -> dict:
+    """This tree's K4 instantiations (the renderer's library)."""
+    return CS.shade_instances(cuda_lib.ptxas_report("shade_kernel.cu"),
+                              cuda_lib.build(),
+                              cuda_lib.lib().rtxpt_shade_smem_bytes)
 
-    def __init__(self, label, csrc, flags=(), parent=False):
-        self.label, self.csrc, self.flags = label, csrc, tuple(flags)
-        self.parent = parent
+
+class Other:
+    """The other checkout's shade_kernel.cu, built alone into a library of
+    its own, and its instantiations' figures."""
+
+    def __init__(self, root: Path):
+        self.csrc = root / "rtxpt_tpu_torch" / "csrc"
 
     def build(self):
-        stem = "rtxpt_shade_" + "".join(
-            c if c.isalnum() else "_" for c in self.label)
-        sigs = dict(SIGNATURES) if self.parent else dict(
-            SIGNATURES, rtxpt_shade_smem_bytes=cuda_lib.SIGNATURES[
+        sigs = {e: cuda_lib.SIGNATURES[e] for e in ENTRIES}
+        self.lib = cuda_lib.load("rtxpt_shade_other", ("shade_kernel.cu",),
+                                 sigs, csrc=self.csrc)
+        # a kernel that stages nothing in shared memory (as before it
+        # staged its input rows) has no rtxpt_shade_smem_bytes
+        smem = getattr(self.lib, "rtxpt_shade_smem_bytes", None)
+        if smem is not None:
+            smem.argtypes = list(cuda_lib.SIGNATURES[
                 "rtxpt_shade_smem_bytes"])
-        self.lib = cuda_lib.load(stem, ("shade_kernel.cu",), sigs,
-                                 csrc=self.csrc, flags=self.flags)
-        so = cuda_lib.build(stem=stem, sources=("shade_kernel.cu",),
-                            csrc=self.csrc, flags=self.flags)
-        report = cuda_lib.ptxas_report("shade_kernel.cu", csrc=self.csrc,
-                                       flags=self.flags)
-        # the other checkout's kernel may stage nothing in dynamic shared
-        # memory and then has no rtxpt_shade_smem_bytes
         self.inst = CS.shade_instances(
-            report, so, (lambda nd, nl: 0) if self.parent
-            else self.lib.rtxpt_shade_smem_bytes)
+            cuda_lib.ptxas_report("shade_kernel.cu", csrc=self.csrc),
+            cuda_lib.build(stem="rtxpt_shade_other",
+                           sources=("shade_kernel.cu",), csrc=self.csrc),
+            smem or (lambda nd, nl: 0))
         return self
 
     def run(self, args, kw, fill):
@@ -124,11 +125,10 @@ def capture(case: str):
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
-    env = EM.bake_procedural_sky(height=64)
+    city = case in ("city", "realtime_city")
+    host = _city() if city else procedural.build_programmer_art().finish()
     if case.startswith("realtime"):
-        city = case == "realtime_city"
         w, h = (1920, 1080) if city else (640, 360)
-        host = _city() if city else procedural.build_programmer_art().finish()
         cam = procedural.city_camera(w, h) if city \
             else procedural.default_camera(w, h)
         r = RealtimeRenderer(host, cam, device="cuda")
@@ -138,15 +138,15 @@ def capture(case: str):
             torch.cuda.synchronize()
         args, kw = cap.calls["shade_nee_fill"][0]
         return args, kw, True, pc.call
-    city = case == "city"
     w, h = (1920, 1080) if city else (800, 600)
-    host = _city() if city else procedural.build_programmer_art().finish()
     cam = procedural.city_camera(w, h) if city \
         else procedural.default_camera(w, h)
     cfg = reference_config() if case == "bench_nee22" else reference_config(
         max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
         nee_local_samples=1)
-    r = Renderer(host, cam, cfg, env_radiance=env, device="cuda")
+    r = Renderer(host, cam, cfg,
+                 env_radiance=EM.bake_procedural_sky(height=64),
+                 device="cuda")
     with CS.Capture(dict(shade_nee=1)) as cap, PackCapture() as pc:
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
@@ -163,44 +163,45 @@ def fmt(t) -> str:
     return f"{t[0]:.4f} ({t[1]:.4f})"
 
 
-def run_case(case: str, this: Library, others: list) -> dict:
+def run_case(case: str, this: dict, other) -> dict:
     args, kw, fill, (L, n, values) = capture(case)
     planes = args[0]
     key = (kw["nee_distant"], kw["nee_local"], bool(kw["rr"]), fill)
     Lout = SK.out_layout(key[0], key[1], fill)
-    got = this.run(args, kw, fill)
-    out = {"case": case, "lanes": n, "instance": list(key),
-           "rows": [planes.shape[0], Lout.rows]}
-    inst = this.inst[key]
+    kernel = SK.shade_nee_fill if fill else SK.shade_nee
+    got = kernel(*args, **kw)
     b_ms, b_by = CS.bound((planes.shape[0] + Lout.rows) * n * 4,
-                          n * inst["ops"])
-    out["bound_ms"], out["bound_by"] = b_ms, b_by
-    runs = {this.label: (this, lambda: this.run(args, kw, fill))}
-    for lib in others:
-        runs[lib.label] = (lib, lambda lib=lib: lib.run(args, kw, fill))
-    out["kernels"] = {}
-    for label, (lib, fn) in runs.items():
-        res = fn()
-        differ = [r for r in range(Lout.rows) if not torch.equal(res[r],
-                                                                got[r])]
-        CS.require(not differ, f"{case}: {label} differs from {this.label} "
+                          n * this[key]["ops"])
+    out = {"case": case, "lanes": n, "instance": list(key),
+           "rows": [planes.shape[0], Lout.rows], "bound_ms": b_ms,
+           "bound_by": b_by, "kernels": {}}
+    runs = {"this tree": (this, lambda: kernel(*args, **kw))}
+    if other:
+        res = other.run(args, kw, fill)
+        differ = [r for r in range(Lout.rows)
+                  if not torch.equal(res[r], got[r])]
+        CS.require(not differ, f"{case}: the other checkout's K4 differs "
                    f"on output rows {differ}")
+        runs["other checkout"] = (other.inst,
+                                  lambda: other.run(args, kw, fill))
+    for label, (inst, fn) in runs.items():
         out["kernels"][label] = dict(
-            time=both(fn), issue_ms=CS.issue_ms(n, lib.inst[key][
-                "instructions"]), **lib.inst[key])
+            time=both(fn), dispatch_ms=CS.dispatch_ms(n, inst[key][
+                "instructions"]), **inst[key])
     out["pack_inputs"] = both(lambda: SK.pack_inputs(L, n, values))
     unpacked = SK.unpack_out(Lout, got)
     out["consumer_copies"] = both(
         lambda: [v.contiguous() for v in unpacked.values()])
     print(f"{case}: K4{' FILL' if fill else ''} NEE {key[0]}+{key[1]}, "
           f"{n} lanes, {planes.shape[0]} + {Lout.rows} rows; bound "
-          f"{b_ms:.4f} ms ({b_by}); every output row bit-equal across "
-          f"{len(runs)} kernels", flush=True)
+          f"{b_ms:.4f} ms ({b_by})"
+          + ("; every output row bit-equal to the other checkout's"
+             if other else ""), flush=True)
     for label, k in out["kernels"].items():
         print(f"  {label}: {fmt(k['time'])} ms; {k['registers']} registers,"
               f" {k['shared']} B shared, {k['spill']} B spilled, "
               f"{k['ops']} SASS operations and {k['instructions']} "
-              f"instructions a lane (issue {k['issue_ms']:.4f} ms)",
+              f"instructions a lane (dispatch {k['dispatch_ms']:.4f} ms)",
               flush=True)
     print(f"  pack_inputs {fmt(out['pack_inputs'])} ms; consumers' copies "
           f"of the unpacked rows {fmt(out['consumer_copies'])} ms",
@@ -212,33 +213,22 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser("rtxpt_tpu_torch shade-kernel lab")
     p.add_argument("--parent", type=Path, default=None,
                    help="root of another checkout whose K4 to time")
-    p.add_argument("--variants", default="MIN_BLOCKS=4",
-                   help="comma-separated variants of this tree's kernel to "
-                   "build beside the default, each a space-separated list "
-                   "of NAME=VALUE, built with -DSHADE_NAME=VALUE")
     p.add_argument("--cases", default=",".join(CASES))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_shade: needs a CUDA GPU", file=sys.stderr)
         return 1
     print(CS.card_line(), flush=True)
-    this = Library("this tree", cuda_lib.CSRC)
-    libs = [Library(f"this tree, {v}", cuda_lib.CSRC,
-                    tuple(f"-DSHADE_{d}" for d in v.split()))
-            for v in args.variants.split(",") if v.strip()]
-    if args.parent:
-        libs.append(Library("other checkout", args.parent.resolve()
-                            / "rtxpt_tpu_torch" / "csrc", parent=True))
-    # every library and ptxas report built at once, beside the renderer's
-    with concurrent.futures.ThreadPoolExecutor(len(libs) + 2) as pool:
-        jobs = [pool.submit(cuda_lib.lib)] + [
-            pool.submit(lib.build) for lib in [this] + libs]
-        for job in jobs:
+    other = Other(args.parent.resolve()) if args.parent else None
+    # both libraries and their ptxas reports built at once
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(this_tree)] + (
+            [pool.submit(other.build)] if other else [])
+        this = jobs[0].result()
+        for job in jobs[1:]:
             job.result()
-    results = []
-    for case in args.cases.split(","):
-        results.append(run_case(case, this, libs))
-        torch.cuda.empty_cache()
+    results = [run_case(case, this, other)
+               for case in args.cases.split(",")]
     print(json.dumps(results))
     return 0
 
