@@ -93,7 +93,9 @@ each output written once) over 3.35 TB/s and its float operations over
 67 TFLOP/s (H100 SXM, NVIDIA's data sheet), for the work of the launches
 its `ms` sums; K4's operations are counted from its SASS (`sass_ops`).
 Each K4 check prints the instantiation's registers, shared bytes and
-spills (none allowed) and its bound's kind. The kernels are built with
+spills (none allowed), its bound's kind and its dispatch floor
+(`dispatch_ms`: worked out from the static SASS count, so printed only
+and kept out of the kernels line). The kernels are built with
 --fmad=false, so their exact float32 arithmetic cannot run faster than
 about twice an operation bound. Most kernels are timed with CUDA events
 around back-to-back launches (`time_ms`); the row gathers, whose launches
@@ -864,20 +866,22 @@ def ptxas_kernels(report: str) -> list:
 SHADE_NAME = re.compile(r"shade_nee_kernelILi(\d)ELi(\d)ELb([01])ELb([01])E")
 
 
-def shade_instances(report: str, so, smem_bytes) -> dict:
+def shade_instances(report: str, so, staged: bool = True) -> dict:
     """{(nee_distant, nee_local, rr, fill): registers, shared (static +
     dynamic) bytes, spilled bytes, SASS operations and instructions per
     lane} of every K4 instantiation, from ptxas's report on
-    csrc/shade_kernel.cu, the SASS of the library `so` and
-    `smem_bytes(nee_distant, nee_local)`, a block's dynamic shared
-    memory."""
+    csrc/shade_kernel.cu and the SASS of the library `so`. A kernel that
+    stages its input rows (`staged`) takes `smem_bytes` of dynamic shared
+    memory a block, one that reads them from global memory none."""
+    from rtxpt_tpu_torch.pt.shade_kernel import smem_bytes
     out = {}
     for name, regs, smem, spill in ptxas_kernels(report):
         m = SHADE_NAME.search(name)
         if m:
             nd, nl = int(m.group(1)), int(m.group(2))
             out[(nd, nl, m.group(3) == "1", m.group(4) == "1")] = dict(
-                registers=regs, shared=smem + smem_bytes(nd, nl),
+                registers=regs,
+                shared=smem + (smem_bytes(nd, nl) if staged else 0),
                 spill=spill)
     for name, (ops, instructions) in sass_ops(so).items():
         m = SHADE_NAME.search(name)
@@ -935,7 +939,7 @@ def check_shade(args, kw, label="bench", fill=False) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, registers=inst["registers"],
                 shared_bytes=inst["shared"], spill_bytes=inst["spill"],
-                ops_per_lane=inst["ops"], dispatch_ms=dispatch)
+                ops_per_lane=inst["ops"])
 
 
 def dispatch_ms(lanes: int, instructions: int) -> float:
@@ -1757,8 +1761,7 @@ def main() -> int:
     print(f"built CUDA kernels in {time.time() - t0:.1f} s "
           f"({cuda_lib.build()} and the lab's)", flush=True)
     gather_instances(report)
-    SHADE.update(shade_instances(shade_report, cuda_lib.build(),
-                                 cuda_lib.lib().rtxpt_shade_smem_bytes))
+    SHADE.update(shade_instances(shade_report, cuda_lib.build()))
     for (nd, nl, rr, fill), inst in sorted(SHADE.items()):
         if rr and nd == nl and nd > 0:        # the main paths' instances
             print(f"K4{' FILL' if fill else ''} NEE {nd}+{nl}: "

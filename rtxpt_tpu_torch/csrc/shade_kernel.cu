@@ -15,13 +15,19 @@
 // 137 + 77 in the FILL variant: 0.6-0.86 KB a lane), while its arithmetic,
 // counted from the built kernel's SASS (chip_smoke.py `sass_ops`: float32
 // instructions, an FFMA as two, MUFU and conversions as eight), is 5.6k
-// operations a lane at NEE 1+1 and 8.0k at 2+2, about half the bytes'
-// time. What holds it in practice is neither: it is one long
-// straight-line program (IEEE division, square root and sin/cos kept bit
-// for bit under --fmad=false) of 128 registers at NEE 1+1 and 139-144 at
-// 2+2, so 4 (1+1) or 3 (2+2) blocks of 128 threads share an SM and its
-// dependent instructions dispatch at a half (1+1) to a quarter (2+2) of
-// the SM's rate.
+// operations a lane at NEE 1+1 and 8.0k at 2+2. That count understates
+// the arithmetic's issue time about 2x: the 67 TFLOP/s peak counts an
+// FFMA as two operations, and under --fmad=false the compiler fuses no
+// multiply with an add, so each FADD or FMUL takes the issue slot of two.
+// Issuing all its SASS instructions once (chip_smoke.py `dispatch_ms`,
+// from the static count: a straight-line program, its copy loops and
+// slow paths counted once) takes longer than its bytes on every
+// main-path instantiation. So the floor is instruction issue, not bytes,
+// and the kernel runs 1.8-1.9x (NEE 1+1) to 3.7-3.9x (2+2) above it
+// (NVIDIA H100 80GB HBM3, 700 W; tools_torch/profile_shade.py); what holds
+// the rest at 2+2 (128 registers at NEE 1+1 and 139-144 at 2+2, 4 or 3
+// blocks of 128 threads an SM) is not known until stall reasons are
+// measured.
 //
 // Design: a block takes a tile of TILE = 128 lanes, one thread each, and
 // each thread first starts a 4-byte cp.async per input row for its lane
@@ -1124,27 +1130,7 @@ int launch(LaunchFn fn, const float* planes_in, const float* consts4,
               max_diffuse_bounces, spec_rough_threshold, local_pdf_k, stream);
 }
 
-template <int ND>
-int smem_nl(int nl) {
-    switch (nl) {
-        case 0: return Shape<ND, 0>::smem_bytes;
-        case 1: return Shape<ND, 1>::smem_bytes;
-        case 2: return Shape<ND, 2>::smem_bytes;
-    }
-    return -1;
-}
-
 }  // namespace
-
-// dynamic shared memory of a block at NEE nee_distant + nee_local
-RTXPT_API int rtxpt_shade_smem_bytes(int nee_distant, int nee_local) {
-    switch (nee_distant) {
-        case 0: return smem_nl<0>(nee_local);
-        case 1: return smem_nl<1>(nee_local);
-        case 2: return smem_nl<2>(nee_local);
-    }
-    return -1;
-}
 
 RTXPT_API int rtxpt_shade_nee(const float* planes_in, const float* consts4,
                               float* planes_out, int n, int nee_distant,

@@ -50,7 +50,6 @@ SIGNATURES = {
     "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),
     "rtxpt_shade_nee_fill": (P, P, P, I, I, I, I, I, I, F, F, P),
-    "rtxpt_shade_smem_bytes": (I, I),
     "rtxpt_bvh8_trace": (P, I, I, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_bvh8_trace_sub": (P, I, I, I, I, P, P, P, P, P, P, P, P, P, I, I,
                              P),

@@ -131,6 +131,14 @@ def out_layout(nee_distant: int, nee_local: int,
     return L
 
 
+TILE = 128      # lanes of a K4 block (csrc/shade_kernel.cu TILE)
+
+
+def smem_bytes(nee_distant: int, nee_local: int) -> int:
+    """Dynamic shared memory of a K4 block: its lanes of every input row."""
+    return in_layout(nee_distant, nee_local).rows * TILE * 4
+
+
 def check_offsets(rows: int, n: int):
     """K4 computes row offsets r * n + lane in 32-bit ints."""
     if rows * n >= 2 ** 31:

@@ -371,14 +371,6 @@ def test_shade_kernel_every_instance_matches_plain(dev, nd, nl, rr, fill,
         assert (got[:, same] - ref[:, same]).abs().max() < 1e-5
 
 
-def test_shade_kernel_stages_every_input_row(dev):
-    """A block's shared memory holds its 128 lanes of every input row."""
-    for nd in range(3):
-        for nl in range(3):
-            assert cuda_lib.lib().rtxpt_shade_smem_bytes(nd, nl) \
-                == SK.in_layout(nd, nl).rows * 128 * 4
-
-
 @pytest.mark.parametrize("n", [4099, 4096])
 @pytest.mark.parametrize("fill", [False, True])
 def test_shade_kernel_launches_bit_equal(dev, fill, n):

@@ -215,14 +215,17 @@ def test_cpu_planes_take_plain_version_without_launch():
 
 def test_kernel_tile_fits_its_launch_bounds():
     """A K4 block stages its 128 lanes of every input row, 70,144 B at NEE
-    2+2, so the three blocks its __launch_bounds__ asks for fit on an SM
-    (228 KB, 1 KB of it reserved per block)."""
+    2+2 (the wrapper's `smem_bytes`, with the kernel's TILE), so the three
+    blocks its __launch_bounds__ asks for fit on an SM (228 KB, 1 KB of it
+    reserved per block)."""
     src = open(CU).read()
     c = {k: int(v) for k, v in re.findall(
         r"constexpr int ([A-Z0-9_]+) = (\d+);", src)}
     rows = c["IN_FIXED"] + 2 * c["DIST_ROWS"] + 2 * c["LOCAL_ROWS"]
     assert rows == TSK.in_layout(2, 2).rows == 137
-    assert rows * c["TILE"] * 4 == 70_144
+    assert c["TILE"] == TSK.TILE
+    assert rows * c["TILE"] * 4 == TSK.smem_bytes(2, 2) == 70_144
+    assert "static constexpr int smem_bytes = in_rows * TILE * 4;" in src
     assert "__launch_bounds__(TILE, 3)" in src
     assert 3 * (rows * c["TILE"] * 4 + 1024) <= 228 * 1024
 

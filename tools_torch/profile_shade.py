@@ -49,8 +49,7 @@ CASES = ("bench", "bench_nee22", "city", "realtime_city", "realtime_360p")
 def this_tree() -> dict:
     """This tree's K4 instantiations (the renderer's library)."""
     return CS.shade_instances(cuda_lib.ptxas_report("shade_kernel.cu"),
-                              cuda_lib.build(),
-                              cuda_lib.lib().rtxpt_shade_smem_bytes)
+                              cuda_lib.build())
 
 
 class Other:
@@ -64,17 +63,14 @@ class Other:
         sigs = {e: cuda_lib.SIGNATURES[e] for e in ENTRIES}
         self.lib = cuda_lib.load("rtxpt_shade_other", ("shade_kernel.cu",),
                                  sigs, csrc=self.csrc)
-        # a kernel that stages nothing in shared memory (as before it
-        # staged its input rows) has no rtxpt_shade_smem_bytes
-        smem = getattr(self.lib, "rtxpt_shade_smem_bytes", None)
-        if smem is not None:
-            smem.argtypes = list(cuda_lib.SIGNATURES[
-                "rtxpt_shade_smem_bytes"])
+        # a kernel with dynamic shared memory stages its input rows as
+        # this tree's does; one without reads them from global memory
+        source = (self.csrc / "shade_kernel.cu").read_text()
         self.inst = CS.shade_instances(
             cuda_lib.ptxas_report("shade_kernel.cu", csrc=self.csrc),
             cuda_lib.build(stem="rtxpt_shade_other",
                            sources=("shade_kernel.cu",), csrc=self.csrc),
-            smem or (lambda nd, nl: 0))
+            staged="extern __shared__" in source)
         return self
 
     def run(self, args, kw, fill):
