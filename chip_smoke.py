@@ -55,7 +55,30 @@ its seconds):
      load_surface call and K3 not at all, `bvh8_trace_2l` once per
      two-level trace call, and K5 and K6 not at all; hold a 64x36 GPU
      render against the port's CPU render (PSNR > 40 dB);
-  6. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
+  6. reference configurations (the configurations of reference mode
+     other than the default, pt/integrator.py `uses_shade_kernel`): hold
+     the fused dense trace, K1, K7, the surface fetch, K2 and K3 against
+     their plain versions on the first bounce of the bench through the
+     chain of tensor ops (shade_megakernel=False, path "bench_chain");
+     render the bench through the chain with the counters set to 0 just
+     before, and require no K4, the fused dense trace once per dense trace
+     call, the surface fetch once per load_surface call, K2 to have
+     launched and the image to be within PSNR 40 dB of the K4 bench's
+     (tonemapped); render the bench under NEE off, the uniform and the
+     presampled distant samplers, ReGIR local sampling (grid and onion
+     cells) and the "hq" and "uniform" sample-generator tiers, each with
+     K4 once per bounce where the rule takes it and not at all elsewhere,
+     and require each image mean within 10% of the default bench's (the
+     reference's unbiasedness gate, tests/test_regir.py:30-31); on the
+     city at 1920x1080 with ReGIR local sampling (path "city_regir"), hold
+     the two-level trace (camera and NEE rays), K5, K6, the surface fetch,
+     K2 and K3 against their plain versions on its first bounce, render
+     2 spp and require `bvh8_trace_2l` once per two-level trace call, no
+     K4, and the mean within 10% of the city phase's; hold every
+     configuration's 64x48 2-spp GPU render against the CPU's (PSNR >
+     40 dB), and three 64x48 realtime frames through the FILL chain
+     (shade_megakernel=False; no K4 FILL) against the CPU's;
+  7. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
      1920x1080 and on programmer-art at 640x360 (the bench's realtime
      case): capture the first launches of each kernel in one frame (the
@@ -78,13 +101,13 @@ its seconds):
      tests/test_ref_vs_realtime.py on the card: the mean of 32
      `ref-vs-realtime` frames at 48x32 against the port's 32-spp
      reference render (median block error < 0.25, means within 10%);
-  7. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+  8. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  8. print a JSON line describing the kernels (each kernel's numbers on
+  9. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
 
@@ -156,6 +179,9 @@ RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
                 "shade_nee_fill")
 RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                "shade_nee_fill")
+# the reference configurations' paths through the chain of tensor ops
+BENCH_CHAIN_PATH = ("mt_dense_fused", "gather_rows", "gather_surface")
+CITY_REGIR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
 # a kernel that runs once per trace call: (the module whose trace_closest
 # and trace_anyhit make those calls, the kernels its path no longer runs)
 ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
@@ -163,7 +189,21 @@ ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
               "mt_dense_fused": ("rtxpt_tpu_torch.ops.mt_dense",
                                  ("mt_dense", "tile_keys"))}
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
+         "bench_chain": BENCH_CHAIN_PATH, "city_regir": CITY_REGIR_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
+# the bench workload's configuration and size (width, height, spp), the
+# city's size, and the reference configurations other than the default
+# that phase 6 renders the bench under
+BENCH_SIZE, CITY_SIZE = (800, 600, 8), (1920, 1080, 2)
+BENCH_CFG = dict(max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
+                 nee_local_samples=1)
+OTHER_CONFIGS = {"NEE off": dict(nee_enabled=False),
+                 "distant uniform": dict(nee_distant_type=0),
+                 "distant presampled": dict(nee_distant_type=2),
+                 "ReGIR grid": dict(nee_local_type=2),
+                 "ReGIR onion": dict(nee_local_type=2, regir_layout="onion"),
+                 "rng hq": dict(rng_quality="hq"),
+                 "rng uniform": dict(rng_quality="uniform")}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 # warp instructions the H100 SXM can dispatch: 132 SMs x 4 schedulers x
@@ -787,13 +827,16 @@ def check_surface(args, label) -> dict:
                 instance=inst)
 
 
-def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
-    """The surface fetch, K2, K3 and K4 (fill: K4 FILL) on the calls a
+def check_surface_kernels(cap, label, lanes=None, fill=False,
+                          shade_pass=True) -> dict:
+    """The surface fetch, K2, K3 and K4 (fill: K4 FILL; shade_pass=False:
+    no K4, for a bounce through the chain of tensor ops) on the calls a
     Capture of one first bounce recorded -> {kernel name: result}; K2 also
     on the three table fetches inside the surface fetch and K3 on its
     blend, the parent's calls; raises where a kernel disagrees."""
     shade = "shade_nee_fill" if fill else "shade_nee"
-    require(cap.calls["gather_surface"] and cap.calls[shade],
+    require(cap.calls["gather_surface"]
+            and (cap.calls[shade] or not shade_pass),
             f"{label}: no surface fetch or {shade} launch captured")
     args = cap.calls["gather_surface"][0][0]
     k2, k3 = surface_inputs(args)
@@ -801,8 +844,9 @@ def check_surface_kernels(cap, label, lanes=None, fill=False) -> dict:
            "gather_rows": check_gathers(cap.calls["gather_rows"] + k2, label,
                                         lanes),
            "gather_rows_interp": check_interp(k3, label)}
-    args, kw = cap.calls[shade][0]
-    out[shade] = check_shade(args, kw, label, fill=fill)
+    if shade_pass:
+        args, kw = cap.calls[shade][0]
+        out[shade] = check_shade(args, kw, label, fill=fill)
     return out
 
 
@@ -985,32 +1029,20 @@ def check_goldens():
     require(m["psnr"] > PSNR_MIN, f"GPU vs CPU render: {m}")
 
 
-def bench(card: str) -> dict:
-    """The bench workload; returns its launch counts."""
+def bench(card: str):
+    """The bench workload; returns its launch counts and HDR image."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
-    from rtxpt_tpu_torch.ops import cuda_lib
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
-    w, h, spp = 800, 600, 8
+    w, h, spp = BENCH_SIZE
     host = procedural.build_programmer_art().finish()
-    cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
-                           nee_distant_samples=1, nee_local_samples=1)
-    r = Renderer(host, procedural.default_camera(w, h), cfg,
+    r = Renderer(host, procedural.default_camera(w, h),
+                 reference_config(**BENCH_CFG),
                  env_radiance=EM.bake_procedural_sky(height=64),
                  device="cuda")
     r.render(w, h, spp)                      # warm-up (allocator, caches)
-    torch.cuda.synchronize()
     r.reset_accumulation()
-    cuda_lib.reset_launch_counts()
-    with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc, \
-            SurfaceCalls() as sc, ShadeCalls() as shc:
-        t0 = time.perf_counter()
-        hdr = r.render(w, h, spp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    counts = cuda_lib.launch_counts()
-    out = hdr.cpu().numpy()
-    require(out.shape == (h, w, 3) and np.isfinite(out).all()
-            and out.mean() > 0.0, "bench render: bad output")
+    out, wall, counts, tc, sc, shc = counted_render(
+        r, w, h, spp, ONE_LAUNCH["mt_dense_fused"][0])
     mpaths = w * h * spp / wall / 1e6
     print(f"bench {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {mpaths:.3f} Mpaths/s on {card}; {tc.n} dense traces, "
@@ -1021,7 +1053,8 @@ def bench(card: str) -> dict:
     require_one_launch_per_trace(counts, tc.n, "bench", "mt_dense_fused")
     require_one_surface_fetch(counts, sc.n, "bench")
     require_one_shade_per_bounce(counts, shc.n, "bench")
-    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+    require(shc.n_chain == 0, "bench: a bounce took the chain")
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}, out
 
 
 class VisitCount:
@@ -1101,7 +1134,7 @@ def sorted_bench(card: str):
 
 
 def labs(results: dict) -> dict:
-    """The labs phase (7.): K9's modes on the bench camera rays and every
+    """The labs phase (8.): K9's modes on the bench camera rays and every
     K8 micro-kernel against its plain version -> results["labs"]; returns
     the labs' kernels (no main path runs them) as KERNELS describes
     kernels."""
@@ -1388,23 +1421,29 @@ class SurfaceCalls:
 
 
 class ShadeCalls:
-    """Counts the bounces with at least one lane (pt/integrator.py
-    `_shade_step` calls, each of which runs K4 or K4 FILL once) while
-    active."""
+    """Counts the bounces with at least one lane while active: `n` those
+    of the fused pass (pt/integrator.py `_shade_step` calls, each of which
+    runs K4 or K4 FILL once), `n_chain` those of the chain of tensor ops
+    (`_chain_shade_step`)."""
+    STEPS = {"_shade_step": "n", "_chain_shade_step": "n_chain"}
 
     def __enter__(self):
         from rtxpt_tpu_torch.pt import integrator
-        self.mod, self.orig, self.n = integrator, integrator._shade_step, 0
-
-        def counted(assets, cfg, consts4, path, surf, shade, *args, **kw):
-            self.n += shade.shape[0] > 0
-            return self.orig(assets, cfg, consts4, path, surf, shade, *args,
-                             **kw)
-        integrator._shade_step = counted
+        self.mod, self.n, self.n_chain = integrator, 0, 0
+        self.orig = {name: getattr(integrator, name) for name in self.STEPS}
+        for name, fn in self.orig.items():
+            def counted(assets, cfg, consts4, path, surf, shade, *args,
+                        _fn=fn, _attr=self.STEPS[name], **kw):
+                setattr(self, _attr,
+                        getattr(self, _attr) + (shade.shape[0] > 0))
+                return _fn(assets, cfg, consts4, path, surf, shade, *args,
+                           **kw)
+            setattr(integrator, name, counted)
         return self
 
     def __exit__(self, *exc):
-        self.mod._shade_step = self.orig
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
 
 
 def require_one_shade_per_bounce(counts, n_bounces, what, fill=False):
@@ -1415,6 +1454,16 @@ def require_one_shade_per_bounce(counts, n_bounces, what, fill=False):
     require(counts[name] == n_bounces > 0 and counts[other] == 0,
             f"{what}: {counts[name]} {name} and {counts[other]} {other} "
             f"launches for {n_bounces} bounces")
+
+
+def require_chain(counts, shc, what):
+    """Every bounce through the chain of tensor ops: no K4 or K4 FILL
+    launch, and no bounce of the fused pass."""
+    require(shc.n_chain > 0 and shc.n == 0 and counts["shade_nee"] == 0
+            and counts["shade_nee_fill"] == 0,
+            f"{what}: {shc.n_chain} chain and {shc.n} fused bounces, "
+            f"{counts['shade_nee']} shade_nee and {counts['shade_nee_fill']} "
+            "shade_nee_fill launches")
 
 
 def require_one_surface_fetch(counts, n_calls, what):
@@ -1444,11 +1493,12 @@ def build_city():
     return procedural.build_city().finish()
 
 
-def city(results: dict, card: str, host, geometry_s: float) -> dict:
+def city(results: dict, card: str, host, geometry_s: float):
     """The city phase (5.) on the host geometry build_city() made in
-    `geometry_s` seconds; returns the launch counts of its render."""
+    `geometry_s` seconds; returns the launch counts and the image mean of
+    its render."""
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
-    from rtxpt_tpu_torch.ops import bvh2l, cuda_lib
+    from rtxpt_tpu_torch.ops import bvh2l
     from rtxpt_tpu_torch.scene import envmap as EM, procedural
     from rtxpt_tpu_torch.utils import image as IM
     w, h, spp = 1920, 1080, 2
@@ -1488,19 +1538,9 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
 
     # the main path: 1920x1080, 2 spp as one regenerating chunk
     r.render(w, h, spp)                      # warm-up
-    torch.cuda.synchronize()
     r.reset_accumulation()
-    cuda_lib.reset_launch_counts()
-    with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc, \
-            SurfaceCalls() as sc, ShadeCalls() as shc:
-        t0 = time.perf_counter()
-        hdr = r.render(w, h, spp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    counts = cuda_lib.launch_counts()
-    out = hdr.cpu().numpy()
-    require(out.shape == (h, w, 3) and np.isfinite(out).all()
-            and out.mean() > 0.0, "city render: bad output")
+    out, wall, counts, tc, sc, shc = counted_render(
+        r, w, h, spp, ONE_LAUNCH["bvh8_trace_2l"][0])
     print(f"city {w}x{h} {spp}spp NEE 1+1, 6 bounces: {wall * 1e3:.1f} ms "
           f"wall, {w * h * spp / wall / 1e6:.3f} Mpaths/s on {card}; "
           f"{tc.n} two-level traces, {sc.n} load_surface calls, {shc.n} "
@@ -1511,6 +1551,7 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     require_one_launch_per_trace(counts, tc.n, "city render")
     require_one_surface_fetch(counts, sc.n, "city render")
     require_one_shade_per_bounce(counts, shc.n, "city render")
+    require(shc.n_chain == 0, "city render: a bounce took the chain")
 
     # the port on the card against the port's plain versions on the CPU
     imgs = []
@@ -1523,7 +1564,201 @@ def city(results: dict, card: str, host, geometry_s: float) -> dict:
     print(f"city GPU vs CPU (plain) 64x36 1spp: PSNR {m['psnr']:.2f} dB, "
           f"SMAPE {m['smape']:.5f}")
     require(m["psnr"] > PSNR_MIN, f"city GPU vs CPU render: {m}")
-    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}, \
+        float(out.mean())
+
+
+def counted_render(r, w, h, spp, trace_module):
+    """r.render(w, h, spp) with every launch counter set to 0 just before:
+    (HDR image as numpy, wall seconds, launch counts, TraceCalls of
+    `trace_module`, SurfaceCalls, ShadeCalls)."""
+    from rtxpt_tpu_torch.ops import cuda_lib
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with TraceCalls(trace_module) as tc, SurfaceCalls() as sc, \
+            ShadeCalls() as shc:
+        t0 = time.perf_counter()
+        hdr = r.render(w, h, spp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = hdr.cpu().numpy()
+    require(out.shape == (h, w, 3) and np.isfinite(out).all()
+            and out.mean() > 0.0, "render: bad output")
+    return out, wall, cuda_lib.launch_counts(), tc, sc, shc
+
+
+def require_mean(mean, ref_mean, what):
+    """The reference's unbiasedness gate (tests/test_regir.py:30-31):
+    image means within 10%."""
+    rel = abs(mean - ref_mean) / max(ref_mean, 1e-6)
+    require(rel < 0.10, f"{what}: mean {mean} against {ref_mean} ({rel:.2%})")
+    return rel
+
+
+def reference_configs(results: dict, card: str, host_city, bench_hdr,
+                      city_mean: float) -> dict:
+    """The reference configurations phase (6.); returns the launch counts
+    of its main-path renders (bench_chain, city_regir)."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
+                                                 reference_config)
+    from rtxpt_tpu_torch.ops import cuda_lib
+    from rtxpt_tpu_torch.post.tonemap import tonemap
+    from rtxpt_tpu_torch.pt import integrator as TI
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import image as IM
+    dense = ONE_LAUNCH["mt_dense_fused"][0]
+    two_level = ONE_LAUNCH["bvh8_trace_2l"][0]
+    host = procedural.build_programmer_art().finish()
+    env = EM.bake_procedural_sky(height=64)
+    w, h, spp = BENCH_SIZE
+    launches = {}
+
+    def art(cfg, device="cuda", w=w, h=h):
+        return Renderer(host, procedural.default_camera(w, h),
+                        reference_config(**BENCH_CFG, **cfg),
+                        env_radiance=env, device=device)
+
+    def png(hdr):
+        return tonemap(torch.as_tensor(hdr)).numpy()
+
+    # ---- the bench through the chain: its kernels on the first bounce
+    chain = dict(shade_megakernel=False)
+    r = art(chain)
+    with Capture(dict(FIRST_BOUNCE, gather_rows=48)) as cap:
+        r.render_sample(w, h, 0)
+        torch.cuda.synchronize()
+    calls = cap.calls["trace_dense_fused"]
+    closest = [c for c in calls if not c[1]["any_hit"]]
+    anyhit = [c for c in calls if c[1]["any_hit"]]
+    require(len(closest) >= 2 and anyhit and not cap.calls["shade_nee"],
+            "bench chain: wrong first-bounce launches captured")
+    results["bench_chain"].update(check_dense(
+        r.accel, [("camera", closest[0], True),
+                  ("scattered", closest[1], False),
+                  ("nee any-hit", anyhit[0], True)], "bench chain"))
+    results["bench_chain"].update(check_surface_kernels(
+        cap, "bench chain", w * h, shade_pass=False))
+    del cap, calls, closest, anyhit
+
+    # ---- the bench through the chain: the main path
+    r.render(w, h, spp)                      # warm-up
+    r.reset_accumulation()
+    hdr, wall, counts, tc, sc, shc = counted_render(r, w, h, spp, dense)
+    m = IM.compare(png(hdr), png(bench_hdr))
+    print(f"bench chain {w}x{h} {spp}spp NEE 1+1, 6 bounces: "
+          f"{wall * 1e3:.1f} ms wall, {w * h * spp / wall / 1e6:.3f} "
+          f"Mpaths/s on {card}; {tc.n} dense traces, {sc.n} load_surface "
+          f"calls, {shc.n_chain} chain bounces; launches {counts}; against "
+          f"the K4 bench: PSNR {m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}, "
+          f"means {hdr.mean():.6f} / {bench_hdr.mean():.6f}", flush=True)
+    require_chain(counts, shc, "bench chain")
+    require_one_launch_per_trace(counts, tc.n, "bench chain",
+                                 "mt_dense_fused")
+    require_one_surface_fetch(counts, sc.n, "bench chain")
+    require(counts["gather_rows"] > 0, "bench chain: no K2 launch")
+    require(m["psnr"] > PSNR_MIN, f"bench chain against the K4 bench: {m}")
+    launches["bench_chain"] = {name: counts.get(KERNELS[name][0], 0)
+                               for name in KERNELS}
+    del r
+
+    # ---- the bench under each other configuration
+    for name, cfg in OTHER_CONFIGS.items():
+        r = art(cfg)
+        hdr, wall, counts, tc, sc, shc = counted_render(r, w, h, spp, dense)
+        rel = require_mean(float(hdr.mean()), float(bench_hdr.mean()),
+                           f"bench {name}")
+        fused = TI.uses_shade_kernel(r.cfg, 1)
+        print(f"bench {name} {w}x{h} {spp}spp: {wall * 1e3:.1f} ms wall "
+              f"(first render), {w * h * spp / wall / 1e6:.3f} Mpaths/s on "
+              f"{card}; mean {hdr.mean():.6f} ({rel:.3%} from the default "
+              f"bench's); {'K4' if fused else 'chain'}: {shc.n} fused, "
+              f"{shc.n_chain} chain bounces; launches {counts}", flush=True)
+        if fused:
+            require_one_shade_per_bounce(counts, shc.n, f"bench {name}")
+            require(shc.n_chain == 0, f"bench {name}: a chain bounce")
+        else:
+            require_chain(counts, shc, f"bench {name}")
+        require_one_launch_per_trace(counts, tc.n, f"bench {name}",
+                                     "mt_dense_fused")
+        require_one_surface_fetch(counts, sc.n, f"bench {name}")
+        del r
+    torch.cuda.empty_cache()
+
+    # ---- the city with ReGIR local sampling
+    cw, ch, cspp = CITY_SIZE
+    r = Renderer(host_city, procedural.city_camera(cw, ch),
+                 reference_config(**BENCH_CFG, nee_local_type=2),
+                 env_radiance=env, device="cuda")
+    with Capture(dict(FIRST_BOUNCE, trace_bvh8_2l=2, gather_rows=48)) as cap:
+        r.render_sample(cw, ch, 0)
+        torch.cuda.synchronize()
+    traces = cap.calls["trace_bvh8_2l"]
+    require([kw["any_hit"] for _, kw in traces] == [False, True]
+            and not cap.calls["shade_nee"],
+            "city ReGIR: the first bounce's traces are not camera, NEE")
+    results["city_regir"].update(check_two_level(
+        [("camera", traces[0], True), ("nee any-hit", traces[1], True)],
+        "city regir"))
+    results["city_regir"].update(check_surface_kernels(
+        cap, "city regir", shade_pass=False))
+    del cap, traces
+    torch.cuda.empty_cache()
+    hdr, wall, counts, tc, sc, shc = counted_render(r, cw, ch, cspp,
+                                                    two_level)
+    rel = require_mean(float(hdr.mean()), city_mean, "city ReGIR")
+    print(f"city ReGIR {cw}x{ch} {cspp}spp NEE 1+1, 6 bounces: "
+          f"{wall * 1e3:.1f} ms wall, {cw * ch * cspp / wall / 1e6:.3f} "
+          f"Mpaths/s on {card}; mean {hdr.mean():.6f} against the power "
+          f"sampler's {city_mean:.6f} ({rel:.3%}); {tc.n} two-level "
+          f"traces, {sc.n} load_surface calls, {shc.n_chain} chain "
+          f"bounces; launches {counts}", flush=True)
+    require_chain(counts, shc, "city ReGIR")
+    require_one_launch_per_trace(counts, tc.n, "city ReGIR")
+    require_one_surface_fetch(counts, sc.n, "city ReGIR")
+    require(counts["gather_rows"] > 0, "city ReGIR: no K2 launch")
+    launches["city_regir"] = {name: counts.get(KERNELS[name][0], 0)
+                              for name in KERNELS}
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- each configuration on the card against the CPU
+    for name, cfg in {"chain": chain, **OTHER_CONFIGS}.items():
+        imgs = [art(cfg, device, 64, 48).render(64, 48, 2) for device in
+                ("cuda", "cpu")]
+        imgs = [png(img.cpu().numpy()) for img in imgs]
+        m = IM.compare(*imgs)
+        print(f"{name} GPU vs CPU (plain) 64x48 2spp: PSNR {m['psnr']:.2f} "
+              f"dB, SMAPE {m['smape']:.5f}", flush=True)
+        require(np.isfinite(imgs[0]).all() and m["psnr"] > PSNR_MIN,
+                f"{name} GPU vs CPU render: {m}")
+
+    # ---- the realtime FILL pass through the chain
+    rt_cfg = realtime_config(use_restir_di=True, use_restir_gi=True,
+                             denoiser_enabled=True, use_stable_planes=True,
+                             shade_megakernel=False)
+    imgs = []
+    for device in ("cuda", "cpu"):
+        rs = RealtimeRenderer(host, procedural.default_camera(64, 48),
+                              rt_cfg, device=device)
+        with ShadeCalls() as shc:
+            if device == "cuda":
+                torch.cuda.synchronize()
+                cuda_lib.reset_launch_counts()
+            for _ in range(3):
+                img = rs.render_frame(64, 48)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = cuda_lib.launch_counts()
+            require_chain(counts, shc, "realtime FILL chain")
+        imgs.append(rs.tonemapped(img).cpu().numpy())
+    m = IM.compare(*imgs)
+    print(f"realtime FILL chain GPU vs CPU (plain) 64x48, frame 3: PSNR "
+          f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}; launches {counts}",
+          flush=True)
+    require(np.isfinite(imgs[0]).all() and m["psnr"] > PSNR_MIN,
+            f"realtime FILL chain GPU vs CPU: {m}")
+    return launches
 
 
 def capture_realtime_frame(r, w, h):
@@ -1626,7 +1861,7 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
 
 
 def realtime(results: dict, card: str, host_city) -> dict:
-    """The realtime phase (6.); returns the launch counts of its timed
+    """The realtime phase (7.); returns the launch counts of its timed
     frames by path."""
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
     from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
@@ -1775,13 +2010,15 @@ def main() -> int:
     launches = {}
     phase("kernels: dense trace, K1-K4, K7", check_kernels, results)
     phase("goldens", check_goldens)
-    launches["bench"] = phase("bench", bench, card)
+    launches["bench"], bench_hdr = phase("bench", bench, card)
     phase("bench raystream", sorted_bench, card)
     t0 = time.perf_counter()
     host_city = build_city()
     geometry_s = time.perf_counter() - t0
-    launches["city"] = phase("city", city, results, card, host_city,
-                             geometry_s)
+    launches["city"], city_mean = phase("city", city, results, card,
+                                        host_city, geometry_s)
+    launches.update(phase("reference configurations", reference_configs,
+                          results, card, host_city, bench_hdr, city_mean))
     launches.update(phase("realtime", realtime, results, card, host_city))
     lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():

@@ -10,7 +10,9 @@ RTXPT/CommandLine.h:16-34).
 triangles, two-level BVH8). `--mode realtime` renders `--spp` frames of
 the realtime pipeline (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; NEE
 1+1) and saves the last; `--preset ref-vs-realtime` strips it to the
-reference mode's estimator (no ReSTIR, denoiser or TAA).
+reference mode's estimator (no ReSTIR, denoiser or TAA). `--env
+sky.hdr` lights the scene with a Radiance .hdr in place of the procedural
+sky; `--no-nee` turns next-event estimation off.
 """
 from __future__ import annotations
 
@@ -52,10 +54,16 @@ def build_arg_parser():
     p.add_argument("--max-diffuse-bounces", type=int, default=None)
     p.add_argument("--nee-distant-samples", type=int, default=2)
     p.add_argument("--nee-local-samples", type=int, default=2)
+    p.add_argument("--no-nee", action="store_true",
+                   help="no next-event estimation (emission and the sky "
+                   "are found by scatter rays alone)")
     p.add_argument("--no-jitter", action="store_true")
     p.add_argument("--exposure", type=float, default=1.0)
     p.add_argument("--no-auto-expose", action="store_true")
     p.add_argument("--sky-scale", type=float, default=1.0)
+    p.add_argument("--env", default=None,
+                   help="equirect environment texture (Radiance .hdr) in "
+                   "place of the procedural sky")
     p.add_argument("--checkpoint", default=None,
                    help="accumulation checkpoint file (.npz): resumes if "
                    "it exists, saves on exit")
@@ -95,6 +103,7 @@ def _run_realtime(args, host, cam, env, frames: int) -> int:
                           use_stable_planes=args.stable_planes,
                           max_bounces=args.max_bounces,
                           max_diffuse_bounces=args.max_diffuse_bounces or 3,
+                          nee_enabled=not args.no_nee,
                           nee_distant_samples=1, nee_local_samples=1)
     r = RealtimeRenderer(host, cam, cfg, env_radiance=env,
                          device=args.device)
@@ -133,12 +142,14 @@ def main(argv=None) -> int:
 
     host, cam = load_scene(args)
     cfg = reference_config(max_bounces=args.max_bounces,
+                           nee_enabled=not args.no_nee,
                            nee_distant_samples=args.nee_distant_samples,
                            nee_local_samples=args.nee_local_samples)
     if args.max_diffuse_bounces is not None:
         cfg = dataclasses.replace(
             cfg, max_diffuse_bounces=args.max_diffuse_bounces)
-    env = EM.bake_procedural_sky(sky_scale=args.sky_scale)
+    env = EM.load_equirect(args.env) if args.env else \
+        EM.bake_procedural_sky(sky_scale=args.sky_scale)
     spp = args.spp if args.screenshot_frame_index is None \
         else args.screenshot_frame_index
     if args.mode == "realtime":

@@ -2,11 +2,14 @@
 
 `PTConfig` is the static configuration and `PTConstants` the per-frame
 constants (SampleConstantBuffer.h PathTracerConstants), both plain
-dataclasses of python scalars. The port carries the reference-mode and
-realtime fields its render modes read, with the reference's defaults; it
-always samples the environment with the MIP-descent distribution,
-low-discrepancy sample streams and the fused shade+NEE pass (the
-reference's defaults for those switches).
+dataclasses of python scalars. The port carries the reference's fields
+with the reference's defaults: NEE on or off, the distant sampler
+(uniform, MIP-descent or presampled), the local sampler (power or
+ReGIR, grid or onion cells), the sample-generator tier ("ld", "hq" or
+"uniform") and the fused shade+NEE switch. It leaves out the reference's
+`use_analytic_lights`, which the reference reads nowhere, and
+`exact_alpha_test`, which only alpha-MASK scenes read: the Renderer still
+refuses them.
 """
 from __future__ import annotations
 
@@ -17,14 +20,29 @@ MODE_REFERENCE = 0
 MODE_BUILD_STABLE_PLANES = 1
 MODE_FILL_STABLE_PLANES = 2
 
+# NEE distant sampler types (SampleUI.h:147)
+NEE_DISTANT_UNIFORM = 0
+NEE_DISTANT_MIP_DESCENT = 1
+NEE_DISTANT_PRESAMPLED = 2
+
+# NEE local sampler types (SampleUI NEELocalType)
+NEE_LOCAL_POWER = 1
+NEE_LOCAL_REGIR = 2
+RNG_QUALITIES = ("ld", "hq", "uniform")
+
 
 @dataclasses.dataclass(frozen=True)
 class PTConfig:
     mode: int = MODE_REFERENCE
     max_bounces: int = 30                 # SampleUI BounceCount default
     max_diffuse_bounces: int = 6          # reference-mode default (UI:163)
+    nee_enabled: bool = True
+    nee_distant_type: int = NEE_DISTANT_MIP_DESCENT
     nee_distant_samples: int = 2          # SampleUI.h:149
     nee_local_samples: int = 2            # SampleUI.h:152
+    nee_local_type: int = NEE_LOCAL_POWER
+    regir_layout: str = "grid"            # "grid" | "onion" (camera-centred
+    #   log shells, LightSamplingLocal.hlsli:555)
     enable_russian_roulette: bool = True
     use_env_lights: bool = True           # PathTracer.hlsli:22
     use_emissive_lights: bool = True
@@ -52,6 +70,15 @@ class PTConfig:
     # waves, for wavefronts at least wavefront_compaction_min lanes wide
     wavefront_compaction: bool = True
     wavefront_compaction_min: int = 16384
+    # the fused shade+NEE pass (K4, pt/shade_kernel.py); the bounce takes
+    # it when NEE is on, local sampling is not ReGIR and the tier is "ld"
+    # (pt/integrator.py `uses_shade_kernel`), else the chain of tensor ops
+    shade_megakernel: bool = True
+    # sample-generator tier: "ld" Owen-scrambled Sobol' (default), "hq"
+    # the hash streams with the extra output mixing round
+    # (StatelessHQUniformSampleGenerator.hlsli:20), "uniform" the plain
+    # hash streams
+    rng_quality: str = "ld"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -82,6 +82,14 @@ def sample_disk_concentric(u):
     return torch.where(zero[..., None], u, d)
 
 
+def sample_sphere_uniform(u):
+    """Uniform sphere sample (Utils.hlsli:80); pdf = 1/(4 pi)."""
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = M_2PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def sample_triangle_uniform(u):
     """Uniform barycentrics via the sqrt parameterization: (b0, b1, b2)."""
     su = torch.sqrt(u[..., 0])
@@ -129,15 +137,42 @@ def eval_mis(n0, p0, n1, p1):
     return saturate(q0 / torch.clamp(q0 + q1, min=1e-30))
 
 
-def firefly_filter(signal, threshold: float, firefly_filter_k):
-    """Biased luminance cap (PathTracerHelpers.hlsli:206-216);
-    threshold <= 0 disables."""
-    if not threshold > 0.0:
+def firefly_filter(signal, threshold, firefly_filter_k):
+    """Biased luminance cap (PathTracerHelpers.hlsli:206-216); threshold
+    (a float or a 0-d tensor) <= 0 disables."""
+    if not torch.is_tensor(threshold) and not threshold > 0.0:
         return signal
     t = threshold * firefly_filter_k
     lum = luminance(signal)
     scaled = signal / torch.clamp(lum, min=1e-30)[..., None] * t[..., None]
-    return torch.where((lum > t)[..., None], scaled, signal)
+    return torch.where(((threshold > 0.0) & (lum > t))[..., None], scaled,
+                       signal)
+
+
+def acos_approx(x):
+    """Abramowitz-Stegun 4.4.45 arccos (|err| <= 6.8e-5 rad), as the
+    reference's cone-spread and firefly heuristics use it."""
+    ax = torch.abs(x)
+    p = 1.5707288 + ax * (-0.2121144 + ax * (0.0742610 + ax * -0.0187293))
+    r = torch.sqrt(torch.clamp(1.0 - ax, min=0.0)) * p
+    return torch.where(x >= 0.0, r, M_PI - r)
+
+
+def spread_angle_from_scatter_pdf(scatter_pdf, growth_factor=0.15):
+    """Cone spread expansion from a scatter pdf, uniform-cap heuristic
+    (PathTracerHelpers.hlsli:189)."""
+    safe = torch.clamp(scatter_pdf, min=1e-30)
+    return growth_factor * 2.0 * acos_approx(
+        torch.clamp(1.0 - (1.0 / safe) / M_2PI, -1.0, 1.0))
+
+
+def new_scatter_firefly_filter_k(current_k, bounce_pdf, lobe_p):
+    """PathTracerHelpers.hlsli:195-203."""
+    angle = torch.where(bounce_pdf == 0.0, 0.0,
+                        spread_angle_from_scatter_pdf(bounce_pdf, 1.0))
+    p = 32.0 / (32.0 + angle * angle)
+    p = p * torch.sqrt(torch.clamp(lobe_p, min=0.0))
+    return torch.clamp(current_k * p, min=1e-4)
 
 
 def _spread_bits16(x):

@@ -6,7 +6,9 @@ Owns the device scene tables, the trace structure, the environment and
 the light table on one torch device, and drives reference-mode
 accumulation: chunks of up to 8 samples per pixel go through one
 regenerating wavefront (integrator spp > 1), single samples through
-`render_sample`.
+`render_sample`. Configurations whose assets change with each sample
+(ReGIR local sampling rebuilds its light grid, the presampled distant
+sampler its env list) render sample by sample.
 
 The trace structure is the reference's tier for the scene's size, and
 only that one is built: the dense planes (ops/mt_dense.py) up to 8,192
@@ -17,6 +19,7 @@ until the texture paths are ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -28,6 +31,7 @@ from ..ops import bvh as bvh_mod
 from ..ops import bvh2l, mt_dense
 from ..post import accumulation, tonemap
 from ..pt import integrator
+from ..restir import regir as RG
 from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene.build import to_device
@@ -122,6 +126,24 @@ class Renderer:
             viewport=torch.tensor([width, height], dtype=torch.float32,
                                   device=self.device))
 
+    def sample_assets(self, sample_index: int) -> integrator.RenderAssets:
+        """The assets of one accumulation sample: with ReGIR local sampling
+        the light grid built for it (grid or onion cells, the onion centred
+        on the camera), with the presampled distant sampler its env list
+        (rtxpt_tpu/models/renderer.py:203-218)."""
+        assets = self.assets
+        if self.cfg.nee_local_type == C.NEE_LOCAL_REGIR and \
+                self.lights is not None:
+            pos = self.scene.positions
+            assets = dataclasses.replace(assets, regir=RG.build_regir(
+                self.lights, pos.amin(0) - 1e-3, pos.amax(0) + 1e-3,
+                sample_index, layout=self.cfg.regir_layout,
+                center=self.camera.pos))
+        if self.cfg.nee_distant_type == C.NEE_DISTANT_PRESAMPLED:
+            assets = dataclasses.replace(
+                assets, env_presampled=EM.presample(self.env, sample_index))
+        return assets
+
     def render_sample(self, width: int, height: int, sample_index: int,
                       jitter_aa: bool = True):
         """One sample per pixel at the given accumulation index."""
@@ -129,7 +151,7 @@ class Renderer:
         cam = self._camera(width, height, r2_jitter(sample_index)
                            if jitter_aa else (0.0, 0.0))
         radiance = integrator.render_wavefront(
-            self.assets, cam, px, py,
+            self.sample_assets(sample_index), cam, px, py,
             C.default_constants(sample_base_index=sample_index),
             cfg=self.cfg)
         return radiance.reshape(height, width, 3)
@@ -141,12 +163,19 @@ class Renderer:
             self.accum = torch.zeros((height, width, 3), dtype=torch.float32,
                                      device=self.device)
             self.sample_index = 0
+        # path regeneration (integrator spp > 1): dead lanes start their
+        # pixel's next sample in place, keeping the wavefront occupied; it
+        # jitters each regenerated sample itself. ReGIR and presampled
+        # configurations render sample by sample, as in the reference
+        # (rtxpt_tpu/models/renderer.py:245-252): their per-sample assets
+        # would be stale on regenerated samples
+        can_regen = (jitter_aa
+                     and self.cfg.nee_local_type != C.NEE_LOCAL_REGIR
+                     and self.cfg.nee_distant_type
+                     != C.NEE_DISTANT_PRESAMPLED)
         remaining = spp
         while remaining > 0:
-            # path regeneration (integrator spp > 1): dead lanes start
-            # their pixel's next sample in place, keeping the wavefront
-            # occupied; it jitters each regenerated sample itself
-            if jitter_aa and remaining >= 2:
+            if can_regen and remaining >= 2:
                 k = min(remaining, REGEN_CHUNK)
                 px, py = self._pixel_grid(width, height)
                 cam = self._camera(width, height,

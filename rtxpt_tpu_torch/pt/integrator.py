@@ -6,7 +6,11 @@ Each iteration of the bounce loop runs over the whole wavefront: closest
 hit trace (ops/traverse.py: K1, or K5/K6 on the BVH tiers) -> env eval of
 misses -> surface load (K2/K3) -> alpha and nested-dielectric rejection ->
 the fused shade+NEE pass (K4) -> the batched NEE visibility trace (any-hit
-through the same dispatch). The reference's
+through the same dispatch). Configurations the fused pass does not take
+(`uses_shade_kernel`: NEE off, ReGIR local sampling, the "hq" and
+"uniform" sample-generator tiers, or shade_megakernel=False) run the
+reference's chain of tensor ops instead (`_chain_shade_step`), with the
+same traces and fetches. The reference's
 `lax.while_loop` with `any(active)` as its condition is a Python loop here,
 with one host sync per bounce.
 
@@ -37,10 +41,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import MODE_FILL_STABLE_PLANES, PTConfig, PTConstants
+from ..config import (MODE_FILL_STABLE_PLANES, NEE_DISTANT_MIP_DESCENT,
+                      NEE_DISTANT_UNIFORM, NEE_LOCAL_REGIR, RNG_QUALITIES,
+                      PTConfig, PTConstants)
 from ..core import mathutils as mu
 from ..core import rng
 from ..ops import mt_dense, traverse
+from ..restir import regir as RG
 from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene.camera import CameraData, compute_rays
@@ -67,6 +74,8 @@ class RenderAssets:
     env: EM.EnvMap
     lights: Optional[LI.LightTable]
     accel: object   # ops.mt_dense.DenseMT / ops.bvh.BVH8 / ops.bvh2l.BVH8TwoLevel
+    env_presampled: Optional[EM.PresampledEnv] = None   # per sample
+    regir: Optional[object] = None   # restir.regir.ReGIRGrid, per sample
 
 
 class PathState(NamedTuple):
@@ -154,16 +163,54 @@ def init_paths(cam: CameraData, px, py, cfg: PTConfig,
         px=px, py=py)
 
 
-def _sample_distant(assets: RenderAssets, g):
-    """GenerateEnvMapSample (PathTracerNEE.hlsli:70-108), MIP-descent
-    distribution through the alias rows."""
-    g, u2 = rng.next_2d(g, allow_ld=False)
-    d, pdf, le = EM.sample_importance(assets.env, u2)
+def _sample_distant(assets: RenderAssets, cfg: PTConfig, g):
+    """GenerateEnvMapSample (PathTracerNEE.hlsli:70-108) with the
+    configured distant sampler."""
+    if cfg.nee_distant_type == NEE_DISTANT_UNIFORM:
+        g, u2 = rng.next_2d(g, allow_ld=False)
+        d, pdf, le = EM.sample_uniform(assets.env, u2)
+    elif cfg.nee_distant_type == NEE_DISTANT_MIP_DESCENT:
+        g, u2 = rng.next_2d(g, allow_ld=False)
+        d, pdf, le = EM.sample_importance(assets.env, u2)
+    else:   # presampled
+        g, u1 = rng.next_1d(g, allow_ld=False)
+        if assets.env_presampled is None:
+            d, pdf, le = EM.sample_importance(
+                assets.env, torch.stack([u1, u1], -1))
+        else:
+            d, pdf, le = EM.sample_presampled(assets.env,
+                                              assets.env_presampled, u1)
     li = torch.where((pdf > 0.0)[..., None],
                      le / torch.clamp(pdf, min=1e-20)[..., None], 0.0)
-    return g, dict(direction=d,
-                   distance=torch.full_like(pdf, mu.K_MAX_RAY_TRAVEL),
-                   li=li, pdf=pdf, valid=torch.any(li > 0.0, dim=-1))
+    return g, LI.LightSample(
+        direction=d, distance=torch.full_like(pdf, mu.K_MAX_RAY_TRAVEL),
+        li=li, pdf=pdf, valid=torch.any(li > 0.0, dim=-1),
+        delta=torch.zeros_like(pdf, dtype=torch.bool))
+
+
+def _distant_pdf(assets: RenderAssets, cfg: PTConfig, d):
+    if cfg.nee_distant_type == NEE_DISTANT_UNIFORM:
+        return EM.pdf_uniform(assets.env, d)
+    return EM.pdf_mip_descent(assets.env, d)
+
+
+def uses_shade_kernel(cfg: PTConfig, nee_local: int) -> bool:
+    """Whether a bounce runs the fused shade+NEE pass (K4) or the chain of
+    tensor ops: the reference's rule (rtxpt_tpu/pt/integrator.py:620-624),
+    a choice of configuration on every device."""
+    return (cfg.shade_megakernel and cfg.nee_enabled
+            and (nee_local == 0 or cfg.nee_local_type != NEE_LOCAL_REGIR)
+            and cfg.rng_quality == "ld")
+
+
+def _sample_gen(cfg: PTConfig, path, vertex_index, sample_base, s_arr):
+    """The bounce's sample generator: each lane's accumulation sample
+    (path regeneration: sample_base + s_arr) seeds its streams; the "hq"
+    tier adds the output mixing round."""
+    base = sample_base if s_arr is None else \
+        (sample_base + s_arr.to(torch.int64)) & rng.M32
+    return rng.make(path.px, path.py, vertex_index, base,
+                    hq=cfg.rng_quality == "hq")
 
 
 def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
@@ -185,9 +232,7 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
     fill = fill_ctx is not None
 
     # RNG draws, reference order (sample_gen -> RR -> scatter -> NEE)
-    base = sample_base if s_arr is None else \
-        (sample_base + s_arr.to(torch.int64)) & rng.M32
-    g = rng.make(path.px, path.py, vertex_index, base)
+    g = _sample_gen(cfg, path, vertex_index, sample_base, s_arr)
     if cfg.enable_russian_roulette:
         g = rng.start_effect(g, rng.EFFECT_RUSSIAN_ROULETTE, False)
         g, u_rr = rng.next_1d(g, allow_ld=False)
@@ -223,11 +268,11 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
         g = rng.start_effect(g, rng.EFFECT_NEE, False)
     for si in range(nee_distant + nee_local):
         if si < nee_distant:
-            g, ls = _sample_distant(assets, g)
-            vals.update({f"ls_dir{si}": ls["direction"],
-                         f"ls_dist{si}": ls["distance"],
-                         f"ls_li{si}": ls["li"], f"ls_pdf{si}": ls["pdf"],
-                         f"ls_valid{si}": ls["valid"]})
+            g, ls = _sample_distant(assets, cfg, g)
+            vals.update({f"ls_dir{si}": ls.direction,
+                         f"ls_dist{si}": ls.distance,
+                         f"ls_li{si}": ls.li, f"ls_pdf{si}": ls.pdf,
+                         f"ls_valid{si}": ls.valid})
         else:
             j = si - nee_distant
             g, u3l = rng.next_3d(g, allow_ld=False)
@@ -337,7 +382,7 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
     # scatter-side env MIS (env pdf through the alias rows, outside)
     env_mis = out["env_mis_pre"]
     if nee_distant > 0:
-        lp = EM.pdf_mip_descent(assets.env, out["direction"])
+        lp = _distant_pdf(assets, cfg, out["direction"])
         env_w = mu.eval_mis(1.0, out["bs_pdf"], float(nee_distant), lp)
         env_mis = torch.where(out["non_delta_scatter"] != 0.0, env_w,
                               env_mis)
@@ -355,12 +400,238 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
         diffuse_bounces=out["diffuse_bounces"].to(torch.int32),
         interior=interior, emissive_mis=out["emissive_mis"],
         env_mis=env_mis, will_scatter=will_scatter,
-        scatter_valid=out["scatter_valid"] != 0.0, rays=rays,
+        scatter_valid=out["scatter_valid"] != 0.0,
+        rr_kill=out["rr_kill"] != 0.0, rays=rays,
         bs_pdf=out["bs_pdf"], is_delta=(lobe & B.LOBE_DELTA) != 0,
         is_transmission=is_transmission,
         is_diffuse_bounce=is_reflection & (
             ((lobe & B.LOBE_DIFFUSE_REFLECTION) != 0)
             | (rough_props > K_SPECULAR_ROUGHNESS_THRESHOLD)))
+    return res
+
+
+def _chain_shade_step(assets, cfg, consts4, path, surf, shade, thp,
+                      radiance, origin, interior, vertex_index, s_arr, rays,
+                      nee_distant: int, nee_local: int, sample_base,
+                      fill_ctx=None):
+    """One bounce's shade + NEE as the reference's chain of tensor ops
+    (rtxpt_tpu/pt/integrator.py:656-886), for the configurations the fused
+    pass does not take (`uses_shade_kernel`): emission + firefly filter,
+    Russian roulette, BSDF sample (the component-form BSDF of pt/bsdf.py),
+    the diffuse-bounce classification, the nested-dielectric update, ray
+    cone and firefly bookkeeping, NEE over distant, power or ReGIR local
+    samples with one batched visibility trace, the FILL routing and the
+    scatter-side MIS. Same arguments and returned dict as `_shade_step`."""
+    sd = surf.sd
+    nb = shade.shape[0]
+    fill = fill_ctx is not None
+    firefly_thr, atten, nee_min = consts4[0], consts4[1], consts4[2]
+    res = {}
+
+    # emission with MIS weight (PathTracer.hlsli:456-468)
+    surface_emission = mu.firefly_filter(
+        surf.emission * path.emissive_mis[..., None], firefly_thr,
+        path.firefly_k) * atten
+    emission = torch.where(shade[..., None],
+                           torch.clamp(thp * surface_emission, min=0.0), 0.0)
+    if fill:
+        # BUILD collected the emission on the stable branch; only
+        # off-branch emission is noise (StablePlanesHandleHit)
+        sp_secondary_l = fill_ctx["sp_secondary_l"] + torch.where(
+            (~path.sp_on_branch)[..., None], emission, 0.0)
+        sp_hit_t = torch.where(
+            shade, SP.accumulate_hit_t(path.sp_hit_t, fill_ctx["hit_t"],
+                                       path.sp_bounces, path.sp_delta_only),
+            fill_ctx["sp_hit_t"])
+        res["sp_pend_diff"] = path.sp_pend_diff
+        res["sp_pend_spec"] = path.sp_pend_spec
+    else:
+        radiance = radiance + emission
+
+    # HasFinishedSurfaceBounces (PathTracer.hlsli:103-109)
+    finished = (vertex_index > cfg.max_bounces) | \
+        (path.diffuse_bounces > cfg.max_diffuse_bounces)
+    g = _sample_gen(cfg, path, vertex_index, sample_base, s_arr)
+
+    # Russian roulette (PathTracer.hlsli:125-149)
+    if cfg.enable_russian_roulette:
+        g = rng.start_effect(g, rng.EFFECT_RUSSIAN_ROULETTE, False)
+        g, u_rr = rng.next_1d(g, allow_ld=False)
+        prob = mu.saturate(0.8 - mu.luminance(thp))
+        prob = prob * prob
+        prob = prob * prob          # x^4 by squaring, as XLA's integer_pow
+        rr_kill = u_rr < prob
+        thp = torch.where((shade & ~rr_kill)[..., None],
+                          thp / (1.0 - prob)[..., None], thp)
+    else:
+        rr_kill = torch.zeros_like(shade)
+    pre_scatter_thp = thp
+    will_scatter = shade & ~finished & ~rr_kill
+
+    # GenerateScatterRay (PathTracer.hlsli:158-264)
+    g = rng.start_effect(
+        g, rng.EFFECT_SCATTER_BSDF,
+        (path.diffuse_bounces < rng.DISABLE_LD_AFTER_DIFFUSE_BOUNCES)
+        if cfg.rng_quality == "ld" else False)
+    g, u3 = rng.next_3d(g)
+    frame = (sd.t.unbind(-1), sd.b.unbind(-1), sd.n.unbind(-1))
+    bsdf = shading.make_wavefront_bsdf(surf)
+    wi = sd.to_local(sd.v)
+    bs = B.sample(bsdf, wi, u3.unbind(-1))
+    wo_world = torch.stack(B.from_local(bs["wo"], *frame), -1)
+    lobe = bs["lobe"].to(torch.int32)
+    is_delta = (lobe & B.LOBE_DELTA) != 0
+    is_transmission = (lobe & B.LOBE_TRANSMISSION) != 0
+    is_reflection = (lobe & B.LOBE_REFLECTION) != 0
+    scatter_thp = thp * torch.stack(bs["weight"], -1)
+    scatter_valid = bs["valid"] & torch.any(scatter_thp > 0.0, dim=-1)
+
+    # diffuse-vs-specular bounce classification (PathTracer.hlsli:196)
+    rough_props = torch.where(bsdf["alpha"] < B.K_MIN_GGX_ALPHA, 0.0,
+                              bsdf["roughness"])
+    is_diffuse_bounce = is_reflection & (
+        ((lobe & B.LOBE_DIFFUSE_REFLECTION) != 0)
+        | (rough_props > K_SPECULAR_ROUGHNESS_THRESHOLD))
+    diffuse_bounces = path.diffuse_bounces + (
+        will_scatter & is_diffuse_bounce).to(torch.int32)
+
+    # interior list update on transmission (NestedDielectrics:95-103)
+    do_int = will_scatter & is_transmission & ~sd.thin_surface
+    interior = torch.where(
+        do_int[..., None],
+        nested.handle_intersection(interior, sd.material_id,
+                                   sd.nested_priority, sd.front_facing),
+        interior)
+
+    # ray cone + firefly bookkeeping (PathTracer.hlsli:219-231)
+    cone_spread = torch.where(
+        will_scatter & ~is_delta,
+        torch.clamp(path.cone_spread
+                    + mu.spread_angle_from_scatter_pdf(bs["pdf"], 0.15),
+                    max=mu.M_2PI),
+        path.cone_spread)
+    firefly_k = torch.where(will_scatter, mu.new_scatter_firefly_filter_k(
+        path.firefly_k, bs["pdf"], bs["lobe_p"]), path.firefly_k)
+    origin = torch.where(will_scatter[..., None],
+                         sd.compute_new_ray_origin(is_reflection), origin)
+    direction = torch.where(will_scatter[..., None], wo_world,
+                            path.direction)
+    thp = torch.where(will_scatter[..., None], scatter_thp, thp)
+
+    # HandleNEE (PathTracerNEE.hlsli:155-346)
+    emissive_mis = torch.where(shade, 1.0, path.emissive_mis)
+    env_mis = torch.where(shade, 1.0, path.env_mis)
+    k_total = nee_distant + nee_local
+    if cfg.nee_enabled and k_total > 0:
+        g = rng.start_effect(g, rng.EFFECT_NEE, False)
+        nee_ok = shade & ~finished & ~rr_kill
+        if fill and cfg.use_restir_di:
+            # ReSTIR DI replaces the dominant plane's base NEE: those
+            # lanes cast no NEE ray
+            nee_ok = nee_ok & ~(path.sp_on_plane & path.sp_on_dominant)
+        ones = torch.ones_like(path.firefly_k)
+        dirs, dists, diffs, specs, needs = [], [], [], [], []
+        for si in range(k_total):
+            if si < nee_distant:
+                sample_weight = 1.0 / nee_distant
+                g, ls = _sample_distant(assets, cfg, g)
+                light_mis_pdf = ls.pdf
+            else:
+                sample_weight = 1.0 / nee_local
+                g, u3l = rng.next_3d(g, allow_ld=False)
+                if cfg.nee_local_type == NEE_LOCAL_REGIR \
+                        and assets.regir is not None:
+                    ls = RG.sample_regir(assets.regir, assets.lights,
+                                         sd.pos, u3l[..., :2])
+                else:
+                    ls = LI.sample_local_lights(assets.lights, sd.pos, u3l)
+                light_mis_pdf = torch.full_like(ls.pdf,
+                                                LOCAL_PDF_ESTIMATE_K)
+            fd, fs, scatter_pdf = B.eval_split_pdf(
+                bsdf, wi, sd.to_local(ls.direction))
+            fd, fs = torch.stack(fd, -1), torch.stack(fs, -1)
+            # delta lights are unreachable by scatter rays: MIS weight 1
+            mis = torch.where(ls.delta, 1.0, mu.eval_mis(
+                1.0, light_mis_pdf / sample_weight, 1.0, scatter_pdf))
+            li = ls.li * (mis * sample_weight)[..., None]
+            lum = mu.luminance((fd + fs) * li)
+            need = nee_ok & ls.valid & (lum > nee_min)
+            nee_k = mu.new_scatter_firefly_filter_k(
+                path.firefly_k, ls.pdf / sample_weight, ones)
+            fade = sd.shadow_nol_fadeout
+            grazing = torch.where(fade > 0.0, mu.saturate(
+                (torch.sum(ls.direction * sd.vertex_n, -1) - fade)
+                / (2.0 * fade)), 1.0)[..., None]
+            dirs.append(ls.direction)
+            dists.append(ls.distance)
+            for out, f in ((diffs, fd), (specs, fs)):
+                out.append(torch.where(need[..., None], grazing
+                                       * mu.firefly_filter(f * li,
+                                                           firefly_thr, nee_k),
+                                       0.0))
+            needs.append(need)
+        # one batched visibility trace for all NEE samples
+        all_act = torch.cat(needs, dim=0)
+        rays = rays + torch.stack([torch.zeros_like(rays[1]),
+                                   all_act.to(torch.float32).sum()])
+        occluded = VIS.trace_visibility(
+            assets, sd.compute_new_ray_origin(torch.ones_like(shade))
+            .repeat(k_total, 1), torch.cat(dirs, dim=0),
+            t_max=torch.cat(dists, dim=0) * (1.0 - 1e-4), active=all_act)
+        visible = (~occluded).reshape(k_total, nb)
+        contrib_d = sum(torch.where(visible[i][..., None], diffs[i], 0.0)
+                        for i in range(k_total))
+        contrib_s = sum(torch.where(visible[i][..., None], specs[i], 0.0)
+                        for i in range(k_total))
+        if fill:
+            # StablePlanesHandleNEE: base-vertex NEE fills the plane's
+            # pending channels, deeper vertices lump into secondaryL
+            cd = torch.clamp(pre_scatter_thp * contrib_d * atten, min=0.0)
+            cs = torch.clamp(pre_scatter_thp * contrib_s * atten, min=0.0)
+            restir_covered = path.sp_on_plane & path.sp_on_dominant \
+                if cfg.use_restir_di else torch.zeros_like(shade)
+            nee_dist = sum(torch.where(visible[i] & needs[i], dists[i],
+                                       mu.K_MAX_RAY_TRAVEL)
+                           for i in range(k_total)) / k_total
+            acc_t = SP.accumulate_hit_t(sp_hit_t, nee_dist,
+                                        path.sp_bounces + 1,
+                                        torch.zeros_like(shade))
+            on_base = (path.sp_on_plane & ~restir_covered)[..., None]
+            res["sp_pend_diff"] = torch.where(
+                on_base, torch.cat([cd, acc_t[..., None]], -1),
+                path.sp_pend_diff)
+            res["sp_pend_spec"] = torch.where(
+                on_base, torch.cat([cs, acc_t[..., None]], -1),
+                path.sp_pend_spec)
+            sp_secondary_l = sp_secondary_l + torch.where(
+                (~path.sp_on_plane)[..., None], cd + cs, 0.0)
+        else:
+            radiance = radiance + torch.clamp(
+                pre_scatter_thp * ((contrib_d + contrib_s) * atten), min=0.0)
+
+        # scatter-side MIS for the next segment (NEE.hlsli:248-280)
+        mis_lanes = shade & scatter_valid & ~is_delta
+        if nee_distant > 0:
+            env_w = mu.eval_mis(1.0, bs["pdf"], float(nee_distant),
+                                _distant_pdf(assets, cfg, wo_world))
+            env_mis = torch.where(mis_lanes, env_w, env_mis)
+        if nee_local > 0:
+            em_w = mu.eval_mis(1.0, bs["pdf"], float(nee_local),
+                               LOCAL_PDF_ESTIMATE_K)
+            emissive_mis = torch.where(mis_lanes, em_w, emissive_mis)
+
+    if fill:
+        res["sp_secondary_l"] = sp_secondary_l
+        res["sp_hit_t"] = sp_hit_t
+    res.update(
+        radiance=radiance, thp=thp, origin=origin, direction=direction,
+        firefly_k=firefly_k, cone_spread=cone_spread,
+        diffuse_bounces=diffuse_bounces, interior=interior,
+        emissive_mis=emissive_mis, env_mis=env_mis,
+        will_scatter=will_scatter, scatter_valid=scatter_valid,
+        rr_kill=rr_kill, rays=rays, bs_pdf=bs["pdf"], is_delta=is_delta,
+        is_transmission=is_transmission,
+        is_diffuse_bounce=is_diffuse_bounce)
     return res
 
 
@@ -468,6 +739,10 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
     if sort not in SORT_MODES:
         raise ValueError(f"wavefront_sort {sort!r} is not one of {SORT_MODES}")
     bounds = sort_bounds(assets) if sort == "raystream" else None
+    if cfg.rng_quality not in RNG_QUALITIES:
+        raise ValueError(f"rng_quality {cfg.rng_quality!r} is not one of "
+                         f"{RNG_QUALITIES}")
+    fused = uses_shade_kernel(cfg, nee_local)
     if regen and (fill or capture_first_hit or injected_hit is not None):
         raise ValueError("path regeneration serves plain reference renders")
     max_iters = spp * (cfg.max_bounces + 2) + K_MAX_REJECTED_HITS + 2 \
@@ -602,10 +877,10 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
             path.interior, sd.material_id, sd.front_facing, mat_iors)
         surf = shading.update_outside_ior(surf, outside_ior)
 
-        ks = _shade_step(assets, cfg, consts4, path, surf, shade,
-                         thp, radiance, origin, interior, vertex_index,
-                         s_arr if regen else None, rays, nee_distant,
-                         nee_local, sample_base, fill_ctx)
+        step = _shade_step if fused else _chain_shade_step
+        ks = step(assets, cfg, consts4, path, surf, shade, thp, radiance,
+                  origin, interior, vertex_index, s_arr if regen else None,
+                  rays, nee_distant, nee_local, sample_base, fill_ctx)
         active = (path.active & ~is_miss & ~kill_reject) & (
             can_reject | (shade & ks["will_scatter"] & ks["scatter_valid"]))
         sp_fields = {}

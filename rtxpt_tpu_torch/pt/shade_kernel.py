@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import mathutils as mu
 from ..ops import cuda_lib
 from . import bsdf as B
 
@@ -190,33 +191,6 @@ def _firefly_filter3(sig, threshold, k):
     out = tuple(W(over, sig[i] * s, sig[i]) for i in range(3))
     enabled = threshold > 0.0
     return tuple(W(enabled, out[i], sig[i]) for i in range(3))
-
-
-def _acos_approx(x):
-    """Abramowitz-Stegun 4.4.45 arccos (the reference's mu.acos_approx)."""
-    ax = torch.abs(x)
-    p = 1.5707288 + ax * (-0.2121144 + ax * (0.0742610 + ax * -0.0187293))
-    r = torch.sqrt(B.maxs(1.0 - ax, 0.0)) * p
-    return W(x >= 0.0, r, B.M_PI - r)
-
-
-def _spread_angle_from_pdf(pdf, growth):
-    safe = B.maxs(pdf, 1e-30)
-    return growth * 2.0 * _acos_approx(
-        torch.clamp(1.0 - (1.0 / safe) / B.M_2PI, -1.0, 1.0))
-
-
-def _new_firefly_k(cur_k, bounce_pdf, lobe_p):
-    angle = W(bounce_pdf == 0.0, 0.0, _spread_angle_from_pdf(bounce_pdf, 1.0))
-    p = 32.0 / (32.0 + angle * angle)
-    p = p * torch.sqrt(B.maxs(lobe_p, 0.0))
-    return B.maxs(cur_k * p, 1e-4)
-
-
-def _eval_mis(n0, p0, n1, p1):
-    q0 = n0 * p0
-    q1 = n1 * p1
-    return B.sat(q0 / B.maxs(q0 + q1, 1e-30))
 
 
 def _local_light_sample(g, pos, j: int):
@@ -386,11 +360,12 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
 
     cone_spread0 = gi("cone_spread")
     cone_spread = W(will_scatter & ~is_delta,
-                    torch.clamp(cone_spread0 + _spread_angle_from_pdf(
-                        bs["pdf"], 0.15), max=B.M_2PI), cone_spread0)
-    firefly_k = W(will_scatter,
-                  _new_firefly_k(firefly_k0, bs["pdf"], bs["lobe_p"]),
-                  firefly_k0)
+                    torch.clamp(cone_spread0
+                                + mu.spread_angle_from_scatter_pdf(
+                                    bs["pdf"], 0.15), max=B.M_2PI),
+                    cone_spread0)
+    firefly_k = W(will_scatter, mu.new_scatter_firefly_filter_k(
+        firefly_k0, bs["pdf"], bs["lobe_p"]), firefly_k0)
 
     face_n = gi("face_n")
     front = gi("front_facing") != 0.0
@@ -415,7 +390,7 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
                 sample_weight, idx, ls_delta=None):
         wo_nee = B.to_local(ls_dir, t_, b_, n_)
         fd, fs, scatter_pdf = B.eval_split_pdf(bb, wi, wo_nee)
-        mis = _eval_mis(1.0, light_mis_pdf / sample_weight, 1.0, scatter_pdf)
+        mis = mu.eval_mis(1.0, light_mis_pdf / sample_weight, 1.0, scatter_pdf)
         if ls_delta is not None:
             # delta lights are unreachable by scatter rays: MIS weight 1
             mis = W(ls_delta, 1.0, mis)
@@ -423,7 +398,8 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
         pdf_ff = ls_pdf / sample_weight
         lum = B.luminance3(B.mul3(B.add3(fd, fs), li))
         need = nee_ok & ls_valid & (lum > nee_min_rad)
-        nee_k = _new_firefly_k(firefly_k0, pdf_ff, torch.ones_like(pdf_ff))
+        nee_k = mu.new_scatter_firefly_filter_k(firefly_k0, pdf_ff,
+                                                torch.ones_like(pdf_ff))
         grazing = W(shadow_fade > 0.0,
                     B.sat((B.dot3(ls_dir, vertex_n) - shadow_fade)
                           / (2.0 * shadow_fade)), 1.0)
@@ -464,7 +440,7 @@ def shade_nee_plain(planes_in, consts4, *, nee_distant: int, nee_local: int,
     # scatter-side MIS for the next segment (NEE.hlsli:248-280)
     non_delta_scatter = scatter_valid & ~is_delta
     if nee_local:
-        em_w = _eval_mis(1.0, bs["pdf"], float(nee_local),
+        em_w = mu.eval_mis(1.0, bs["pdf"], float(nee_local),
                          torch.full_like(bs["pdf"], float(local_pdf_k)))
         emissive_mis = W(shade & non_delta_scatter, em_w, emissive_mis)
 

@@ -3,7 +3,7 @@
 EnvMapSampler, EnvMapImportanceSamplingBaker).
 
 Equirectangular (H, 2H, 3) radiance. The host build (numpy) derives the
-two row tables the device path reads, both through the row gather of
+row tables the device path reads, all through the row gather of
 `ops/gather.py`:
   * radiance_quad (H*W, 12): [self, right, down, diag] RGB per texel, so a
     bilinear eval is one row fetch + lerp;
@@ -11,11 +11,21 @@ two row tables the device path reads, both through the row gather of
     pdf_alias, le_self(3), le_alias(3)] over the luminance x solid-angle
     texel pmf of the MIP-descent sampler, so a distant-light draw is one
     row fetch and `pdf_mip_descent` reads pdf_self of the same rows.
+The true hierarchical descent (`sample_mip_descent`) reads a luminance
+pyramid of its own, built on request by `build_mip_pyramid`: no render
+path draws through it.
+
+The distant samplers of NEE (PathTracerNEE.hlsli:70-108): `sample_uniform`
+(NEE_DISTANT_UNIFORM), `sample_importance` (MIP-descent through the
+alias rows) and `sample_presampled` over a per-sample `presample` list.
+`load_equirect` reads a user's Radiance .hdr.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -88,10 +98,10 @@ def _build_alias_pack(pmf: np.ndarray, pdf_flat: np.ndarray,
     return pack
 
 
-def build_tables(radiance: np.ndarray):
-    """(radiance_quad, alias_pack) of an (H, 2H, 3) radiance map: the
-    reference's `_make_envmap_np` restricted to what the device reads."""
-    radiance = np.asarray(radiance, np.float32)
+def _texel_weights(radiance: np.ndarray):
+    """(omega, base) of an (H, 2H, 3) radiance map: each row's texel solid
+    angle and the luminance x solid-angle texel weights, the finest level
+    of the MIP pyramid."""
     h, w = radiance.shape[0], radiance.shape[1]
     if w != 2 * h or h & (h - 1):
         raise ValueError(f"equirect must be (H, 2H) with H a power of two, "
@@ -99,7 +109,14 @@ def build_tables(radiance: np.ndarray):
     omega = _row_solid_angles(h, w)
     lum = (0.2126 * radiance[..., 0] + 0.7152 * radiance[..., 1]
            + 0.0722 * radiance[..., 2])
-    base = lum * omega[:, None]       # finest level of the MIP pyramid
+    return omega, lum * omega[:, None]
+
+
+def build_tables(radiance: np.ndarray):
+    """(radiance_quad, alias_pack) of an (H, 2H, 3) radiance map: the
+    reference's `_make_envmap_np` restricted to what the device reads."""
+    radiance = np.asarray(radiance, np.float32)
+    omega, base = _texel_weights(radiance)
     total = max(float(base.sum()), 1e-20)
     pdf_flat = (base / (total * np.maximum(omega[:, None], 1e-20))
                 ).reshape(-1).astype(np.float32)
@@ -121,6 +138,30 @@ def make_envmap(radiance, intensity: float = 1.0, enabled: bool = True,
                   alias_pack=torch.as_tensor(alias, device=device),
                   height=radiance.shape[0], width=radiance.shape[1],
                   intensity=float(intensity), enabled=bool(enabled))
+
+
+@dataclasses.dataclass
+class MipPyramid:
+    """The luminance x solid-angle pyramid of an env map for
+    `sample_mip_descent`: its (1, 2) top level and, per finer level, the
+    four child weights [w00, w01, w10, w11] of each parent texel, one row
+    per parent."""
+    top: torch.Tensor     # (2,) f32
+    quads: tuple          # per level l >= 1: (h_{l-1} w_{l-1}, 4) f32
+
+
+def build_mip_pyramid(radiance, device="cuda") -> MipPyramid:
+    """The MIP pyramid of the (H, 2H, 3) radiance map an EnvMap was made
+    from (the reference's `mips`, float32)."""
+    _, m = _texel_weights(np.asarray(radiance, np.float32))
+    quads = []
+    while m.shape[0] > 1:
+        q = (m[0::2, 0::2], m[0::2, 1::2], m[1::2, 0::2], m[1::2, 1::2])
+        quads.append(np.stack(q, axis=-1).reshape(-1, 4).astype(np.float32))
+        m = q[0] + q[1] + q[2] + q[3]
+    t = lambda a: torch.as_tensor(a, device=device)
+    return MipPyramid(top=t(m.reshape(-1).astype(np.float32)),
+                      quads=tuple(t(q) for q in quads[::-1]))
 
 
 def eval_dir(env: EnvMap, d):
@@ -176,6 +217,65 @@ def sample_importance(env: EnvMap, u2):
     return d, pdf, le
 
 
+def sample_uniform(env: EnvMap, u2):
+    """EnvMapSampler::UniformSample (Distant.hlsli:125-138)."""
+    d = mu.sample_sphere_uniform(u2)
+    pdf = torch.full(u2.shape[:-1], 1.0 / (4.0 * mu.M_PI),
+                     dtype=torch.float32, device=u2.device)
+    return d, pdf, eval_dir(env, d)
+
+
+def pdf_uniform(env: EnvMap, d):
+    return torch.full(d.shape[:-1], 1.0 / (4.0 * mu.M_PI),
+                      dtype=torch.float32, device=d.device)
+
+
+def sample_mip_descent(env: EnvMap, pyr: MipPyramid, u2):
+    """EnvMapSampler::MIPDescentSample (Distant.hlsli:140-235): the
+    hierarchical warp down the luminance pyramid `pyr` of `env`, one
+    quad-row fetch per level; the same texel pmf as `sample_importance`,
+    keeping the stratification of a low-discrepancy input. The texel's pdf
+    and radiance come from its alias row (pdf_self, le_self)."""
+    shape = u2.shape[:-1]
+    ux, uy = u2[..., 0], u2[..., 1]
+    # the top level is (1, 2): pick the hemisphere column first
+    p_left = pyr.top[0] / torch.clamp(pyr.top[0] + pyr.top[1], min=1e-20)
+    go_right = ux >= p_left
+    ix = go_right.to(torch.int32)
+    iy = torch.zeros(shape, dtype=torch.int32, device=u2.device)
+    ux = torch.where(go_right,
+                     (ux - p_left) / torch.clamp(1.0 - p_left, min=1e-9),
+                     ux / torch.clamp(p_left, min=1e-9))
+    w_par = 2
+    for q_tab in pyr.quads:
+        q = gather.gather_rows(q_tab, iy * w_par + ix)
+        w00, w01, w10, w11 = q.unbind(-1)
+        left = w00 + w10
+        right = w01 + w11
+        p_l = left / torch.clamp(left + right, min=1e-20)
+        go_r = ux >= p_l
+        ux = torch.where(go_r, (ux - p_l) / torch.clamp(1.0 - p_l, min=1e-9),
+                         ux / torch.clamp(p_l, min=1e-9))
+        top = torch.where(go_r, w01, w00)
+        bot = torch.where(go_r, w11, w10)
+        p_t = top / torch.clamp(top + bot, min=1e-20)
+        go_b = uy >= p_t
+        uy = torch.where(go_b, (uy - p_t) / torch.clamp(1.0 - p_t, min=1e-9),
+                         uy / torch.clamp(p_t, min=1e-9))
+        ix = ix * 2 + go_r.to(torch.int32)
+        iy = iy * 2 + go_b.to(torch.int32)
+        w_par *= 2
+    h, w = env.height, env.width
+    # jitter within the texel with the residual sample
+    uv = torch.stack([(ix + torch.clamp(ux, 0.0, 0.9999)) / w,
+                      (iy + torch.clamp(uy, 0.0, 0.9999)) / h], dim=-1)
+    row = gather.gather_rows(env.alias_pack, iy * w + ix)
+    le = row[..., 4:7] * env.intensity
+    if not env.enabled:
+        le = torch.zeros_like(le)
+    return uv_to_dir(uv), row[..., 2], le
+
+
 def pdf_mip_descent(env: EnvMap, d):
     """EnvMapSampler::MIPDescentEvalPdf (Distant.hlsli:180-210): the
     solid-angle pdf of the texel d falls in (pdf_self of its alias row)."""
@@ -184,6 +284,114 @@ def pdf_mip_descent(env: EnvMap, d):
     x = torch.clamp((uv[..., 0] * w).to(torch.int32), 0, w - 1)
     y = torch.clamp((uv[..., 1] * h).to(torch.int32), 0, h - 1)
     return gather.gather_rows(env.alias_pack, y * w + x)[..., 2]
+
+
+@dataclasses.dataclass
+class PresampledEnv:
+    """Presampled light list (EnvMapImportanceSamplingBaker presampling;
+    Config.h:86 ENVMAP_PRESAMPLED_COUNT 2048), drawn anew for each
+    accumulation sample; PreSampledSample picks a random entry."""
+    dirs: torch.Tensor   # (K, 3)
+    le: torch.Tensor     # (K, 3)
+    pdf: torch.Tensor    # (K,)
+
+
+def presample(env: EnvMap, sample_index: int,
+              count: int = 2048) -> PresampledEnv:
+    """`count` importance draws of the low-discrepancy stream of lane
+    (i, 9) at `sample_index`."""
+    from ..core import rng
+    idx = torch.arange(count, dtype=torch.int64,
+                       device=env.alias_pack.device)
+    g = rng.make(idx, torch.full_like(idx, 0x9), 0, sample_index & rng.M32)
+    g, u2 = rng.next_2d(g)
+    d, pdf, le = sample_importance(env, u2)
+    return PresampledEnv(d, le, pdf)
+
+
+def sample_presampled(env: EnvMap, pre: PresampledEnv, u1):
+    """EnvMapSampler::PreSampledSample (Distant.hlsli:237-253):
+    (direction, pdf, radiance) of entry floor(u1 * K)."""
+    k = pre.dirs.shape[0]
+    i = torch.clamp((u1 * k).to(torch.int64), 0, k - 1)
+    return pre.dirs[i], pre.pdf[i], pre.le[i]
+
+
+def load_equirect(path: str, target_height: Optional[int] = None):
+    """An equirectangular environment from a Radiance .hdr file (the
+    EnvMapBaker "loaded texture" path), nearest-resampled to (H, 2H, 3)
+    float32 with H a power of two (by default the largest one not above
+    the file's height, between 8 and 1024). .exr and LDR images need
+    packages the port does not depend on and raise NotImplementedError."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext != ".hdr":
+        raise NotImplementedError(f"environment format {ext!r}: the port "
+                                  "reads Radiance .hdr only")
+    img = _load_radiance_hdr(path)
+    h0 = img.shape[0]
+    if target_height is None:
+        target_height = 1 << max(int(np.floor(np.log2(max(h0, 2)))), 3)
+        target_height = min(target_height, 1024)
+    th, tw = target_height, target_height * 2
+    if img.shape[0] != th or img.shape[1] != tw:
+        ys = (np.arange(th) + 0.5) / th * img.shape[0] - 0.5
+        xs = (np.arange(tw) + 0.5) / tw * img.shape[1] - 0.5
+        yi = np.clip(np.round(ys).astype(int), 0, img.shape[0] - 1)
+        xi = np.clip(np.round(xs).astype(int), 0, img.shape[1] - 1)
+        img = img[yi][:, xi]
+    return np.ascontiguousarray(img, np.float32)
+
+
+def _read_exact(f, n: int) -> bytes:
+    b = f.read(n)
+    if len(b) < n:
+        raise ValueError("truncated .hdr")
+    return b
+
+
+def _load_radiance_hdr(path: str) -> np.ndarray:
+    """Radiance RGBE (.hdr) decoder: new-style RLE and flat scanlines,
+    -Y H +X W orientation. A cut-off file, or an RLE packet of length 0
+    or one that runs past its scanline, raises ValueError."""
+    with open(path, "rb") as f:
+        if not f.readline().startswith(b"#?"):
+            raise ValueError("not a Radiance file")
+        while True:
+            line = f.readline()
+            if line in (b"\n", b""):
+                break
+        dims = f.readline().split()
+        if dims[0] != b"-Y":
+            raise ValueError("unsupported .hdr orientation")
+        h, w = int(dims[1]), int(dims[3])
+        data = np.zeros((h, w, 4), np.uint8)
+        for y in range(h):
+            head = _read_exact(f, 4)
+            if head[0] == 2 and head[1] == 2 and \
+                    (head[2] << 8 | head[3]) == w:
+                # new-style RLE: four separated component streams
+                for c in range(4):
+                    x = 0
+                    while x < w:
+                        n = _read_exact(f, 1)[0]
+                        run = n > 128
+                        n = n - 128 if run else n
+                        if n == 0 or x + n > w:
+                            raise ValueError(f"bad .hdr RLE packet in "
+                                             f"scanline {y}")
+                        data[y, x:x + n, c] = (
+                            _read_exact(f, 1)[0] if run else
+                            np.frombuffer(_read_exact(f, n), np.uint8))
+                        x += n
+            else:
+                # flat scanline: head already holds the first pixel
+                row = head + _read_exact(f, (w - 1) * 4)
+                data[y] = np.frombuffer(row, np.uint8).reshape(w, 4)
+    mant = data[..., :3].astype(np.float32)
+    exp = data[..., 3].astype(np.int32)
+    scale = np.where(exp == 0, 0.0,
+                     np.ldexp(1.0, exp - 136)).astype(np.float32)
+    return mant * scale[..., None]
 
 
 def bake_procedural_sky(height: int = 128,

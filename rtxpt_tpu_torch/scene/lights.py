@@ -4,14 +4,15 @@ rtxpt_tpu/scene/lights.py; PrepareLightsPass, PolymorphicLight.hlsli).
 The table is built host-side (numpy) and packed into one 24-column row
 per light, so a sampled light costs one row fetch (`ops/gather.py`). The
 per-light geometry of a local NEE sample is evaluated inside the shade
-kernel (pt/shade_kernel.py); this module picks lights, fetches rows and
-re-evaluates a reservoir's (light, uv) sample at a shading point for
-ReSTIR (`eval_sample_at`).
+kernel (pt/shade_kernel.py) on the fused path, and by
+`sample_local_lights` on the chain of tensor ops; this module also picks
+lights, fetches rows and re-evaluates a reservoir's (light, uv) sample at
+a shading point for ReSTIR and ReGIR (`eval_sample_at`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -182,6 +183,18 @@ def fetch_rows(lt: LightTable, idx):
     return gather.gather_rows(lt.pack, idx)
 
 
+class LightSample(NamedTuple):
+    """PathLightSample (PathTracerTypes.hlsli): radiance already divided
+    by the pdf in li; the solid-angle pdf kept for MIS."""
+    direction: torch.Tensor   # (N,3)
+    distance: torch.Tensor    # (N,)
+    li: torch.Tensor          # (N,3) radiance / pdf
+    pdf: torch.Tensor         # (N,)
+    valid: torch.Tensor       # (N,) bool
+    delta: torch.Tensor       # (N,) bool point/spot/directional: no scatter
+    #                           ray reaches them, so their NEE MIS weight is 1
+
+
 def eval_sample_at(lt: LightTable, li_idx, uv, shading_pos):
     """Re-evaluate a polymorphic light sample (light index + 2D uv) at a
     shading point (PolymorphicLight.hlsli calcSample, for the ReSTIR
@@ -190,7 +203,11 @@ def eval_sample_at(lt: LightTable, li_idx, uv, shading_pos):
     matching source pdf; delta lights give intensity / dist^2 (point,
     spot) or radiance (directional). Returns (direction, distance, li,
     inv_area, valid)."""
-    row = fetch_rows(lt, li_idx)
+    return eval_row_at(fetch_rows(lt, li_idx), uv, shading_pos)
+
+
+def eval_row_at(row, uv, shading_pos):
+    """`eval_sample_at` on the light's fetched (N, LP_COLS) rows."""
     kind = row[..., LP_KIND].to(torch.int32)
     rad = row[..., LP_RAD:LP_RAD + 3]
     p0 = row[..., LP_P0:LP_P0 + 3]
@@ -236,3 +253,81 @@ def eval_sample_at(lt: LightTable, li_idx, uv, shading_pos):
                      torch.where(is_pt[..., None], li_point, rad))
     valid = torch.where(is_area, cos_l > 1e-6, True)
     return direction, distance, li, inv_area, valid
+
+
+def sample_local_lights(lt: LightTable, shading_pos, u3) -> LightSample:
+    """Power-weighted light pick + per-light solid-angle sample
+    (PolymorphicLight.hlsli calcSample); u3 (N,3) = [light select, area
+    sample x2]. One CDF pick and one row fetch (K2) per lane."""
+    li_idx = pick_light(lt, u3[..., 0])
+    row = fetch_rows(lt, li_idx)
+    kind = row[..., LP_KIND].to(torch.int32)
+    pick_pdf = row[..., LP_POWER] / max(lt.total_power, 1e-20)
+    p0 = row[..., LP_P0:LP_P0 + 3]
+    e1 = row[..., LP_E1:LP_E1 + 3]
+    e2 = row[..., LP_E2:LP_E2 + 3]
+    pos_l = row[..., LP_POS:LP_POS + 3]
+    r_s = row[..., LP_RADIUS]
+    rad = row[..., LP_RAD:LP_RAD + 3]
+    inv_area = row[..., LP_INV_AREA]
+
+    # triangle lights: uniform area sample
+    bary = mu.sample_triangle_uniform(u3[..., 1:3])
+    lp = p0 + bary[..., 1:2] * e1 + bary[..., 2:3] * e2
+    fn = mu.safe_normalize(mu.cross(e1, e2))
+    to_l = lp - shading_pos
+    dist_sq = torch.clamp(torch.sum(to_l * to_l, -1), min=1e-12)
+    dist = torch.sqrt(dist_sq)
+    dir_ = to_l / dist[..., None]
+    cos_l = torch.sum(fn * (-dir_), -1)     # the light faces its +normal
+    # area pdf -> solid-angle pdf (inv_area = 1/area for triangles)
+    pdf_tri = dist_sq * inv_area / torch.clamp(cos_l, min=1e-12)
+
+    # point and spot lights (radiance = intensity [W/sr])
+    to_p = pos_l - shading_pos
+    dist_p_sq = torch.clamp(torch.sum(to_p * to_p, -1), min=1e-12)
+    dist_p = torch.sqrt(dist_p_sq)
+    dir_p = to_p / dist_p[..., None]
+
+    # sphere: uniform area sample over the surface
+    z = 1.0 - 2.0 * u3[..., 1]
+    s_ = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * mu.M_PI * u3[..., 2]
+    n_s = torch.stack([s_ * torch.cos(phi), s_ * torch.sin(phi), z], -1)
+    lp_s = pos_l + r_s[..., None] * n_s
+    to_s = lp_s - shading_pos
+    dist_s_sq = torch.clamp(torch.sum(to_s * to_s, -1), min=1e-12)
+    dist_s = torch.sqrt(dist_s_sq)
+    dir_s = to_s / dist_s[..., None]
+    cos_s = torch.sum(n_s * (-dir_s), -1)
+    pdf_sph = dist_s_sq * inv_area / torch.clamp(cos_s, min=1e-12)
+
+    # directional: a fixed direction at infinite distance
+    dir_d = -mu.safe_normalize(pos_l)
+
+    is_tri = kind == LIGHT_TRIANGLE
+    is_sph = kind == LIGHT_SPHERE
+    is_spot = kind == LIGHT_SPOT
+    is_pt = (kind == LIGHT_POINT) | is_spot
+    is_dir = kind == LIGHT_DIRECTIONAL
+    w3 = lambda c, a, b: torch.where(c[..., None], a, b)
+    direction = w3(is_tri, dir_, w3(is_sph, dir_s, w3(is_pt, dir_p, dir_d)))
+    far = torch.full_like(dist, mu.K_MAX_RAY_TRAVEL)
+    distance = torch.where(is_tri, dist, torch.where(
+        is_sph, dist_s, torch.where(is_pt, dist_p, far)))
+    # solid-angle pdf; the delta lights keep the selection pdf alone and
+    # fold the geometric term into li
+    pdf = torch.where(is_tri, pdf_tri * pick_pdf,
+                      torch.where(is_sph, pdf_sph * pick_pdf, pick_pdf))
+    shape = torch.where(
+        is_spot, shaping_factor(row[..., LP_AXIS:LP_AXIS + 3],
+                                row[..., LP_COS_CONE], row[..., LP_SOFT],
+                                -dir_p), 1.0)
+    pick_c = torch.clamp(pick_pdf, min=1e-20)[..., None]
+    li = w3(is_tri | is_sph, rad / torch.clamp(pdf, min=1e-20)[..., None],
+            w3(is_pt, rad * shape[..., None] / dist_p_sq[..., None]
+               / pick_c, rad / pick_c))
+    valid = torch.where(is_tri, cos_l > 1e-6,
+                        torch.where(is_sph, cos_s > 1e-6, is_pt | is_dir))
+    return LightSample(direction=direction, distance=distance, li=li,
+                       pdf=pdf, valid=valid, delta=is_pt | is_dir)

@@ -58,6 +58,42 @@ def test_cli_realtime_on_cpu(tmp_path, preset):
     assert np.isfinite(hdr).all() and hdr.mean() > 0.0
 
 
+def _hdr(path, h=8, w=16):
+    """A flat-scanline Radiance file of a sky gradient."""
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.linspace(60, 200, h, dtype=np.uint8)[:, None, None]
+    rgbe[..., 3] = 129
+    path.write_bytes(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                     + f"-Y {h} +X {w}\n".encode() + rgbe.tobytes())
+    return str(path)
+
+
+@pytest.mark.parametrize("extra", [["--no-nee"], ["--env", "sky.hdr"]],
+                         ids=["no-nee", "env"])
+def test_cli_reference_options_on_cpu(tmp_path, extra):
+    """--no-nee (the chain, no next-event estimation) and --env (a Radiance
+    .hdr in place of the procedural sky)."""
+    if "--env" in extra:
+        extra = ["--env", _hdr(tmp_path / "sky.hdr")]
+    npy = str(tmp_path / "o.npy")
+    assert cli.main(["--width", "16", "--height", "12", "--spp", "1",
+                     "--device", "cpu", "--max-bounces", "2", "--output",
+                     str(tmp_path / "o.png"), "--dump-npy", npy, "--quiet"]
+                    + extra) == 0
+    hdr = np.load(npy)
+    assert hdr.shape == (12, 16, 3)
+    assert np.isfinite(hdr).all() and hdr.mean() > 0.0
+
+
+def test_cli_refuses_exr_env(tmp_path):
+    path = tmp_path / "sky.exr"
+    path.write_bytes(b"\0" * 16)
+    with pytest.raises(NotImplementedError):
+        cli.main(["--env", str(path), "--width", "8", "--height", "6",
+                  "--spp", "1", "--device", "cpu", "--output",
+                  str(tmp_path / "o.png"), "--quiet"])
+
+
 def test_cli_realtime_refuses_psr_lite(tmp_path):
     """--no-stable-planes asks for the PSR-lite pipeline, not ported yet."""
     with pytest.raises(NotImplementedError):

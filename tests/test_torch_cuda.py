@@ -13,6 +13,7 @@ import torch
 from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
 from rtxpt_tpu_torch.ops import bvh2l, cuda_lib, gather, mt_dense
 from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
+from rtxpt_tpu_torch.pt import integrator as TI
 from rtxpt_tpu_torch.pt import shade_kernel as SK
 from rtxpt_tpu_torch.scene import envmap as EM
 from rtxpt_tpu_torch.scene import procedural
@@ -456,6 +457,30 @@ def test_render_launches_every_kernel_and_matches_cpu(dev):
     assert counts["bvh8_trace"] == counts["bvh8_trace_sub"] == 0, counts
     assert counts["bvh8_trace_2l"] == 0, counts
     cpu = _renderer("cpu", max_bounces=3).render(32, 24, 2)
+    torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(shade_megakernel=False), dict(nee_enabled=False),
+    dict(nee_local_type=2), dict(nee_local_type=2, regir_layout="onion"),
+    dict(nee_distant_type=0), dict(nee_distant_type=2),
+    dict(rng_quality="hq"), dict(rng_quality="uniform")],
+    ids=["chain", "no-nee", "regir", "regir-onion", "distant-uniform",
+         "presampled", "hq", "uniform"])
+def test_reference_configuration_renders_and_matches_cpu(dev, cfg):
+    """The reference configurations off the default one: the chain of
+    tensor ops (no K4 launch) where the reference's rule refuses the fused
+    pass, K4 where it takes it, the same trace and fetch kernels, and the
+    CPU's image."""
+    cuda_lib.reset_launch_counts()
+    gpu = _renderer(dev, max_bounces=3, **cfg).render(32, 24, 2).cpu()
+    counts = cuda_lib.launch_counts()
+    fused = TI.uses_shade_kernel(reference_config(**cfg), 2)
+    assert (counts["shade_nee"] > 0) == fused, counts
+    assert counts["shade_nee_fill"] == 0, counts
+    for k in ("mt_dense_fused", "gather_surface", "gather_rows"):
+        assert counts[k] > 0, counts
+    cpu = _renderer("cpu", max_bounces=3, **cfg).render(32, 24, 2)
     torch.testing.assert_close(gpu, cpu, rtol=1e-3, atol=1e-3)
 
 

@@ -17,7 +17,10 @@ wall; then the device time of the kernels that ran inside the closest-hit
 and any-hit trace calls (the trace kernels and the PyTorch code around
 them) beside the device span of those calls, and the PyTorch kernels that
 take the most device time.
-Bench config: 6 bounces, 4 diffuse, NEE 1+1.
+Bench config: 6 bounces, 4 diffuse, NEE 1+1; `--set key=value`
+(repeatable) overrides one of its PTConfig fields, e.g. `--set
+shade_megakernel=False` or `--set nee_local_type=2` for a reference
+configuration off the default.
 
 `--mode realtime` profiles one frame of the default realtime pipeline
 (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; 30 bounces / 3 diffuse,
@@ -32,6 +35,7 @@ in profiler ranges for the length of the run.
 from __future__ import annotations
 
 import argparse
+import ast
 import bisect
 import subprocess
 import sys
@@ -71,7 +75,15 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=2)
     p.add_argument("--mode", default="reference",
                    choices=["reference", "realtime"])
+    p.add_argument("--set", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="reference mode: override a PTConfig field of the "
+                   "bench config (a Python literal value)")
     args = p.parse_args(argv)
+    overrides = {}
+    for item in args.set:
+        key, _, value = item.partition("=")
+        overrides[key] = ast.literal_eval(value)
     if not torch.cuda.is_available():
         print("profile: needs a CUDA GPU", file=sys.stderr)
         return 1
@@ -93,8 +105,9 @@ def main(argv=None) -> int:
 
         render()                             # the no-history variant
     else:
-        cfg = reference_config(max_bounces=6, max_diffuse_bounces=4,
-                               nee_distant_samples=1, nee_local_samples=1)
+        cfg = reference_config(**{**dict(
+            max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
+            nee_local_samples=1), **overrides})
         r = Renderer(host, cam, cfg, env_radiance=env, device="cuda")
 
         def render():
@@ -155,6 +168,8 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip()
     total = sum(dev_us.values())
     what = "realtime frame" if args.mode == "realtime" else f"{spp}spp"
+    if overrides:
+        what += f" {overrides}"
     print(f"{card}; {args.scene} {w}x{h} {what}: wall {wall * 1e3:.1f} ms "
           f"({w * h * spp / wall / 1e6:.3f} Mpaths/s); profiled wall "
           f"{prof_wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
