@@ -98,16 +98,38 @@ its seconds):
      black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
      3 frames, PSNR > 40 dB), and the estimator oracle of
-     tests/test_ref_vs_realtime.py on the card: the mean of 32
-     `ref-vs-realtime` frames at 48x32 against the port's 32-spp
-     reference render (median block error < 0.25, means within 10%);
-  8. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+     tests/test_ref_vs_realtime.py on the card on stable planes (phase 8
+     runs it on PSR-lite): the mean of 32 `ref-vs-realtime` frames at
+     48x32 against the port's 32-spp reference render (median block
+     error < 0.25, means within 10%);
+  8. realtime pipelines: PSR-lite (use_stable_planes=False, ReSTIR DI +
+     GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2) on the city at
+     1920x1080 and on programmer-art at 640x360: each kernel of the path
+     against its plain version on the G-buffer's camera trace, its first
+     PSR-chain trace with an active lane (printing how many lanes it has;
+     the city's chain may cast none), the path loop's first bounce (K2,
+     the surface fetch, K3, and K4 at NEE 2+2 on all w*h lanes), its
+     first NEE trace that casts a ray and the ReSTIR visibility trace;
+     3 timed frames each with one `bvh8_trace_2l` or `mt_dense_fused` per
+     trace call, one surface fetch per load_surface, one K4 per bounce
+     and no K4 FILL. The city at 960x540 upscaled by TAAU to 1920x1080 on
+     RealtimeRenderer defaults (its kernels checked at 518,400 lanes, 3
+     timed frames of 1920x1080). The city at 1920x1080 denoised by ReBLUR
+     (3 timed frames with the launch checks). GPU vs CPU (PSNR > 40 dB,
+     64x48, frame 3): PSR-lite, its ref-vs-realtime preset, ReBLUR on both
+     pipelines, TAAU from 32x24 to 64x48, and photo_denoise_auto on a
+     2-spp reference render. The estimator oracle on PSR-lite (the
+     reference's own configuration). Denoiser quality
+     (tests/test_denoise_quality.py): 4 frames at 64x48 against a 64-spp
+     reference render, ReLAX and ReBLUR each more than 1.5 dB above the
+     raw frame and above 18 dB;
+  9. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  9. print a JSON line describing the kernels (each kernel's numbers on
+  10. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
 
@@ -179,6 +201,11 @@ RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
                 "shade_nee_fill")
 RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                "shade_nee_fill")
+# the PSR-lite pipeline's paths: the non-FILL K4 once per bounce
+RT_CITY_PSR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
+                    "shade_nee")
+RT_ART_PSR_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
+                   "shade_nee")
 # the reference configurations' paths through the chain of tensor ops
 BENCH_CHAIN_PATH = ("mt_dense_fused", "gather_rows", "gather_surface")
 CITY_REGIR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
@@ -190,7 +217,10 @@ ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
                                  ("mt_dense", "tile_keys"))}
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "bench_chain": BENCH_CHAIN_PATH, "city_regir": CITY_REGIR_PATH,
-         "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH}
+         "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH,
+         "realtime_city_psr": RT_CITY_PSR_PATH,
+         "realtime_360p_psr": RT_ART_PSR_PATH,
+         "realtime_city_taau": RT_CITY_PATH}
 # the bench workload's configuration and size (width, height, spp), the
 # city's size, and the reference configurations other than the default
 # that phase 6 renders the bench under
@@ -310,6 +340,8 @@ class Capture:
     # traces that cast at least one ray
     STAGES = {"build": ("rtxpt_tpu_torch.pt.stableplanes",
                         "build_stable_planes", None),
+              "gbuffer": ("rtxpt_tpu_torch.pt.gbuffer", "trace_gbuffer",
+                          None),
               "fill": ("rtxpt_tpu_torch.pt.integrator", "render_paths",
                        None),
               "restir": ("rtxpt_tpu_torch.restir.di", "fused_final_shade",
@@ -1761,72 +1793,98 @@ def reference_configs(results: dict, card: str, host_city, bench_hdr,
     return launches
 
 
-def capture_realtime_frame(r, w, h):
-    """Render one frame of the realtime renderer `r` with the first
-    launches of each stage captured -> (trace limits, the first FILL
-    bounce's Capture, [(trace, Capture, any-hit)]): the first FILL bounce
-    (its gathers and K4 FILL), the BUILD pass's first trace (the camera
-    rays), the first FILL NEE trace that casts a ray (the first bounce's
-    casts none where ReSTIR DI owns the base) and the fused ReSTIR DI + GI
-    final shade's visibility trace. A two-level trace is one launch."""
+def capture_realtime_frame(r, w, h, frame_kw=None):
+    """Render one frame of the realtime renderer `r` (render_frame's
+    keywords `frame_kw`) with the first launches of each stage captured
+    -> (the trace wrapper's name, the first bounce's Capture, [(what,
+    (args, kw) of the captured trace or None, any-hit)]). Stable planes: the first FILL bounce (its gathers and K4
+    FILL), the BUILD pass's first trace (the camera rays), the first FILL
+    NEE trace that casts a ray (the first bounce's casts none where
+    ReSTIR DI owns the base) and the fused ReSTIR DI + GI final shade's
+    visibility trace. PSR-lite: the first bounce of the path loop (its
+    gathers and K4), the G-buffer's camera trace and its first PSR-chain
+    trace with an active lane (the chain casts no ray where no pixel sees
+    a pure-delta surface), the path loop's first NEE trace that casts a
+    ray and the ReSTIR visibility trace. A two-level trace is one
+    launch."""
     from rtxpt_tpu_torch.ops import bvh2l
-    if isinstance(r.accel, bvh2l.BVH8TwoLevel):
-        traces = {"trace_bvh8_2l": 1}
-    else:
-        traces = {"trace_dense_fused": 1}
-    with Capture(traces, during=("build",)) as build, \
-            Capture(dict(gather_rows=16, gather_surface=1,
-                         shade_nee_fill=1), during=("fill",)) as fill, \
-            Capture(traces, during=("fill", "busy_anyhit")) as nee, \
-            Capture(traces, during=("restir", "busy_anyhit")) as restir:
-        r.render_frame(w, h)
+    name = "trace_bvh8_2l" if isinstance(r.accel, bvh2l.BVH8TwoLevel) \
+        else "trace_dense_fused"
+    stable = r.cfg.use_stable_planes
+    shade = "shade_nee_fill" if stable else "shade_nee"
+    with Capture({name: 1 if stable else 3},
+                 during=("build" if stable else "gbuffer",)) as primary, \
+            Capture({"gather_rows": 16, "gather_surface": 1, shade: 1},
+                    during=("fill",)) as first, \
+            Capture({name: 1}, during=("fill", "busy_anyhit")) as nee, \
+            Capture({name: 1}, during=("restir", "busy_anyhit")) as restir:
+        r.render_frame(w, h, **(frame_kw or {}))
         torch.cuda.synchronize()
-    return traces, fill, [("BUILD camera", build, False),
-                          ("FILL NEE", nee, True),
-                          ("ReSTIR visibility", restir, True)]
+    calls = primary.calls[name]
+    require(calls, "no primary trace captured")
+    traces = [("BUILD camera" if stable else "G-buffer camera", calls[0],
+               False)]
+    chain = [c for c in calls[1:] if bool(c[0][-1].any())]
+    if chain:
+        lanes = int(chain[0][0][-1].sum())
+        print(f"PSR chain: the first chain trace with an active lane has "
+              f"{lanes} of {w * h} lanes", flush=True)
+        traces.append(("PSR chain", chain[0], False))
+    elif not stable:
+        print(f"PSR chain: no chain trace has an active lane ({len(calls)} "
+              "G-buffer traces)", flush=True)
+    traces += [("FILL NEE" if stable else "paths NEE",
+                nee.calls[name][0] if nee.calls[name] else None, True),
+               ("ReSTIR visibility",
+                restir.calls[name][0] if restir.calls[name] else None, True)]
+    return name, first, traces
 
 
-def check_realtime_kernels(r, w, h, label) -> dict:
+def check_realtime_kernels(r, w, h, label, frame_kw=None) -> dict:
     """Every kernel of a realtime path against its plain version on the
-    launches capture_realtime_frame() records (K4 FILL on all w*h lanes of
-    the first FILL bounce) -> {kernel name: result}."""
-    traces, fill, stages = capture_realtime_frame(r, w, h)
-    for what, cap, any_hit in stages:
-        for name, n in traces.items():
-            require(len(cap.calls[name]) == n,
-                    f"{label} {what}: {len(cap.calls[name])} {name} calls "
-                    f"captured, not {n}")
-            require(cap.calls[name][0][1]["any_hit"] == any_hit,
-                    f"{label} {what}: the first trace is not "
-                    f"{'any-hit' if any_hit else 'closest-hit'}")
-    require(fill.calls["shade_nee_fill"], f"{label}: no FILL launch")
-    lanes = fill.calls["shade_nee_fill"][0][0][0].shape[1]
-    require(lanes == w * h, f"{label}: the first FILL bounce has {lanes} "
-            f"lanes, not {w * h}")
-    if "trace_dense_fused" in traces:
-        out = check_dense(r.accel, [(what, cap.calls["trace_dense_fused"][0],
-                                     True) for what, cap, _ in stages],
-                          label)
+    launches capture_realtime_frame() records (K4 FILL, or K4 on
+    PSR-lite, on all w*h lanes of the first bounce) -> {kernel name:
+    result}."""
+    name, first, traces = capture_realtime_frame(r, w, h, frame_kw)
+    for what, call, any_hit in traces:
+        require(call is not None, f"{label} {what}: no {name} call "
+                "captured")
+        require(call[1]["any_hit"] == any_hit,
+                f"{label} {what}: the trace is not "
+                f"{'any-hit' if any_hit else 'closest-hit'}")
+    fill = r.cfg.use_stable_planes
+    shade = "shade_nee_fill" if fill else "shade_nee"
+    require(first.calls[shade], f"{label}: no {shade} launch")
+    lanes = first.calls[shade][0][0][0].shape[1]
+    require(lanes == w * h, f"{label}: the first bounce's {shade} has "
+            f"{lanes} lanes, not {w * h}")
+    timed = [(what, call, True) for what, call, _ in traces]
+    if name == "trace_dense_fused":
+        out = check_dense(r.accel, timed, label)
     else:
-        out = check_two_level(
-            [(what, cap.calls["trace_bvh8_2l"][0], True)
-             for what, cap, _ in stages], label)
-    out.update(check_surface_kernels(fill, label, fill=True))
+        out = check_two_level(timed, label)
+    out.update(check_surface_kernels(first, label, fill=fill))
     return out
 
 
 def realtime_frames(r, w, h, label, card, path, warmups=2,
-                    frames=3) -> dict:
+                    frames=3, frame_kw=None) -> dict:
     """`warmups` frames (the no-history and the history variant: 2 from a
-    new renderer), then `frames` timed frames with the launch counters set
-    to 0 just before, each ending in a device synchronize; requires the
-    kernels of `path` to have launched (its ONE_LAUNCH kernel once per
-    trace call: `bvh8_trace_2l` on a two-level path, and no K5 or K6;
-    `mt_dense_fused` on a dense one, and no K1 or K7) and the last frame
-    to be finite and not black. Returns the counts."""
+    new renderer), then `frames` timed frames (render_frame's keywords
+    `frame_kw`) with the launch counters set to 0 just before, each
+    ending in a device synchronize; requires the kernels of `path` to
+    have launched (its ONE_LAUNCH kernel once per trace call:
+    `bvh8_trace_2l` on a two-level path, and no K5 or K6; `mt_dense_fused`
+    on a dense one, and no K1 or K7; K4 FILL once per bounce on stable
+    planes, K4 on PSR-lite, and the other not at all) and the last frame
+    to be finite and not black, at the display size where `frame_kw`
+    asks for one. Returns the counts."""
     from rtxpt_tpu_torch.ops import cuda_lib
+    frame_kw = frame_kw or {}
+    fill = r.cfg.use_stable_planes
+    shade = "shade_nee_fill" if fill else "shade_nee"
     for _ in range(warmups):
-        r.render_frame(w, h)
+        r.render_frame(w, h, **frame_kw)
         torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
     walls, fills = [], []
@@ -1835,28 +1893,30 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
             ShadeCalls() as shc:
         for _ in range(frames):
             t0 = time.perf_counter()
-            img = r.render_frame(w, h)
+            img = r.render_frame(w, h, **frame_kw)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            fills.append(cuda_lib.launch_counts()["shade_nee_fill"]
-                         - sum(fills))
+            fills.append(cuda_lib.launch_counts()[shade] - sum(fills))
     counts = cuda_lib.launch_counts()
     out = img.cpu().numpy()
-    require(out.shape == (h, w, 3) and np.isfinite(out).all()
+    dw, dh = frame_kw.get("display_size", (w, h))
+    require(out.shape == (dh, dw, 3) and np.isfinite(out).all()
             and out.mean() > 0.0, f"realtime {label}: bad frame")
     ms = [x * 1e3 for x in walls]
-    print(f"realtime {label} {w}x{h}: {sum(ms) / len(ms):.1f} ms/frame "
-          f"(frames {', '.join(f'{x:.1f}' for x in ms)} ms; FILL bounces "
-          f"{fills}) on {card}; {tc.n} trace calls, {sc.n} load_surface "
-          f"calls, {shc.n} bounces; launches over {frames} frames {counts}",
-          flush=True)
+    print(f"realtime {label} {w}x{h}"
+          f"{f' -> {dw}x{dh}' if (dw, dh) != (w, h) else ''}: "
+          f"{sum(ms) / len(ms):.1f} ms/frame (frames "
+          f"{', '.join(f'{x:.1f}' for x in ms)} ms; "
+          f"{'FILL ' if fill else ''}bounces {fills}) on {card}; {tc.n} "
+          f"trace calls, {sc.n} load_surface calls, {shc.n} bounces; "
+          f"launches over {frames} frames {counts}", flush=True)
     for name in path:
         require(counts[KERNELS[name][0]] > 0,
                 f"{name} was not launched on the realtime {label} path")
     require_one_launch_per_trace(counts, tc.n, f"realtime {label}", kernel)
     require_one_surface_fetch(counts, sc.n, f"realtime {label}")
     require_one_shade_per_bounce(counts, shc.n, f"realtime {label}",
-                                 fill=True)
+                                 fill=fill)
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
@@ -1864,10 +1924,7 @@ def realtime(results: dict, card: str, host_city) -> dict:
     """The realtime phase (7.); returns the launch counts of its timed
     frames by path."""
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
-    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
-                                                 reference_config)
-    from rtxpt_tpu_torch.scene import envmap as EM, procedural
-    from rtxpt_tpu_torch.utils import image as IM
+    from rtxpt_tpu_torch.scene import procedural
     launches = {}
     # ---- the city at 1920x1080: K4 FILL on the first FILL bounce, then
     # the timed frames
@@ -1898,20 +1955,47 @@ def realtime(results: dict, card: str, host_city) -> dict:
                                                 card, RT_ART_PATH, warmups=1)
 
     # ---- the port on the card against the port on the CPU
+    realtime_gpu_vs_cpu(host, "realtime")
+    # ---- the estimator oracle (tests/test_ref_vs_realtime.py) on the card
+    estimator_oracle(host, stable=True)
+    return launches
+
+
+def realtime_gpu_vs_cpu(host, what, cfg=None, frame_kw=None, w=64, h=48,
+                        frames=3):
+    """The port on the card against the port on the CPU: `frames` frames
+    of a RealtimeRenderer (configuration `cfg`, None for its defaults;
+    render_frame's keywords `frame_kw`) at w x h from each, the last
+    tonemapped; PSNR > 40 dB."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.scene import procedural
+    from rtxpt_tpu_torch.utils import image as IM
     imgs = []
     for device in ("cuda", "cpu"):
-        rs = RealtimeRenderer(host, procedural.default_camera(64, 48),
+        rs = RealtimeRenderer(host, procedural.default_camera(w, h), cfg,
                               device=device)
-        for _ in range(3):
-            img = rs.render_frame(64, 48)
+        for _ in range(frames):
+            img = rs.render_frame(w, h, **(frame_kw or {}))
         imgs.append(rs.tonemapped(img).cpu().numpy())
-    require(np.isfinite(imgs[0]).all(), "realtime 64x48: non-finite frame")
+    require(np.isfinite(imgs[0]).all(), f"{what}: non-finite frame")
     m = IM.compare(imgs[0], imgs[1])
-    print(f"realtime GPU vs CPU (plain) 64x48, frame 3: PSNR "
+    dw, dh = (frame_kw or {}).get("display_size", (w, h))
+    size = f"{w}x{h}" + (f" -> {dw}x{dh}" if (dw, dh) != (w, h) else "")
+    print(f"{what} GPU vs CPU (plain) {size}, frame {frames}: PSNR "
           f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}", flush=True)
-    require(m["psnr"] > PSNR_MIN, f"realtime GPU vs CPU: {m}")
+    require(m["psnr"] > PSNR_MIN, f"{what} GPU vs CPU: {m}")
+    return m["psnr"]
 
-    # ---- the estimator oracle (tests/test_ref_vs_realtime.py) on the card
+
+def estimator_oracle(host, stable: bool):
+    """tests/test_ref_vs_realtime.py on the card: the mean of 32
+    ref-vs-realtime frames at 48x32 (PSR-lite, the test's configuration,
+    or stable planes) against the port's 32-spp reference render; median
+    block error < 0.25, means within 10%."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
+                                                 reference_config)
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
     w, h, n = 48, 32, 32
     cam = procedural.default_camera(w, h)
     env = EM.bake_procedural_sky(height=32, sun_radiance=(40.0, 38.0, 33.0))
@@ -1922,7 +2006,7 @@ def realtime(results: dict, card: str, host_city) -> dict:
                    device="cuda").render(w, h, n, jitter_aa=False)
     rt = RealtimeRenderer(host, cam, realtime_config(
         use_restir_di=False, use_restir_gi=False, denoiser_enabled=False,
-        realtime_noise=False, use_stable_planes=True, **common),
+        realtime_noise=False, use_stable_planes=stable, **common),
         env_radiance=env, device="cuda")
     acc = torch.zeros((h, w, 3), device="cuda")
     for i in range(n):
@@ -1935,10 +2019,145 @@ def realtime(results: dict, card: str, host_city) -> dict:
                           / (0.5 * (b_ref + b_rt) + 5e-2)))
     rel_mean = abs(ref.mean() - rt_img.mean()) / max(ref.mean(),
                                                      rt_img.mean())
-    print(f"ref-vs-realtime {w}x{h}, {n} frames vs {n} spp: median block "
-          f"error {med:.4f} (< 0.25), means {ref.mean():.5f} / "
+    what = "stable planes" if stable else "PSR-lite"
+    print(f"ref-vs-realtime ({what}) {w}x{h}, {n} frames vs {n} spp: "
+          f"median block error {med:.4f} (< 0.25), means {ref.mean():.5f} / "
           f"{rt_img.mean():.5f} ({rel_mean:.3%}, < 10%)", flush=True)
-    require(med < 0.25 and rel_mean < 0.10, "ref-vs-realtime oracle failed")
+    require(med < 0.25 and rel_mean < 0.10,
+            f"ref-vs-realtime oracle ({what}) failed")
+
+
+def realtime_pipelines(results: dict, card: str, host_city) -> dict:
+    """The realtime pipelines phase (8.): PSR-lite, TAAU and ReBLUR on
+    the card; returns the launch counts of its timed frames by path."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
+                                                 reference_config)
+    from rtxpt_tpu_torch.denoise.offline import photo_denoise_auto
+    from rtxpt_tpu_torch.post.tonemap import tonemap
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import image as IM
+    launches = {}
+    restir = dict(use_restir_di=True, use_restir_gi=True,
+                  denoiser_enabled=True)
+    # the reference's realtime defaults with PSR-lite: 30 bounces / 3
+    # diffuse, NEE 2+2
+    psr = realtime_config(**restir, use_stable_planes=False)
+
+    # ---- the city at 1920x1080, PSR-lite: the G-buffer's traces, the
+    # path loop's first bounce (K4 at NEE 2+2 on every lane), its NEE
+    # trace and the ReSTIR visibility trace, then the timed frames
+    w, h = 1920, 1080
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h), psr,
+                         device="cuda")
+    results["realtime_city_psr"].update(
+        check_realtime_kernels(r, w, h, "realtime city PSR-lite"))
+    torch.cuda.empty_cache()
+    launches["realtime_city_psr"] = realtime_frames(
+        r, w, h, "city PSR-lite", card, RT_CITY_PSR_PATH, warmups=1)
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- programmer-art at 640x360, PSR-lite: its mirror and glass
+    # spheres chain, so the G-buffer's second trace casts rays
+    host = procedural.build_programmer_art().finish()
+    w, h = 640, 360
+    r = RealtimeRenderer(host, procedural.default_camera(w, h), psr,
+                         device="cuda")
+    out = check_realtime_kernels(r, w, h, "realtime 360p PSR-lite")
+    results["realtime_360p_psr"].update(out)
+    launches["realtime_360p_psr"] = realtime_frames(
+        r, w, h, "programmer-art PSR-lite", card, RT_ART_PSR_PATH,
+        warmups=1)
+    del r
+
+    # ---- the city rendered at 960x540 and upscaled by TAAU to 1920x1080
+    # (bench.py:270-272), RealtimeRenderer defaults: its kernels at
+    # 518,400 lanes
+    w, h, display = 960, 540, dict(display_size=(1920, 1080))
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h),
+                         device="cuda")
+    results["realtime_city_taau"].update(check_realtime_kernels(
+        r, w, h, "realtime city TAAU", frame_kw=display))
+    launches["realtime_city_taau"] = realtime_frames(
+        r, w, h, "city TAAU", card, RT_CITY_PATH, warmups=1,
+        frame_kw=display)
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- the city at 1920x1080 denoised by ReBLUR (stable planes). Its
+    # stage 1, and so every kernel's inputs, is the realtime city's
+    # (phase 7 holds those kernels there): no second capture
+    w, h = 1920, 1080
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h),
+                         realtime_config(**restir, use_stable_planes=True,
+                                         denoiser_method="reblur"),
+                         device="cuda")
+    launches["realtime_city_reblur"] = realtime_frames(
+        r, w, h, "city ReBLUR", card, RT_CITY_PATH)
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- the new pipelines on the card against the CPU, 64x48
+    realtime_gpu_vs_cpu(host, "PSR-lite", psr)
+    # the CLI's --preset ref-vs-realtime --no-stable-planes
+    realtime_gpu_vs_cpu(host, "PSR-lite ref-vs-realtime", realtime_config(
+        use_stable_planes=False, nee_distant_samples=1,
+        nee_local_samples=1), frame_kw=dict(taa=False))
+    for stable in (True, False):
+        realtime_gpu_vs_cpu(
+            host, f"ReBLUR {'stable planes' if stable else 'PSR-lite'}",
+            realtime_config(**restir, use_stable_planes=stable,
+                            denoiser_method="reblur"))
+    realtime_gpu_vs_cpu(host, "TAAU", None, dict(display_size=(64, 48)),
+                        w=32, h=24)
+    imgs = []
+    for device in ("cuda", "cpu"):
+        rr = Renderer(host, procedural.default_camera(64, 48),
+                      reference_config(), device=device)
+        hdr = photo_denoise_auto(rr, rr.render(64, 48, 2), 64, 48)
+        imgs.append(tonemap(hdr).cpu().numpy())
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"photo_denoise_auto GPU vs CPU (plain) 64x48, 2 spp: PSNR "
+          f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}", flush=True)
+    require(np.isfinite(imgs[0]).all() and m["psnr"] > PSNR_MIN,
+            f"photo_denoise_auto GPU vs CPU: {m}")
+
+    # ---- the estimator oracle in the reference's own configuration
+    # (tests/test_ref_vs_realtime.py: PSR-lite); phase 7 runs it on
+    # stable planes
+    estimator_oracle(host, stable=False)
+
+    # ---- the denoisers' quality (tests/test_denoise_quality.py): 4
+    # frames at 64x48 against a 64-spp reference render
+    w, h, peak = 64, 48, 4.0
+    cam = procedural.default_camera(w, h)
+    env = EM.bake_procedural_sky(height=32)
+    truth = Renderer(host, cam, reference_config(
+        max_bounces=4, max_diffuse_bounces=3, nee_distant_samples=1,
+        nee_local_samples=1), env_radiance=env, device="cuda").render(
+            w, h, 64).cpu().numpy()
+
+    def psnr(img):
+        a = np.clip(img, 0.0, peak)
+        mse = float(np.mean((a - np.clip(truth, 0.0, peak)) ** 2))
+        return 10.0 * np.log10(peak * peak / max(mse, 1e-12))
+
+    for method in ("relax", "reblur"):
+        db = []
+        for denoise in (False, True):
+            rt = RealtimeRenderer(host, cam, realtime_config(
+                **restir, use_stable_planes=True, max_bounces=4,
+                max_diffuse_bounces=3, denoiser_method=method),
+                env_radiance=env, device="cuda")
+            for _ in range(4):
+                img = rt.render_frame(w, h, denoise=denoise, taa=False)
+            db.append(psnr(img.cpu().numpy()))
+        print(f"denoiser quality {method} {w}x{h}, frame 4: raw "
+              f"{db[0]:.2f} dB -> denoised {db[1]:.2f} dB (> raw + 1.5 and "
+              f"> 18)", flush=True)
+        require(db[1] > db[0] + 1.5 and db[1] > 18.0,
+                f"denoiser quality {method}: {db}")
     return launches
 
 
@@ -2020,6 +2239,8 @@ def main() -> int:
     launches.update(phase("reference configurations", reference_configs,
                           results, card, host_city, bench_hdr, city_mean))
     launches.update(phase("realtime", realtime, results, card, host_city))
+    launches.update(phase("realtime pipelines", realtime_pipelines, results,
+                          card, host_city))
     lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]

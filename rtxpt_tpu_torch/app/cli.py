@@ -9,10 +9,12 @@ RTXPT/CommandLine.h:16-34).
 `--scene city` renders the Bistro-class procedural city (404,186
 triangles, two-level BVH8). `--mode realtime` renders `--spp` frames of
 the realtime pipeline (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; NEE
-1+1) and saves the last; `--preset ref-vs-realtime` strips it to the
-reference mode's estimator (no ReSTIR, denoiser or TAA). `--env
+1+1) and saves the last; `--no-stable-planes` renders the single-plane
+PSR-lite pipeline instead; `--preset ref-vs-realtime` strips either to
+the reference mode's estimator (no ReSTIR, denoiser or TAA). `--env
 sky.hdr` lights the scene with a Radiance .hdr in place of the procedural
-sky; `--no-nee` turns next-event estimation off.
+sky; `--no-nee` turns next-event estimation off; `--photo-denoise` runs
+the offline photo-mode denoiser on a reference-mode render.
 """
 from __future__ import annotations
 
@@ -36,8 +38,8 @@ def build_arg_parser():
                    "(LocalConfig REF_VS_REALTIME)")
     p.add_argument("--stable-planes",
                    action=argparse.BooleanOptionalAction, default=True,
-                   help="realtime: the 3-plane stable-planes pipeline; "
-                   "--no-stable-planes (PSR-lite) is not ported yet")
+                   help="realtime: the 3-plane stable-planes pipeline "
+                   "(BUILD/FILL); --no-stable-planes renders PSR-lite")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' runs the CUDA kernels, "
                    "'cpu' their plain PyTorch versions")
@@ -64,6 +66,9 @@ def build_arg_parser():
     p.add_argument("--env", default=None,
                    help="equirect environment texture (Radiance .hdr) in "
                    "place of the procedural sky")
+    p.add_argument("--photo-denoise", action="store_true",
+                   help="reference mode: run the offline photo-mode "
+                   "denoiser on the result (the OptiX/OIDN slot)")
     p.add_argument("--checkpoint", default=None,
                    help="accumulation checkpoint file (.npz): resumes if "
                    "it exists, saves on exit")
@@ -172,6 +177,11 @@ def main(argv=None) -> int:
 
     hdr = r.render(args.width, args.height, spp, not args.no_jitter,
                    progress)
+    if args.photo_denoise:
+        from ..denoise.offline import photo_denoise_auto
+        hdr = photo_denoise_auto(r, hdr, args.width, args.height)
+        if not args.quiet:
+            print("photo-mode denoise applied (offline OIDN slot)")
     srgb = r.tonemapped(hdr, exposure=args.exposure,
                         auto_expose=not args.no_auto_expose)
     _sync(args.device)

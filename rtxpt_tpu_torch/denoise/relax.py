@@ -71,6 +71,13 @@ def _tap(xp, h: int, w: int, dy: int, dx: int, r: int):
     return xp[r - dy:r - dy + h, r - dx:r - dx + w]
 
 
+def _shift(x, dy: int, dx: int):
+    """(H,W,...) shifted by (dy, dx) with edge clamp: the value of pixel
+    (y, x) is x[clamp(y - dy), clamp(x - dx)]."""
+    r = max(abs(dy), abs(dx), 1)
+    return _tap(_pad_edge(x, r, r), x.shape[0], x.shape[1], dy, dx, r)
+
+
 def _neighborhood_box(x, radius: int = 1):
     """Per-pixel mean and std of the (2r+1)^2 neighbourhood of (H,W,C)."""
     h, w = x.shape[0], x.shape[1]

@@ -5,9 +5,10 @@ The parity tests run both packages on identical tables: the reference
 builds its SceneArrays packs, DenseMT planes, BVH8 or two-level BVH8
 tables, EnvMap and LightTable, and these functions turn their fields (as
 numpy arrays) into the port's device tables. The realtime converters do
-the same for the state one frame hands the next (stable planes, ReSTIR
-reservoirs, denoiser and TAA histories); the reference's uint32 branch ids
-and nested-dielectric stacks become the port's int64. Of the BVHs only the f32
+the same for the state one frame hands the next (stable planes, the
+G-buffer, ReSTIR reservoirs, ReLAX and ReBLUR histories, the TAA and TAAU
+histories); the reference's uint32 branch ids and nested-dielectric
+stacks become the port's int64. Of the BVHs only the f32
 tables are carried; the reference's bf16 planes serve its TPU kernel.
 The port's own host build is checked against the same tables
 separately. Nothing here imports the reference package: every
@@ -18,12 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .denoise.reblur import ReblurState
 from .denoise.relax import DenoiserState
 from .ops.bvh import BVH8
 from .ops.bvh2l import BVH8TwoLevel
 from .ops.mt_dense import DenseMT
 from .post.taa import TAAState
+from .post.taau import TAAUState
+from .pt.gbuffer import GBuffer
 from .pt.integrator import RenderAssets
+from .pt.shading import BSDFData, ShadingData, SurfaceData
 from .pt.stableplanes import StablePlanes
 from .restir.gi import GIReservoir
 from .restir.reservoir import Reservoir
@@ -135,14 +140,15 @@ def assets_from_reference(scene, accel, env, lights,
         accel=accel_from_reference(accel, device))
 
 
-def _fields(obj, cls, dtypes: dict, device):
-    """cls(**fields of obj), each as a tensor of dtypes.get(name, f32);
-    uint32 fields widen to int64 on the host."""
+def _fields(obj, cls, dtypes: dict, device, **given):
+    """cls(**fields of obj), each as a tensor of dtypes.get(name, f32),
+    except the fields `given`; uint32 fields widen to int64 on the host."""
     def conv(name):
         a = np.asarray(getattr(obj, name))
         dt = dtypes.get(name, torch.float32)
         return _t(a.astype(np.int64) if dt == torch.int64 else a, dt, device)
-    return cls(**{f: conv(f) for f in cls._fields})
+    return cls(**{f: given[f] if f in given else conv(f)
+                  for f in cls._fields})
 
 
 def reservoir_from_reference(r, device="cuda") -> Reservoir:
@@ -160,6 +166,33 @@ def denoiser_state_from_reference(s, device="cuda") -> DenoiserState:
 def taa_state_from_reference(s, device="cuda") -> TAAState:
     return TAAState(history=_t(np.asarray(s.history), torch.float32, device),
                     valid=bool(np.asarray(s.valid)))
+
+
+def taau_state_from_reference(s, device="cuda") -> TAAUState:
+    return TAAUState(history=_t(np.asarray(s.history), torch.float32,
+                                device),
+                     valid=bool(np.asarray(s.valid)))
+
+
+def reblur_state_from_reference(s, device="cuda") -> ReblurState:
+    return _fields(s, ReblurState, {}, device,
+                   stab_valid=bool(np.asarray(s.stab_valid)))
+
+
+def gbuffer_from_reference(gb, device="cuda") -> GBuffer:
+    """The port's GBuffer, its SurfaceData included, from the reference's
+    (trace_gbuffer's output)."""
+    i32, b = torch.int32, torch.bool
+    surf = gb.surface
+    sd = _fields(surf.sd, ShadingData, dict(
+        front_facing=b, material_id=i32, thin_surface=b,
+        nested_priority=i32), device)
+    surface = _fields(surf, SurfaceData, dict(alpha_mode=i32,
+                                              double_sided=b), device,
+                      sd=sd, bsdf_data=_fields(surf.bsdf_data, BSDFData, {},
+                                               device))
+    return _fields(gb, GBuffer, dict(valid=b, prim=i32, interior=torch.int64),
+                   device, surface=surface)
 
 
 def stable_planes_from_reference(sp, device="cuda") -> StablePlanes:

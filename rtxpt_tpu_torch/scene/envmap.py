@@ -425,3 +425,146 @@ def bake_procedural_sky(height: int = 128,
     col = torch.where(in_sun[..., None], torch.tensor(sun_radiance, dtype=f32),
                       col)
     return col.numpy().astype(np.float32)
+
+
+def bake_atmospheric_sky(height: int = 128,
+                         sun_dir=(0.35, 0.65, 0.2),
+                         sun_irradiance: float = 22.0,
+                         turbidity: float = 1.0,
+                         altitude_m: float = 100.0,
+                         ground_albedo=(0.25, 0.22, 0.20),
+                         sun_angular_radius: float = 0.004675,
+                         samples: int = 32, sun_samples: int = 8,
+                         sky_scale: float = 1.0) -> np.ndarray:
+    """Physically based sky: Rayleigh + Mie single scattering integrated
+    at bake time, on the host in float64 numpy (the precomputed_sky.hlsli
+    bake, driven per frame by EnvMapBaker::Update, Sample.cpp:1495-1521).
+    Nishita geometry: spherical shells with exponential density profiles;
+    each view ray is marched to the top of the atmosphere (or the ground)
+    in `samples` steps, with a `sun_samples`-step transmittance march
+    toward the sun at each. The ground is a sun-lit Lambertian seen
+    through the atmosphere; the sun disc is the irradiance over its solid
+    angle, attenuated along the view path. `turbidity` scales the Mie
+    load. Returns (H, 2H, 3) float32 radiance."""
+    re_, ra = 6360e3, 6460e3                # ground / atmosphere top
+    hr, hm = 7994.0, 1200.0                 # scale heights
+    beta_r = np.array([5.802e-6, 13.558e-6, 33.1e-6])   # Rayleigh scatter
+    beta_m_s = 3.996e-6 * float(turbidity)              # Mie scatter
+    beta_m_e = beta_m_s / 0.9                           # Mie extinction
+    g = 0.76                                            # Mie anisotropy
+
+    h, w = height, 2 * height
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h,
+                       (np.arange(w) + 0.5) / w, indexing="ij")
+    theta = v * np.pi
+    phi = (u * 2.0 - 1.0) * np.pi
+    st = np.sin(theta)
+    d = np.stack([st * np.cos(phi), np.cos(theta), st * np.sin(phi)],
+                 -1).reshape(-1, 3)
+    sd = np.asarray(sun_dir, np.float64)
+    sd = sd / np.linalg.norm(sd)
+    origin = np.array([0.0, re_ + max(altitude_m, 1.0), 0.0])
+
+    def transmittance_to_sun(pts):
+        """Transmittance from each of pts (M,3) toward the sun; 0 where
+        the planet blocks the sun."""
+        b = pts @ sd
+        r2 = np.sum(pts * pts, -1)
+        t_exit = -b + np.sqrt(np.maximum(b * b - (r2 - ra * ra), 0.0))
+        disc_g = b * b - (r2 - re_ * re_)
+        blocked = (disc_g > 0.0) & (
+            -b - np.sqrt(np.maximum(disc_g, 0.0)) > 0.0)
+        ts = (np.arange(sun_samples) + 0.5) / sun_samples
+        seg = t_exit / sun_samples
+        od_r = np.zeros(pts.shape[0])
+        od_m = np.zeros(pts.shape[0])
+        for k in range(sun_samples):
+            p = pts + sd * (ts[k] * t_exit)[..., None]
+            alt = np.linalg.norm(p, axis=-1) - re_
+            od_r += np.exp(-np.maximum(alt, 0.0) / hr) * seg
+            od_m += np.exp(-np.maximum(alt, 0.0) / hm) * seg
+        tr = np.exp(-(beta_r[None] * od_r[..., None]
+                      + beta_m_e * od_m[..., None]))
+        tr[blocked] = 0.0
+        return tr
+
+    # the view rays end at the top of the atmosphere or on the ground
+    b = d @ origin
+    t_end = -b + np.sqrt(np.maximum(b * b - (origin @ origin - ra * ra),
+                                    0.0))
+    disc_g = b * b - (origin @ origin - re_ * re_)
+    hits_ground = (disc_g > 0.0) & (
+        -b - np.sqrt(np.maximum(disc_g, 0.0)) > 0.0)
+    t_ground = -b - np.sqrt(np.maximum(disc_g, 0.0))
+    t_end = np.where(hits_ground, np.maximum(t_ground, 0.0), t_end)
+
+    mu_c = d @ sd                                       # cos(sun angle)
+    phase_r = 3.0 / (16.0 * np.pi) * (1.0 + mu_c ** 2)
+    phase_m = 3.0 / (8.0 * np.pi) * ((1.0 - g * g) * (1.0 + mu_c ** 2)
+                                     / ((2.0 + g * g) * (1.0 + g * g
+                                        - 2.0 * g * mu_c) ** 1.5))
+    seg = t_end / samples
+    od_r = np.zeros(d.shape[0])
+    od_m = np.zeros(d.shape[0])
+    sum_r = np.zeros((d.shape[0], 3))
+    sum_m = np.zeros((d.shape[0], 3))
+    ts = (np.arange(samples) + 0.5) / samples
+    for k in range(samples):
+        p = origin[None] + d * (ts[k] * t_end)[..., None]
+        alt = np.maximum(np.linalg.norm(p, axis=-1) - re_, 0.0)
+        rho_r = np.exp(-alt / hr) * seg
+        rho_m = np.exp(-alt / hm) * seg
+        t_view = np.exp(-(beta_r[None] * (od_r + 0.5 * rho_r)[..., None]
+                          + beta_m_e * (od_m + 0.5 * rho_m)[..., None]))
+        t_sun = transmittance_to_sun(p)
+        sum_r += rho_r[..., None] * t_view * t_sun
+        sum_m += rho_m[..., None] * t_view * t_sun
+        od_r += rho_r
+        od_m += rho_m
+    col = sun_irradiance * (sum_r * beta_r[None] * phase_r[..., None]
+                            + sum_m * beta_m_s * phase_m[..., None])
+
+    # ground: the sun-lit Lambertian, attenuated sun -> ground -> eye
+    t_total = np.exp(-(beta_r[None] * od_r[..., None]
+                       + beta_m_e * od_m[..., None]))
+    gp = origin[None] + d * t_end[..., None]
+    g_n = gp / np.maximum(np.linalg.norm(gp, axis=-1, keepdims=True), 1e-9)
+    cos_g = np.maximum(g_n @ sd, 0.0)
+    alb = np.asarray(ground_albedo, np.float64)
+    ground_col = (alb[None] / np.pi) * sun_irradiance * \
+        cos_g[..., None] * transmittance_to_sun(gp) * t_total
+    col = np.where(hits_ground[..., None], col + ground_col, col)
+
+    # the sun disc: irradiance over its solid angle, through the view path
+    omega_sun = 2.0 * np.pi * (1.0 - np.cos(sun_angular_radius))
+    in_sun = (mu_c > np.cos(sun_angular_radius)) & ~hits_ground
+    col = np.where(in_sun[..., None],
+                   col + t_total * (sun_irradiance / omega_sun), col)
+    return (col * sky_scale).reshape(h, w, 3).astype(np.float32)
+
+
+def bake_with_directional(base_radiance, directional_lights,
+                          angular_radius: float = 0.02) -> np.ndarray:
+    """EnvMapBaker::Update's splat of analytic directional lights
+    (EnvMapBaker.cpp, per frame at Sample.cpp:1495-1521): each light
+    becomes a disc of radiance = irradiance / solid angle in the
+    equirect, so the env sampler and MIS see it as distant light.
+
+    directional_lights: dicts {direction (the travel direction, from the
+    light), radiance}. Returns a new (H, 2H, 3) float32 map."""
+    col = np.asarray(base_radiance, np.float32).copy()
+    h, w = col.shape[0], col.shape[1]
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h,
+                       (np.arange(w) + 0.5) / w, indexing="ij")
+    theta = v * np.pi
+    phi = (u * 2.0 - 1.0) * np.pi
+    st = np.sin(theta)
+    d = np.stack([st * np.cos(phi), np.cos(theta), st * np.sin(phi)], -1)
+    omega = 2.0 * np.pi * (1.0 - np.cos(angular_radius))
+    for light in directional_lights:
+        ld = np.asarray(light["direction"], np.float32)
+        ld = -ld / max(np.linalg.norm(ld), 1e-9)      # toward the light
+        rad = np.asarray(light["radiance"], np.float32) / omega
+        mask = (d @ ld) > np.cos(angular_radius)
+        col[mask] = col[mask] + rad
+    return col

@@ -43,18 +43,20 @@ def test_cli_renders_city_on_cpu(tmp_path):
     assert np.isfinite(hdr).all() and hdr.mean() > 0.0
 
 
-@pytest.mark.parametrize("preset", [[], ["--preset", "ref-vs-realtime"]],
-                         ids=["default", "ref-vs-realtime"])
+@pytest.mark.parametrize("preset", [
+    [], ["--preset", "ref-vs-realtime"], ["--no-stable-planes"],
+    ["--no-stable-planes", "--preset", "ref-vs-realtime"]],
+    ids=["default", "ref-vs-realtime", "psr-lite", "psr-lite-ref-vs-realtime"])
 def test_cli_realtime_on_cpu(tmp_path, preset):
-    """--mode realtime: 2 frames of the realtime pipeline, the last saved."""
-    npy = str(tmp_path / "r.npy")
+    """--mode realtime: 2 frames of the realtime pipeline (stable planes,
+    or PSR-lite with --no-stable-planes), the last saved."""
+    npy, png = str(tmp_path / "r.npy"), str(tmp_path / "r.png")
     args = ["--mode", "realtime", "--width", "16", "--height", "12",
             "--spp", "2", "--device", "cpu", "--max-bounces", "2",
-            "--output", str(tmp_path / "r.png"), "--dump-npy", npy,
-            "--quiet"] + preset
+            "--output", png, "--dump-npy", npy, "--quiet"] + preset
     assert cli.main(args) == 0
     hdr = np.load(npy)
-    assert hdr.shape == (12, 16, 3)
+    assert hdr.shape == IM.load_png(png).shape == (12, 16, 3)
     assert np.isfinite(hdr).all() and hdr.mean() > 0.0
 
 
@@ -68,8 +70,9 @@ def _hdr(path, h=8, w=16):
     return str(path)
 
 
-@pytest.mark.parametrize("extra", [["--no-nee"], ["--env", "sky.hdr"]],
-                         ids=["no-nee", "env"])
+@pytest.mark.parametrize("extra", [["--no-nee"], ["--env", "sky.hdr"],
+                                   ["--photo-denoise"]],
+                         ids=["no-nee", "env", "photo-denoise"])
 def test_cli_reference_options_on_cpu(tmp_path, extra):
     """--no-nee (the chain, no next-event estimation) and --env (a Radiance
     .hdr in place of the procedural sky)."""
@@ -92,14 +95,6 @@ def test_cli_refuses_exr_env(tmp_path):
         cli.main(["--env", str(path), "--width", "8", "--height", "6",
                   "--spp", "1", "--device", "cpu", "--output",
                   str(tmp_path / "o.png"), "--quiet"])
-
-
-def test_cli_realtime_refuses_psr_lite(tmp_path):
-    """--no-stable-planes asks for the PSR-lite pipeline, not ported yet."""
-    with pytest.raises(NotImplementedError):
-        cli.main(["--mode", "realtime", "--no-stable-planes", "--width", "8",
-                  "--height", "6", "--spp", "1", "--device", "cpu",
-                  "--output", str(tmp_path / "r.png"), "--quiet"])
 
 
 def test_png_round_trip(tmp_path):

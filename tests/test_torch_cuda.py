@@ -383,12 +383,17 @@ def test_shade_kernel_launches_bit_equal(dev, fill, n):
                        kernel(planes, consts4, **kw))
 
 
-def _realtime(device, w=32, h=24):
+def _realtime(device, w=32, h=24, **cfg):
+    """A RealtimeRenderer on programmer-art: the default configuration, or
+    ReSTIR DI + GI with a denoiser and `cfg`."""
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
-    return RealtimeRenderer(procedural.build_programmer_art().finish(),
-                            procedural.default_camera(w, h),
-                            env_radiance=EM.bake_procedural_sky(height=32),
-                            device=device)
+    from rtxpt_tpu_torch.models.renderer import realtime_config
+    return RealtimeRenderer(
+        procedural.build_programmer_art().finish(),
+        procedural.default_camera(w, h),
+        realtime_config(use_restir_di=True, use_restir_gi=True,
+                        denoiser_enabled=True, **cfg) if cfg else None,
+        env_radiance=EM.bake_procedural_sky(height=32), device=device)
 
 
 def test_shade_fill_kernel_matches_plain(dev):
@@ -440,6 +445,52 @@ def test_realtime_frame_launches_fill_and_matches_cpu(dev):
     c.render_frame(32, 24)
     torch.testing.assert_close(gpu, c.render_frame(32, 24), rtol=1e-3,
                                atol=1e-3)
+
+
+def test_psr_frame_launches_shade_nee_and_matches_cpu(dev):
+    """A PSR-lite frame (use_stable_planes=False) on the card runs the
+    fused dense trace, K2, the surface fetch and the non-FILL K4 (one per
+    bounce of its path loop), never K4 FILL, and its second frame agrees
+    with the CPU port's."""
+    cuda_lib.reset_launch_counts()
+    r = _realtime(dev, use_stable_planes=False)
+    r.render_frame(32, 24)
+    gpu = r.render_frame(32, 24).cpu()
+    counts = cuda_lib.launch_counts()
+    for k in ("mt_dense_fused", "gather_rows", "gather_surface",
+              "shade_nee"):
+        assert counts[k] > 0, counts
+    assert counts["shade_nee_fill"] == 0, counts
+    assert counts["gather_rows_interp"] == 0, counts
+    c = _realtime("cpu", use_stable_planes=False)
+    c.render_frame(32, 24)
+    torch.testing.assert_close(gpu, c.render_frame(32, 24), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("stable", [True, False],
+                         ids=["stable-planes", "psr-lite"])
+def test_reblur_frame_matches_cpu(dev, stable):
+    """ReBLUR frames on the card agree with the CPU port's (frame 2)."""
+    imgs = []
+    for device in (dev, "cpu"):
+        r = _realtime(device, use_stable_planes=stable,
+                      denoiser_method="reblur")
+        r.render_frame(32, 24)
+        imgs.append(r.render_frame(32, 24).cpu())
+    torch.testing.assert_close(imgs[0], imgs[1], rtol=1e-3, atol=1e-3)
+
+
+def test_taau_frame_matches_cpu(dev):
+    """The default pipeline upscaled by TAAU from 32x24 to 64x48 on the
+    card agrees with the CPU port's (frame 2)."""
+    imgs = []
+    for device in (dev, "cpu"):
+        r = _realtime(device)
+        r.render_frame(32, 24, display_size=(64, 48))
+        imgs.append(r.render_frame(32, 24, display_size=(64, 48)).cpu())
+    assert imgs[0].shape == (48, 64, 3)
+    torch.testing.assert_close(imgs[0], imgs[1], rtol=1e-3, atol=1e-3)
 
 
 def test_render_launches_every_kernel_and_matches_cpu(dev):

@@ -134,27 +134,15 @@ def test_realtime_frames_match_reference(reference, tables,
         assert float(r.den_states[0][0].history.max()) >= 2.0
 
 
-@pytest.mark.parametrize("what", ["psr-lite", "reblur", "taau", "mesh"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_options_raise(what):
-    """The parts of the realtime mode that wait for a later slice refuse
-    to run instead of rendering something else."""
+    """The part of the realtime mode that waits for a later slice (a
+    multi-device mesh) refuses to run instead of rendering something
+    else."""
     host, cam = TP.build_programmer_art().finish(), TP.default_camera(8, 6)
     env = TEM.bake_procedural_sky(height=16)
     kw = dict(use_restir_di=True, use_restir_gi=True, denoiser_enabled=True,
               use_stable_planes=True, max_bounces=1)
     with pytest.raises(NotImplementedError):
-        if what == "psr-lite":
-            RealtimeRenderer(host, cam, realtime_config(
-                **dict(kw, use_stable_planes=False)), env_radiance=env,
-                device="cpu")
-        elif what == "reblur":
-            RealtimeRenderer(host, cam, realtime_config(
-                **kw, denoiser_method="reblur"), env_radiance=env,
-                device="cpu")
-        elif what == "mesh":
-            RealtimeRenderer(host, cam, realtime_config(**kw), mesh=object(),
-                             env_radiance=env, device="cpu")
-        else:
-            RealtimeRenderer(host, cam, realtime_config(**kw),
-                             env_radiance=env, device="cpu").render_frame(
-                8, 6, display_size=(16, 12))
+        RealtimeRenderer(host, cam, realtime_config(**kw), mesh=object(),
+                         env_radiance=env, device="cpu")

@@ -26,8 +26,13 @@ configuration off the default.
 (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; 30 bounces / 3 diffuse,
 NEE 2+2) after two warm-up frames (no history, then history), and adds a
 split of that frame by stage (the "realtime:<stage>" profiler ranges of
-`models/realtime.py`: build, restir_di, fill, restir_gi, relax, taa): each
-stage's host wall and the device time of the kernels inside its span.
+`models/realtime.py`: build, restir_di, fill, restir_gi, relax, taa; on
+PSR-lite gbuffer and paths in place of build and fill; reblur, taau):
+each stage's host wall and the device time of the kernels inside its
+span. There `--set` overrides a field of that pipeline's PTConfig (e.g.
+`--set use_stable_planes=False` for PSR-lite, `--set
+denoiser_method='reblur'`), and `--display WxH` upscales the frame with
+TAAU to that display size.
 
 The trace calls are timed by wrapping the port's `ops.traverse` functions
 in profiler ranges for the length of the run.
@@ -44,8 +49,10 @@ import time
 import torch
 
 RANGES = ("trace_closest", "trace_anyhit")
-STAGES = ("realtime:build", "realtime:restir_di", "realtime:fill",
-          "realtime:restir_gi", "realtime:relax", "realtime:taa")
+STAGES = ("realtime:build", "realtime:gbuffer", "realtime:restir_di",
+          "realtime:fill", "realtime:paths", "realtime:restir_gi",
+          "realtime:relax", "realtime:reblur", "realtime:taa",
+          "realtime:taau")
 GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K6 probe (bvh8_trace_sub)", ("bvh8_kernel<false, true>",
                                          "bvh8_kernel<true, true>")),
@@ -77,8 +84,12 @@ def main(argv=None) -> int:
                    choices=["reference", "realtime"])
     p.add_argument("--set", action="append", default=[],
                    metavar="KEY=VALUE",
-                   help="reference mode: override a PTConfig field of the "
-                   "bench config (a Python literal value)")
+                   help="override a PTConfig field of the bench config "
+                   "(reference mode) or of the default realtime pipeline "
+                   "(a Python literal value)")
+    p.add_argument("--display", default=None, metavar="WxH",
+                   help="realtime mode: upscale each frame with TAAU to "
+                   "this display size")
     args = p.parse_args(argv)
     overrides = {}
     for item in args.set:
@@ -96,11 +107,19 @@ def main(argv=None) -> int:
     w, h, spp = args.width, args.height, args.spp
     if args.mode == "realtime":
         from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
-        r = RealtimeRenderer(host, cam, env_radiance=env, device="cuda")
+        from rtxpt_tpu_torch.models.renderer import realtime_config
+        cfg = realtime_config(**{**dict(
+            use_restir_di=True, use_restir_gi=True, denoiser_enabled=True,
+            use_stable_planes=True), **overrides})
+        r = RealtimeRenderer(host, cam, cfg, env_radiance=env, device="cuda")
         spp = 1
+        frame_kw = {}
+        if args.display:
+            frame_kw["display_size"] = tuple(
+                int(v) for v in args.display.split("x"))
 
         def render():
-            r.render_frame(w, h)
+            r.render_frame(w, h, **frame_kw)
             torch.cuda.synchronize()
 
         render()                             # the no-history variant
@@ -170,6 +189,8 @@ def main(argv=None) -> int:
     what = "realtime frame" if args.mode == "realtime" else f"{spp}spp"
     if overrides:
         what += f" {overrides}"
+    if args.display:
+        what += f" -> TAAU {args.display}"
     print(f"{card}; {args.scene} {w}x{h} {what}: wall {wall * 1e3:.1f} ms "
           f"({w * h * spp / wall / 1e6:.3f} Mpaths/s); profiled wall "
           f"{prof_wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
@@ -183,7 +204,7 @@ def main(argv=None) -> int:
     if args.mode == "realtime":
         print("  by stage (host wall of the range; device time of the "
               "kernels that start inside its device span):")
-        for name in STAGES:
+        for name in (n for n in STAGES if n in stage_host):
             dev = sum(end - start for start, end, _ in kernels
                       if any(s0 <= start < s1 for s0, s1, n in stage_dev
                              if n == name))
