@@ -123,13 +123,42 @@ its seconds):
      (tests/test_denoise_quality.py): 4 frames at 64x48 against a 64-spp
      reference render, ReLAX and ReBLUR each more than 1.5 dB above the
      raw frame and above 18 dB;
-  9. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+  9. foliage dense: programmer-art and 1,500 alpha-MASK leaf cards in
+     the default camera's view (8,160 triangles, the dense tier; 2048x2048
+     leaf base color + alpha and normal map, 1024x1024 metal-rough, all
+     made from a seed; the texture stack's 1024x1024 cap), bench config
+     at 800x600: the fused dense trace with its OMM channel against its
+     plain version on the first bounce's camera trace, the exact alpha
+     test's first and re-queue traces (closest, masked) and the NEE
+     any-hit trace of the masks alone (exact_alpha_test=False): 0 lanes
+     may differ in slot and t bits (any-hit: in the occlusion flag); the
+     surface fetch, K2 (the texel pool's gathers among them) and K4 on
+     that bounce; the 8-spp render with the counters set to 0 just
+     before (the launch checks of the bench), after a warm-up render that
+     counts the visibility lanes the exact test re-queues and those left
+     unresolved; the image with the masks alone (its mean must differ);
+     64x48 2-spp GPU vs CPU (PSNR > 40 dB);
+  10. city foliage: build_city() and 20,000 leaf cards along the camera's
+     street (444,186 triangles, two-level): the two-level kernel (with
+     K6 and K5 on the largest subtree, as in 5.) against its plain
+     version on the first bounce's camera and exact visibility traces,
+     the surface fetch, K2 and K4; the 1920x1080 2-spp render with the
+     city's launch checks; 3 frames of the default realtime pipeline at
+     1920x1080 after the two warm-ups (the first counting the re-queue),
+     with the realtime city's launch checks; 64x36 1-spp GPU vs CPU;
+  11. the glTF loader: a .scene.json written to a temporary directory,
+     whose model is a .gltf of the 1,500 cards over a floor with one PNG
+     base color + alpha and one BC1 .dds metal-rough, rendered through
+     the CLI (`--scene PATH --device cuda`) at 800x600 8 spp with the
+     counters set to 0 just before (the bench's launch checks), and at
+     64x48 2 spp on the card against the CPU (PSNR > 40 dB);
+  12. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  10. print a JSON line describing the kernels (each kernel's numbers on
+  13. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first such path, named in `measured_on`), then the result line.
 
@@ -206,6 +235,9 @@ RT_CITY_PSR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
                     "shade_nee")
 RT_ART_PSR_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                    "shade_nee")
+# the textured, alpha-MASK paths: the foliage scenes' reference renders
+FOLIAGE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
+                "shade_nee")
 # the reference configurations' paths through the chain of tensor ops
 BENCH_CHAIN_PATH = ("mt_dense_fused", "gather_rows", "gather_surface")
 CITY_REGIR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
@@ -220,7 +252,9 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH,
          "realtime_city_psr": RT_CITY_PSR_PATH,
          "realtime_360p_psr": RT_ART_PSR_PATH,
-         "realtime_city_taau": RT_CITY_PATH}
+         "realtime_city_taau": RT_CITY_PATH,
+         "foliage_dense": FOLIAGE_PATH, "city_foliage": CITY_PATH,
+         "realtime_city_foliage": RT_CITY_PATH, "gltf_scene": FOLIAGE_PATH}
 # the bench workload's configuration and size (width, height, spp), the
 # city's size, and the reference configurations other than the default
 # that phase 6 renders the bench under
@@ -244,6 +278,10 @@ SLAB_OPS = 25                  # one ray-box slab test
 NODE_ROW_OPS = 8 * SLAB_OPS + 19   # 8 child slabs + the sorting network
 TRI_OPS = 45                   # one Möller–Trumbore test
 TRI_U_OPS = 22                 # its operations up to the u test (h, a, s, u)
+# K1's OMM test on a pair that passes Möller–Trumbore: two divisions and
+# two float-to-int conversions (counted 8 each, at the MUFU rate, as
+# SASS_OP_WEIGHTS does), two multiplies and four clamps
+OMM_OPS = 2 * 8 + 2 * 8 + 2 + 4
 GROUP = 8                      # clusters under one group box (mt_dense.cu)
 # K4's operations per lane are counted from the built library's SASS
 # (`sass_ops`): each float32 instruction that runs at the FP32 pipe's
@@ -260,6 +298,9 @@ SASS_OP_WEIGHTS.update(FFMA=2, FFMA32I=2, MUFU=8, F2I=8, I2F=8, F2F=8,
 SHADE = {}
 PSNR_MIN, SMAPE_MAX = 40.0, 0.02            # cross-platform golden gate
 FAST_PSNR, FAST_SMAPE = 45.0, 0.01          # same-platform fast gate
+# the foliage phases: the leaf textures' edge, and the cards added to
+# programmer-art (the dense tier) and to the city
+FOLIAGE_TEX, FOLIAGE_CARDS, CITY_CARDS = 2048, 1500, 20000
 
 
 def require(cond, msg):
@@ -348,7 +389,11 @@ class Capture:
                          None),
               "busy_anyhit": ("rtxpt_tpu_torch.ops.traverse", "trace_anyhit",
                               lambda kw: kw.get("active") is None
-                              or bool(kw["active"].any()))}
+                              or bool(kw["active"].any())),
+              "busy_visibility": ("rtxpt_tpu_torch.pt.visibility",
+                                  "trace_visibility",
+                                  lambda kw: kw.get("active") is None
+                                  or bool(kw["active"].any()))}
 
     def __init__(self, limits: dict, during=()):
         import importlib
@@ -403,8 +448,9 @@ def dense_visits(args, kw, t, slot, worklists, rows: bool = False):
     slab-tests the clusters of its tile's worklist, and tests the 64 rows
     of each cluster its box lets through (up to the lane's final t; for
     any-hit, up to the cluster of the first hit, in worklist order). With
-    `rows`, also (row tests, rows that pass the u test): those rows one by
-    one (any-hit: in the hit's cluster, up to the hit's row)."""
+    `rows`, also (row tests, rows that pass the u test, rows that pass the
+    whole test): those rows one by one (any-hit: in the hit's cluster, up
+    to the hit's row)."""
     from rtxpt_tpu_torch.ops import mt_dense
     from rtxpt_tpu_torch.ops.intersect import safe_inv
     aabb_c, tri12, o_c, d, tmax, act = args
@@ -417,7 +463,7 @@ def dense_visits(args, kw, t, slot, worklists, rows: bool = False):
         1, order.long(), torch.arange(nc, dtype=order.dtype,
                                       device=order.device).expand_as(order)
         .contiguous())
-    passing, tested, upass = 0, 0, 0
+    passing, tested, upass, hits = 0, 0, 0, 0
     for c in range(0, n, 1 << 16):
         sl = slice(c, c + (1 << 16))
         tiles = tile_of[sl]
@@ -445,17 +491,21 @@ def dense_visits(args, kw, t, slot, worklists, rows: bool = False):
                     row_last = torch.where(
                         (s_hit >= 0) & (ci == s_hit // mt_dense.CLUSTER),
                         s_hit % mt_dense.CLUSTER, row_last)
-                k, u = u_tests(tri12, o_c[sl][li], d[sl][li], ci, row_last)
-                tested, upass = tested + k, upass + u
+                k, u, x = u_tests(tri12, o_c[sl][li], d[sl][li], ci,
+                                  row_last)
+                tested, upass, hits = tested + k, upass + u, hits + x
     slabs = int(counts.long()[tile_of][act].sum())
-    return (slabs, passing, (tested, upass)) if rows else (slabs, passing)
+    return (slabs, passing, (tested, upass, hits)) if rows \
+        else (slabs, passing)
 
 
 def u_tests(tri12, o, d, clusters, row_last):
-    """(rows, rows past the u test) of the lanes' rays (o, d) against the
-    rows 0..row_last of their `clusters`: the u test of the kernels'
-    Möller–Trumbore test (csrc/mt_dense.cu `mt_row`): |a| > 1e-12 and
-    0 <= u <= |a|, sign-folded by a."""
+    """(rows, rows past the u test, rows that pass the whole test) of the
+    lanes' rays (o, d) against the rows 0..row_last of their `clusters`:
+    the u test of the kernels' Möller–Trumbore test (csrc/mt_dense.cu
+    `mt_row`): |a| > 1e-12 and 0 <= u <= |a|, sign-folded by a; then
+    v >= 0, u + v <= |a| and t > 0 (where the OMM channel tests the
+    mask)."""
     from rtxpt_tpu_torch.ops import mt_dense
     rows = tri12.view(-1, mt_dense.CLUSTER, 12)[clusters]   # (P, 64, 12)
     p0, e1, e2 = rows[..., 0:3], rows[..., 4:7], rows[..., 8:11]
@@ -470,7 +520,13 @@ def u_tests(tri12, o, d, clusters, row_last):
     k = torch.arange(mt_dense.CLUSTER, device=o.device)
     tested = k[None] <= row_last[:, None]
     ok = tested & (absa > 1e-12) & (su >= 0) & (su <= absa)
-    return int(tested.sum()), int(ok.sum())
+    q = torch.linalg.cross(s, e1, dim=-1)
+    vv = d[..., 0] * q[..., 0] + d[..., 1] * q[..., 1] + d[..., 2] * q[..., 2]
+    tt = e2[..., 0] * q[..., 0] + e2[..., 1] * q[..., 1] \
+        + e2[..., 2] * q[..., 2]
+    sv, st = torch.where(a < 0, -vv, vv), torch.where(a < 0, -tt, tt)
+    hit = ok & (sv >= 0) & (su + sv <= absa) & (st > 0)
+    return int(tested.sum()), int(ok.sum()), int(hit.sum())
 
 
 def k1_work(args, kw, t, slot, worklists):
@@ -494,7 +550,8 @@ def fused_work(args, kw, t, slot, worklists):
     operations), and the row tests of the clusters each lane must test
     (dense_visits: TRI_U_OPS where a row fails its u test, TRI_OPS where
     it passes; the walk's slab gate repeats a key test and is not counted
-    again)."""
+    again), and with the OMM channel (kw["omm"]) OMM_OPS on each row that
+    passes the whole test."""
     from rtxpt_tpu_torch.ops import mt_dense as M
     from rtxpt_tpu_torch.ops.intersect import safe_inv
     aabb_c, tri12, o_c, d, tmax, act = args
@@ -516,12 +573,13 @@ def fused_work(args, kw, t, slot, worklists):
         tf = torch.minimum(torch.amin(torch.maximum(t0, t1), -1),
                            tmax[li, None])
         key_tests += int(((tn <= tf) * size[None]).sum())
-    _, _, (tested, upass) = dense_visits(args, kw, t, slot, worklists,
-                                         rows=True)
+    _, _, (tested, upass, hits) = dense_visits(args, kw, t, slot, worklists,
+                                               rows=True)
     m = counts.double()
     sort = float((m * torch.ceil(torch.log2(torch.clamp(m, min=2.0)))).sum())
     ops = key_tests * SLAB_OPS + (tested - upass) * TRI_U_OPS \
-        + upass * TRI_OPS + int(sort) * 4
+        + upass * TRI_OPS + int(sort) * 4 \
+        + (hits * OMM_OPS if kw.get("omm") else 0)
     nbytes = (aabb_c.numel() + tri12.numel()) * 4 \
         + o_c.shape[0] * (12 + 12 + 4 + 1 + 8)
     return nbytes, ops
@@ -658,7 +716,7 @@ def check_dense(accel, traces, label) -> dict:
                                        kw["any_hit"])
         ref = plain()
         wl, *k7 = check_k7(args, f"{label} {what}")
-        got = M.trace_dense(*args, **kw, worklists=wl)
+        got = M.trace_dense(*args, kw["any_hit"], worklists=wl)
         torch.cuda.synchronize()
         k1_err = dense_agreement(accel, args, kw, got, ref,
                                  f"K1 {label} {what}")
@@ -672,7 +730,8 @@ def check_dense(accel, traces, label) -> dict:
         if not timed:
             continue
         pms = time_ms(plain, 2)
-        ms = time_ms(lambda: M.trace_dense(*args, **kw, worklists=wl), 20)
+        ms = time_ms(lambda: M.trace_dense(*args, kw["any_hit"],
+                                           worklists=wl), 20)
         fms = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
         nb, ops = k1_work(args, kw, *got, wl)
         fnb, fops = fused_work(args, kw, *got_f, wl)
@@ -1166,7 +1225,7 @@ def sorted_bench(card: str):
 
 
 def labs(results: dict) -> dict:
-    """The labs phase (8.): K9's modes on the bench camera rays and every
+    """The labs phase (12.): K9's modes on the bench camera rays and every
     K8 micro-kernel against its plain version -> results["labs"]; returns
     the labs' kernels (no main path runs them) as KERNELS describes
     kernels."""
@@ -1805,19 +1864,23 @@ def capture_realtime_frame(r, w, h, frame_kw=None):
     gathers and K4), the G-buffer's camera trace and its first PSR-chain
     trace with an active lane (the chain casts no ray where no pixel sees
     a pure-delta surface), the path loop's first NEE trace that casts a
-    ray and the ReSTIR visibility trace. A two-level trace is one
+    ray and the ReSTIR visibility trace. Under the exact alpha test the
+    visibility traces are the re-queue's first closest trace of a
+    trace_visibility call that casts a ray. A two-level trace is one
     launch."""
     from rtxpt_tpu_torch.ops import bvh2l
     name = "trace_bvh8_2l" if isinstance(r.accel, bvh2l.BVH8TwoLevel) \
         else "trace_dense_fused"
     stable = r.cfg.use_stable_planes
     shade = "shade_nee_fill" if stable else "shade_nee"
+    exact = r.cfg.exact_alpha_test
+    vis = "busy_visibility" if exact else "busy_anyhit"
     with Capture({name: 1 if stable else 3},
                  during=("build" if stable else "gbuffer",)) as primary, \
             Capture({"gather_rows": 16, "gather_surface": 1, shade: 1},
                     during=("fill",)) as first, \
-            Capture({name: 1}, during=("fill", "busy_anyhit")) as nee, \
-            Capture({name: 1}, during=("restir", "busy_anyhit")) as restir:
+            Capture({name: 1}, during=("fill", vis)) as nee, \
+            Capture({name: 1}, during=("restir", vis)) as restir:
         r.render_frame(w, h, **(frame_kw or {}))
         torch.cuda.synchronize()
     calls = primary.calls[name]
@@ -1834,9 +1897,10 @@ def capture_realtime_frame(r, w, h, frame_kw=None):
         print(f"PSR chain: no chain trace has an active lane ({len(calls)} "
               "G-buffer traces)", flush=True)
     traces += [("FILL NEE" if stable else "paths NEE",
-                nee.calls[name][0] if nee.calls[name] else None, True),
+                nee.calls[name][0] if nee.calls[name] else None, not exact),
                ("ReSTIR visibility",
-                restir.calls[name][0] if restir.calls[name] else None, True)]
+                restir.calls[name][0] if restir.calls[name] else None,
+                not exact)]
     return name, first, traces
 
 
@@ -2161,6 +2225,528 @@ def realtime_pipelines(results: dict, card: str, host_city) -> dict:
     return launches
 
 
+def leaf_textures(seed: int = 11) -> list:
+    """The foliage's textures, made from `seed`: a 2048x2048 RGBA base
+    color whose alpha holds leaf shapes (ellipses, wrapped; half the
+    texels opaque), a 2048x2048 normal map and a 1024x1024 metal-rough
+    map (uint8). The stack resamples them to its 1024x1024 cap."""
+    rs = np.random.RandomState(seed)
+    n = FOLIAGE_TEX // 4
+    y, x = (np.mgrid[0:n, 0:n] + 0.5) / n
+    field = np.zeros((n, n), np.float32)
+    for _ in range(48):
+        cx, cy = rs.uniform(0, 1, 2)
+        rx = rs.uniform(0.03, 0.08)
+        ry = rx * rs.uniform(1.8, 3.0)
+        th = rs.uniform(0, np.pi)
+        dx, dy = (x - cx + 0.5) % 1.0 - 0.5, (y - cy + 0.5) % 1.0 - 0.5
+        u = dx * np.cos(th) + dy * np.sin(th)
+        v = -dx * np.sin(th) + dy * np.cos(th)
+        field = np.maximum(field, 1.0 - (u / rx) ** 2 - (v / ry) ** 2)
+    up = lambda a, k: np.repeat(np.repeat(a, k, 0), k, 1)
+    base = np.empty((FOLIAGE_TEX, FOLIAGE_TEX, 4), np.uint8)
+    base[..., 0] = up(rs.randint(20, 90, (n, n)), 4)
+    base[..., 1] = up(rs.randint(100, 220, (n, n)), 4)
+    base[..., 2] = up(rs.randint(10, 50, (n, n)), 4)
+    base[..., 3] = up(np.where(field > np.median(field), 255, 0), 4)
+    g = up(rs.normal(0.0, 0.3, (n // 2, n // 2, 2)), 8)
+    nrm = np.concatenate([g, np.ones(g.shape[:2] + (1,))], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm = ((nrm * 0.5 + 0.5) * 255).astype(np.uint8)
+    mr = np.zeros((FOLIAGE_TEX // 2, FOLIAGE_TEX // 2, 4), np.uint8)
+    mr[..., 1] = up(rs.randint(80, 230, (n // 2, n // 2)), 4)
+    mr[..., 3] = 255
+    return [base, nrm, mr]
+
+
+def leaf_cards(n: int, lo, hi, size: float, seed: int):
+    """n square cards (2 triangles each) of edge `size`, centered
+    uniformly in the box [lo, hi], randomly oriented, each with a quarter
+    of the leaf texture -> (positions (4n,3), indices (2n,3), uvs
+    (4n,2))."""
+    rs = np.random.RandomState(seed)
+    c = rs.uniform(lo, hi, (n, 3))
+    a = rs.normal(size=(n, 3))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b = np.cross(a, rs.normal(size=(n, 3)))
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    e1, e2 = a * size * 0.5, b * size * 0.5
+    pos = np.stack([c - e1 - e2, c + e1 - e2, c + e1 + e2, c - e1 + e2], 1)
+    o = rs.randint(0, 4, (n, 1, 2)) * 0.25
+    uv = o + np.asarray([[0, 0], [0.25, 0], [0.25, 0.25], [0, 0.25]])
+    q = 4 * np.arange(n)[:, None]
+    idx = np.concatenate([q + [0, 1, 2], q + [0, 2, 3]], 1).reshape(-1, 3)
+    return (pos.reshape(-1, 3).astype(np.float32), idx.astype(np.int32),
+            uv.reshape(-1, 2).astype(np.float32))
+
+
+def add_foliage(sb, n, lo, hi, size, seed):
+    """n alpha-MASK leaf cards (leaf_cards) with the leaf material: base
+    color + alpha (texture 0), normal map (1), metal-rough (2)."""
+    from rtxpt_tpu_torch.scene.build import Mesh
+    leaf = sb.add_material(base_color=(1.0, 1.0, 1.0), roughness=1.0,
+                           alpha_mode=1, alpha_cutoff=0.5, base_tex=0,
+                           normal_tex=1, metal_rough_tex=2)
+    pos, idx, uv = leaf_cards(n, lo, hi, size, seed)
+    sb.add_instance(sb.add_mesh(Mesh(positions=pos, indices=idx, uvs=uv)),
+                    material_override=leaf)
+
+
+def foliage_host(scene: str) -> dict:
+    """"programmer-art": programmer-art and 1,500 leaf cards in the
+    default camera's view (8,160 triangles: the dense tier); "city":
+    build_city() and 20,000 cards along the camera's street (444,186
+    triangles: two-level)."""
+    from rtxpt_tpu_torch.scene import procedural
+    if scene == "programmer-art":
+        sb = procedural.build_programmer_art()
+        add_foliage(sb, FOLIAGE_CARDS, (-2.5, 0.1, -2.5), (3.5, 2.4, 3.5),
+                    0.3, 21)
+    else:
+        sb = procedural.build_city()
+        add_foliage(sb, CITY_CARDS, (-6.0, 0.5, -6.0), (50.0, 9.0, 56.0),
+                    1.2, 22)
+    host = sb.finish()
+    host["texture_images"] = leaf_textures()
+    host["texture_srgb"] = [True, False, False]
+    return host
+
+
+class VisStats:
+    """Collects the exact alpha test's counts (pt/visibility.py
+    `trace_visibility(stats=)`) over every visibility trace while
+    active."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.pt import visibility
+        self.mod, self.orig, self.stats = visibility, \
+            visibility.trace_visibility, {}
+
+        def counted(*args, **kw):
+            return self.orig(*args, stats=self.stats, **kw)
+        visibility.trace_visibility = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.trace_visibility = self.orig
+
+    def line(self) -> str:
+        s = self.stats
+        require(s.get("lanes", 0) > 0, "no exact visibility trace ran")
+        return (f"exact alpha test: {s['lanes']} visibility lanes, "
+                f"{s['requeued']} re-queued "
+                f"({s['requeued'] / s['lanes']:.4%}), {s['unresolved']} "
+                f"unresolved after the re-queue's last trace")
+
+
+def check_dense_omm(traces, label) -> dict:
+    """On captured dense traces of a masked table [(what, (args, kw) of
+    trace_dense_fused, timed)]: the fused launch with its OMM channel
+    against the plain version over all clusters with the masks: closest,
+    the same slot and the same t bits on every lane; any-hit, the same
+    occlusion flag on every lane (its slot is the first hit in visit
+    order), with the masks the trace's rows carry; kernel and plain
+    times and the bound (fused_work, the mask test counted) summed over
+    the timed traces -> {"mt_dense_fused": result}."""
+    from rtxpt_tpu_torch.ops import mt_dense as M
+    ms = pms = nbytes = ops = 0.0
+    for what, (args, kw), timed in traces:
+        aabb_c, tri12, o_c, d, tmax, act = args
+        require(kw.get("omm") and M.has_masks(tri12),
+                f"{label} {what}: not a masked trace")
+        omm = M.omm_from_tri12(tri12)
+        lanes = int(act.sum())
+        require(lanes > 0, f"{label} {what}: no active lane")
+
+        def plain():
+            return M.trace_dense_plain(aabb_c, M.tri9_from_tri12(tri12), o_c,
+                                       d, tmax, act, kw["any_hit"],
+                                       omm=omm)
+        t_p, s_p = plain()
+        t_k, s_k = M.trace_dense_fused(*args, **kw)
+        torch.cuda.synchronize()
+        if kw["any_hit"]:
+            differ = int(((s_k >= 0) != (s_p >= 0)).sum())
+            kind = "occlusion flag"
+        else:
+            differ = int(((s_k != s_p) | (t_k.view(torch.int32)
+                                          != t_p.view(torch.int32))).sum())
+            kind = "slot and t bits"
+        hits = int((s_k >= 0).sum())
+        line = (f"mt_dense_fused OMM {label} {what}: {o_c.shape[0]} lanes, "
+                f"{lanes} active, {hits} hits; {kind} differ from the "
+                f"plain version's on {differ} lanes")
+        require(differ == 0, line)
+        if timed:
+            k_ms = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
+            p_ms = time_ms(plain, 1, warmup=False)
+            wl = M.tile_worklists(aabb_c, o_c, d, tmax, act)
+            nb, op = fused_work(args, kw, t_k, s_k, wl)
+            line += (f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                     f"{bound(nb, op)[0]:.4f} ms ({bound(nb, op)[1]})")
+            ms, pms, nbytes, ops = ms + k_ms, pms + p_ms, nbytes + nb, \
+                ops + op
+        print(line, flush=True)
+    b_ms, b_by = bound(nbytes, ops)
+    return {"mt_dense_fused": dict(max_abs_err=0.0, ms=ms, plain_ms=pms,
+                                   library_ms=None, bound_ms=b_ms,
+                                   bound_by=b_by)}
+
+
+def gpu_vs_cpu(host, cam_fn, cfg, w, h, spp, what):
+    """The port's render of `host` on the card against its plain versions
+    on the CPU (tonemapped): PSNR > 40 dB."""
+    from rtxpt_tpu_torch.models.renderer import Renderer
+    from rtxpt_tpu_torch.scene import envmap as EM
+    from rtxpt_tpu_torch.utils import image as IM
+    imgs = []
+    for device in ("cuda", "cpu"):
+        r = Renderer(host, cam_fn(w, h), cfg,
+                     env_radiance=EM.bake_procedural_sky(height=64),
+                     device=device)
+        imgs.append(r.tonemapped(r.render(w, h, spp)).cpu().numpy())
+    require(np.isfinite(imgs[0]).all(), f"{what}: non-finite image")
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"{what} GPU vs CPU (plain) {w}x{h} {spp}spp: PSNR "
+          f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}", flush=True)
+    require(m["psnr"] > PSNR_MIN, f"{what} GPU vs CPU render: {m}")
+
+
+def foliage_dense(results: dict, card: str) -> dict:
+    """The foliage dense phase (9.); returns the launch counts of its
+    timed render."""
+    import dataclasses
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.ops import mt_dense
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    w, h, spp = BENCH_SIZE
+    cfg = reference_config(**BENCH_CFG)
+    env = EM.bake_procedural_sky(height=64)
+    t0 = time.perf_counter()
+    host = foliage_host("programmer-art")
+    geometry_s = time.perf_counter() - t0
+    r = Renderer(host, procedural.default_camera(w, h), cfg,
+                 env_radiance=env, device="cuda")
+    torch.cuda.synchronize()
+    tex = r.scene.textures
+    require(isinstance(r.accel, mt_dense.DenseMT) and r.accel.has_omm
+            and r.cfg.exact_alpha_test, "foliage dense: not a masked dense "
+            "table with the exact alpha test")
+    print(f"foliage dense: {host['indices'].shape[0]} triangles "
+          f"({r.accel.num_clusters} clusters), texel pool "
+          f"{tex.pool.numel() * 4 / 1e6:.1f} MB, host build "
+          f"{time.perf_counter() - t0:.2f} s (geometry and textures "
+          f"{geometry_s:.2f} s)", flush=True)
+
+    # the kernels on the first bounce: the camera trace and the exact
+    # alpha test's first and second visibility traces (closest, masked)
+    with Capture(dict(FIRST_BOUNCE, trace_dense_fused=3)) as cap:
+        r.render_sample(w, h, 0)
+        torch.cuda.synchronize()
+    calls = cap.calls["trace_dense_fused"]
+    require(len(calls) == 3 and not any(kw["any_hit"] for _, kw in calls),
+            "foliage dense: the first traces are not closest")
+    traces = [("camera", calls[0], True),
+              ("NEE exact alpha, first trace", calls[1], True),
+              ("NEE exact alpha, re-queue", calls[2], False)]
+    # the masks alone (exact_alpha_test=False): the any-hit OMM channel
+    r_any = Renderer(host, procedural.default_camera(w, h),
+                     dataclasses.replace(cfg, exact_alpha_test=False),
+                     env_radiance=env, device="cuda")
+    with Capture({"trace_dense_fused": 2}) as cap_any:
+        r_any.render_sample(w, h, 0)
+        torch.cuda.synchronize()
+    anyhit = [c for c in cap_any.calls["trace_dense_fused"]
+              if c[1]["any_hit"]]
+    require(anyhit, "foliage dense: no any-hit trace captured")
+    traces.append(("NEE any-hit, masks alone", anyhit[0], True))
+    results["foliage_dense"].update(check_dense_omm(traces,
+                                                    "foliage dense"))
+    results["foliage_dense"].update(check_surface_kernels(
+        cap, "foliage dense"))
+    del cap, cap_any, calls, traces, anyhit
+
+    # the main path, after a warm-up render that counts the re-queue
+    with VisStats() as vs:
+        r.render(w, h, spp)
+        torch.cuda.synchronize()
+    print(f"foliage dense warm-up render: {vs.line()}", flush=True)
+    r.reset_accumulation()
+    out, wall, counts, tc, sc, shc = counted_render(
+        r, w, h, spp, ONE_LAUNCH["mt_dense_fused"][0])
+    print(f"foliage dense {w}x{h} {spp}spp NEE 1+1, 6 bounces: "
+          f"{wall * 1e3:.1f} ms wall, {w * h * spp / wall / 1e6:.3f} "
+          f"Mpaths/s on {card}; {tc.n} dense traces, {sc.n} load_surface "
+          f"calls, {shc.n} bounces; launches {counts}", flush=True)
+    for name in FOLIAGE_PATH:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the foliage dense path")
+    require_one_launch_per_trace(counts, tc.n, "foliage dense",
+                                 "mt_dense_fused")
+    require_one_surface_fetch(counts, sc.n, "foliage dense")
+    require_one_shade_per_bounce(counts, shc.n, "foliage dense")
+
+    # the masks alone over-darken: the exact test's image differs
+    exact_mean = float(out.mean())
+    loose = r_any.render(w, h, spp).cpu().numpy()
+    print(f"foliage dense image mean: exact alpha test {exact_mean:.6f}, "
+          f"masks alone {float(loose.mean()):.6f}", flush=True)
+    require(np.isfinite(loose).all() and float(loose.mean()) != exact_mean,
+            "foliage dense: the masks alone give the exact test's image")
+    del r, r_any
+    torch.cuda.empty_cache()
+    gpu_vs_cpu(host, procedural.default_camera, cfg, 64, 48, 2,
+               "foliage dense")
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+
+
+def city_foliage(results: dict, card: str) -> dict:
+    """The city foliage phase (10.); returns the launch counts of its
+    timed render and realtime frames by path."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.ops import bvh2l
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    w, h, spp = CITY_SIZE
+    cfg = reference_config(**BENCH_CFG)
+    env = EM.bake_procedural_sky(height=64)
+    t0 = time.perf_counter()
+    host = foliage_host("city")
+    geometry_s = time.perf_counter() - t0
+    r = Renderer(host, procedural.city_camera(w, h), cfg, env_radiance=env,
+                 device="cuda")
+    torch.cuda.synchronize()
+    tl = r.accel
+    require(isinstance(tl, bvh2l.BVH8TwoLevel) and r.cfg.exact_alpha_test
+            and bool((tl.sub_leaf_omm != 0xFFFF).any()),
+            "city foliage: not a masked two-level table")
+    print(f"city foliage: {host['indices'].shape[0]} triangles, two-level "
+          f"BVH8 K={tl.num_subtrees} S={tl.rows}, host build "
+          f"{time.perf_counter() - t0:.2f} s (geometry and textures "
+          f"{geometry_s:.2f} s)", flush=True)
+    with Capture(dict(FIRST_BOUNCE, trace_bvh8_2l=2)) as cap:
+        r.render_sample(w, h, 0)
+        torch.cuda.synchronize()
+    traces = cap.calls["trace_bvh8_2l"]
+    require(len(traces) == 2 and not any(kw["any_hit"] for _, kw in traces),
+            "city foliage: the first traces are not closest")
+    results["city_foliage"].update(check_two_level(
+        [("camera", traces[0], True),
+         ("NEE exact alpha, first trace", traces[1], True)],
+        "city foliage"))
+    results["city_foliage"].update(check_surface_kernels(cap,
+                                                         "city foliage"))
+    del cap, traces
+    with VisStats() as vs:
+        r.render(w, h, spp)                  # warm-up
+        torch.cuda.synchronize()
+    print(f"city foliage warm-up render: {vs.line()}", flush=True)
+    r.reset_accumulation()
+    out, wall, counts, tc, sc, shc = counted_render(
+        r, w, h, spp, ONE_LAUNCH["bvh8_trace_2l"][0])
+    print(f"city foliage {w}x{h} {spp}spp NEE 1+1, 6 bounces: "
+          f"{wall * 1e3:.1f} ms wall, {w * h * spp / wall / 1e6:.3f} "
+          f"Mpaths/s on {card}; {tc.n} two-level traces, {sc.n} "
+          f"load_surface calls, {shc.n} bounces; launches {counts}",
+          flush=True)
+    for name in CITY_PATH:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the city foliage path")
+    require_one_launch_per_trace(counts, tc.n, "city foliage")
+    require_one_surface_fetch(counts, sc.n, "city foliage")
+    require_one_shade_per_bounce(counts, shc.n, "city foliage")
+    launches = {"city_foliage": {name: counts.get(KERNELS[name][0], 0)
+                                 for name in KERNELS}}
+    del r
+    torch.cuda.empty_cache()
+    # 3 realtime frames of the default pipeline after the two warm-ups
+    rr = RealtimeRenderer(host, procedural.city_camera(w, h), device="cuda")
+    require(rr.cfg.exact_alpha_test, "realtime city foliage: no exact test")
+    # the kernels on the no-history warm-up frame's inputs
+    with VisStats() as vs:
+        results["realtime_city_foliage"].update(check_realtime_kernels(
+            rr, w, h, "realtime city foliage"))
+    print(f"realtime city foliage, first frame: {vs.line()}", flush=True)
+    torch.cuda.empty_cache()
+    launches["realtime_city_foliage"] = realtime_frames(
+        rr, w, h, "city foliage", card, RT_CITY_PATH, warmups=1)
+    del rr
+    torch.cuda.empty_cache()
+    gpu_vs_cpu(host, procedural.city_camera, cfg, 64, 36, 1, "city foliage")
+    return launches
+
+
+def bc1_solid(img: np.ndarray) -> bytes:
+    """A DDS file of (H,W,>=3) uint8 `img` (H, W multiples of 4) as BC1:
+    each 4x4 block one color (its mean, RGB 565; c0 == c1, every index
+    0)."""
+    h, w = img.shape[:2]
+    m = img[..., :3].reshape(h // 4, 4, w // 4, 4, 3).mean((1, 3))
+    c = ((np.round(m[..., 0] * 31 / 255).astype(np.uint16) << 11)
+         | (np.round(m[..., 1] * 63 / 255).astype(np.uint16) << 5)
+         | np.round(m[..., 2] * 31 / 255).astype(np.uint16))
+    blocks = np.zeros((h // 4, w // 4, 4), np.uint16)
+    blocks[..., 0] = blocks[..., 1] = c
+    hdr = bytearray(128)
+    hdr[0:4] = b"DDS "
+    for off, v in ((4, 124), (8, 0x1007), (12, h), (16, w), (76, 32),
+                   (80, 0x4)):
+        hdr[off:off + 4] = int(v).to_bytes(4, "little")
+    hdr[84:88] = b"DXT1"
+    return bytes(hdr) + blocks.astype("<u2").tobytes()
+
+
+def write_foliage_gltf(folder: str) -> str:
+    """A .scene.json in `folder` whose model is a .gltf of the 1,500 leaf
+    cards over a floor, its base color + alpha one PNG and its
+    metal-rough one BC1 .dds; returns its path."""
+    import base64
+    import os
+    from rtxpt_tpu_torch.utils import image as IM
+    base, _, mr = leaf_textures()
+    with open(os.path.join(folder, "leaf.png"), "wb") as f:
+        f.write(IM.encode_png_uint8(base))
+    with open(os.path.join(folder, "leaf_mr.dds"), "wb") as f:
+        f.write(bc1_solid(mr))
+    pos, idx, uv = leaf_cards(FOLIAGE_CARDS, (-2.5, 0.1, -2.5),
+                              (3.5, 2.4, 3.5), 0.3, 21)
+    floor_p = np.asarray([[-6, 0, -6], [6, 0, -6], [6, 0, 6], [-6, 0, 6]],
+                         np.float32)
+    floor_i = np.asarray([[0, 2, 1], [0, 3, 2]], np.uint32)
+    floor_uv = np.asarray([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32)
+    arrays = [pos, uv, idx.astype(np.uint32), floor_p, floor_uv, floor_i]
+    views, acc, blob = [], [], b""
+    for a in arrays:
+        views.append({"buffer": 0, "byteOffset": len(blob),
+                      "byteLength": a.nbytes})
+        vec = {3: "VEC3", 2: "VEC2"}[a.shape[1]] \
+            if a.dtype == np.float32 else "SCALAR"
+        acc.append({"bufferView": len(views) - 1, "count":
+                    a.shape[0] if vec != "SCALAR" else a.size,
+                    "componentType": 5126 if a.dtype == np.float32
+                    else 5125, "type": vec})
+        if a.dtype == np.float32 and a.shape[1] == 3:
+            acc[-1].update(min=a.min(0).tolist(), max=a.max(0).tolist())
+        blob += a.tobytes()
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": [0, 1]}],
+        "nodes": [{"mesh": 0}, {"mesh": 1}],
+        "meshes": [{"primitives": [{"attributes": {
+            "POSITION": 0, "TEXCOORD_0": 1}, "indices": 2, "material": 0}]},
+            {"primitives": [{"attributes": {
+                "POSITION": 3, "TEXCOORD_0": 4}, "indices": 5,
+                "material": 1}]}],
+        "materials": [
+            {"pbrMetallicRoughness": {
+                "baseColorTexture": {"index": 0},
+                "metallicRoughnessTexture": {"index": 1},
+                "metallicFactor": 0.0},
+             "alphaMode": "MASK", "alphaCutoff": 0.5, "doubleSided": True},
+            {"pbrMetallicRoughness": {
+                "baseColorFactor": [0.6, 0.55, 0.5, 1.0],
+                "metallicFactor": 0.0, "roughnessFactor": 0.9}}],
+        "textures": [{"source": 0}, {"source": 1}],
+        "images": [{"uri": "leaf.png"}, {"uri": "leaf_mr.dds"}],
+        "accessors": acc, "bufferViews": views,
+        "buffers": [{"byteLength": len(blob),
+                     "uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(blob).decode()}]}
+    with open(os.path.join(folder, "foliage.gltf"), "w") as f:
+        json.dump(doc, f)
+    path = os.path.join(folder, "foliage.scene.json")
+    with open(path, "w") as f:
+        json.dump({"models": ["foliage.gltf"],
+                   "environment": {"type": "procedural-sky"},
+                   "camera": {"position": [4.2, 2.6, 4.6],
+                              "target": [0.0, 0.7, 0.0],
+                              "fov_y_degrees": 55.0},
+                   "settings": dict(BENCH_CFG)}, f)
+    return path
+
+
+def gltf_scene(results: dict, card: str) -> dict:
+    """The glTF loader phase (11.); returns the launch counts of its
+    800x600 8-spp CLI render."""
+    import tempfile
+    from rtxpt_tpu_torch.app import cli
+    from rtxpt_tpu_torch.ops import cuda_lib
+    from rtxpt_tpu_torch.post.tonemap import tonemap
+    from rtxpt_tpu_torch.utils import image as IM
+    w, h, spp = BENCH_SIZE
+    with tempfile.TemporaryDirectory() as folder:
+        path = write_foliage_gltf(folder)
+        out = f"{folder}/gltf.png"
+        # the kernels on a 1-spp CLI render's first bounce: the camera
+        # trace and the exact alpha test's first trace (closest, masked)
+        with Capture(dict(FIRST_BOUNCE, trace_dense_fused=2)) as cap:
+            require(cli.main(["--scene", path, "--width", str(w),
+                              "--height", str(h), "--spp", "1", "--device",
+                              "cuda", "--output", out, "--quiet"]) == 0,
+                    "glTF scene: CLI failed")
+            torch.cuda.synchronize()
+        calls = cap.calls["trace_dense_fused"]
+        require(len(calls) == 2 and not any(kw["any_hit"]
+                                            for _, kw in calls),
+                "glTF scene: the first traces are not closest")
+        results["gltf_scene"].update(check_dense_omm(
+            [("camera", calls[0], True),
+             ("NEE exact alpha, first trace", calls[1], True)],
+            "glTF scene"))
+        results["gltf_scene"].update(check_surface_kernels(cap,
+                                                           "glTF scene"))
+        del cap, calls
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc, \
+                SurfaceCalls() as sc, ShadeCalls() as shc:
+            t0 = time.perf_counter()
+            rc = cli.main(["--scene", path, "--width", str(w), "--height",
+                           str(h), "--spp", str(spp), "--device", "cuda",
+                           "--output", out, "--dump-npy",
+                           f"{folder}/gltf.npy", "--quiet"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = cuda_lib.launch_counts()
+        hdr = np.load(f"{folder}/gltf.npy")
+        require(rc == 0 and hdr.shape == (h, w, 3) and np.isfinite(hdr).all()
+                and hdr.mean() > 0.0, "glTF scene: bad CLI render")
+        print(f"glTF scene through the CLI (--scene .scene.json, .gltf, "
+              f"PNG + BC1 DDS) {w}x{h} {spp}spp on {card}: "
+              f"{wall * 1e3:.1f} ms wall from the command (loading and "
+              f"builds included), image mean {float(hdr.mean()):.6f}; "
+              f"{tc.n} dense traces, {sc.n} load_surface calls, {shc.n} "
+              f"bounces; launches {counts}", flush=True)
+        for name in FOLIAGE_PATH:
+            require(counts[KERNELS[name][0]] > 0,
+                    f"{name} was not launched on the glTF scene path")
+        require_one_launch_per_trace(counts, tc.n, "glTF scene",
+                                     "mt_dense_fused")
+        require_one_surface_fetch(counts, sc.n, "glTF scene")
+        require_one_shade_per_bounce(counts, shc.n, "glTF scene")
+        # the CLI's HDR renders (--dump-npy) on both devices, tonemapped
+        # alike, as gpu_vs_cpu compares the Renderer's
+        hdrs = []
+        for device in ("cuda", "cpu"):
+            require(cli.main(["--scene", path, "--width", "64", "--height",
+                              "48", "--spp", "2", "--device", device,
+                              "--output", f"{folder}/{device}.png",
+                              "--dump-npy", f"{folder}/{device}.npy",
+                              "--quiet"]) == 0, "glTF scene: CLI failed")
+            hdrs.append(np.load(f"{folder}/{device}.npy"))
+        require(np.isfinite(hdrs[0]).all(), "glTF scene: non-finite HDR")
+        imgs = [tonemap(torch.as_tensor(x), auto_expose=True).numpy()
+                for x in hdrs]
+        m = IM.compare(imgs[0], imgs[1])
+        print(f"glTF scene GPU vs CPU (plain) 64x48 2spp, the CLI's HDR "
+              f"tonemapped: PSNR {m['psnr']:.2f} dB, SMAPE "
+              f"{m['smape']:.5f}; HDR values bit-equal "
+              f"{int((hdrs[0] == hdrs[1]).sum())} of {hdrs[0].size}",
+              flush=True)
+        require(m["psnr"] > PSNR_MIN, f"glTF scene GPU vs CPU: {m}")
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+
+
 def gather_instances(report: str):
     """Print the registers, shared memory and spills of every kernel
     instance of csrc/gather.cu from ptxas's report; none may spill."""
@@ -2241,6 +2827,10 @@ def main() -> int:
     launches.update(phase("realtime", realtime, results, card, host_city))
     launches.update(phase("realtime pipelines", realtime_pipelines, results,
                           card, host_city))
+    launches["foliage_dense"] = phase("foliage dense", foliage_dense,
+                                      results, card)
+    launches.update(phase("city foliage", city_foliage, results, card))
+    launches["gltf_scene"] = phase("glTF loader", gltf_scene, results, card)
     lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]

@@ -5,14 +5,16 @@ counterpart there; the JAX package is the reference the port is tested
 against. This package imports ``torch`` and never ``jax``.
 
 Carried so far: the reference-mode accumulation render
-(``Renderer.render`` -> ``integrator.render_paths`` -> the bounce loop) of
-the ``programmer-art`` scene and the procedural city, through the
-reference's three trace tiers (dense, BVH8, two-level BVH8), with the six
-TPU kernels of that path rewritten as hand-written CUDA kernels for
-``sm_90a`` (``csrc/``):
+(``Renderer.render`` -> ``integrator.render_paths`` -> the bounce loop)
+and the realtime mode's pipelines, of the ``programmer-art`` scene, the
+procedural city and glTF / .scene.json scenes with textures and
+alpha-MASK materials, through the reference's three trace tiers (dense,
+BVH8, two-level BVH8), with the TPU kernels of those paths rewritten as
+hand-written CUDA kernels for ``sm_90a`` (``csrc/``):
 
   K1 ops/mt_dense.py       closest/any-hit ray-triangle trace (dense scenes;
-                           with K7's worklists, one fused launch per trace)
+                           with K7's worklists, one fused launch per trace;
+                           its OMM channel tests opacity micro-masks)
   K2 ops/gather.py         row gather
   K3 ops/gather.py         barycentric 3-row blend (with K2, one fused
                            surface-fetch launch per load_surface call)

@@ -7,14 +7,18 @@ RTXPT/CommandLine.h:16-34).
         --output out.png --dump-npy out.npy --device cuda
 
 `--scene city` renders the Bistro-class procedural city (404,186
-triangles, two-level BVH8). `--mode realtime` renders `--spp` frames of
-the realtime pipeline (3 stable planes, ReSTIR DI + GI, ReLAX, TAA; NEE
-1+1) and saves the last; `--no-stable-planes` renders the single-plane
-PSR-lite pipeline instead; `--preset ref-vs-realtime` strips either to
-the reference mode's estimator (no ReSTIR, denoiser or TAA). `--env
-sky.hdr` lights the scene with a Radiance .hdr in place of the procedural
-sky; `--no-nee` turns next-event estimation off; `--photo-denoise` runs
-the offline photo-mode denoiser on a reference-mode render.
+triangles, two-level BVH8); `--scene PATH` a .gltf / .glb file or a
+.scene.json (its models, environment, camera, lights and settings), with
+their PNG and DDS textures and alpha-MASK materials. `--mode realtime`
+renders `--spp` frames of the realtime pipeline (3 stable planes, ReSTIR
+DI + GI, ReLAX, TAA; NEE 1+1) and saves the last; `--no-stable-planes`
+renders the single-plane PSR-lite pipeline instead; `--preset
+ref-vs-realtime` strips either to the reference mode's estimator (no
+ReSTIR, denoiser or TAA). `--env sky.hdr` lights the scene with a
+Radiance .hdr (or an LDR .png) in place of the procedural sky;
+`--no-nee` turns next-event estimation off, in both modes (the
+reference's realtime mode ignores it); `--photo-denoise` runs the
+offline photo-mode denoiser on a reference-mode render.
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import time
 def build_arg_parser():
     p = argparse.ArgumentParser("rtxpt_tpu_torch headless renderer")
     p.add_argument("--scene", default="programmer-art",
-                   choices=["programmer-art", "city"])
+                   help="'programmer-art' | 'city' (Bistro-class, 404,186 "
+                   "triangles) | path to .gltf/.glb/.scene.json")
     p.add_argument("--width", type=int, default=800)
     p.add_argument("--height", type=int, default=600)
     p.add_argument("--spp", type=int, default=16,
@@ -64,8 +69,8 @@ def build_arg_parser():
     p.add_argument("--no-auto-expose", action="store_true")
     p.add_argument("--sky-scale", type=float, default=1.0)
     p.add_argument("--env", default=None,
-                   help="equirect environment texture (Radiance .hdr) in "
-                   "place of the procedural sky")
+                   help="equirect environment texture (Radiance .hdr or "
+                   ".png) in place of the procedural sky")
     p.add_argument("--photo-denoise", action="store_true",
                    help="reference mode: run the offline photo-mode "
                    "denoiser on the result (the OptiX/OIDN slot)")
@@ -77,15 +82,31 @@ def build_arg_parser():
 
 
 def load_scene(args):
-    """(host scene dict, camera) for --scene."""
+    """(host scene dict, camera, extra) for --scene; extra: the scene
+    file's env_radiance, env_intensity, analytic_lights and settings."""
     from ..scene import procedural
+    if args.scene == "programmer-art":
+        return (procedural.build_programmer_art(
+            diffuse_only=args.diffuse_only).finish(),
+            procedural.default_camera(args.width, args.height), {})
     if args.scene == "city":
         # Bistro-class stress scene (BASELINE config 5 fixture)
         return (procedural.build_city().finish(),
-                procedural.city_camera(args.width, args.height))
-    return (procedural.build_programmer_art(
-        diffuse_only=args.diffuse_only).finish(),
-        procedural.default_camera(args.width, args.height))
+                procedural.city_camera(args.width, args.height), {})
+    if args.scene.endswith((".gltf", ".glb")):
+        from ..scene import gltf
+        from ..scene.texcache import TextureCache
+        host, info = gltf.load_gltf(args.scene, texture_cache=TextureCache())
+        if info["textures"]:
+            host["texture_images"] = info["textures"]
+            host["texture_srgb"] = info["texture_srgb"]
+        return (host, gltf.camera_from_info(info, args.width, args.height),
+                dict(analytic_lights=gltf.analytic_lights_from_info(info)))
+    if args.scene.endswith(".json"):
+        from ..scene import scene_json
+        return scene_json.load_scene_json(args.scene, args.width,
+                                          args.height)
+    raise SystemExit(f"unknown scene: {args.scene}")
 
 
 def _sync(device):
@@ -94,9 +115,11 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _run_realtime(args, host, cam, env, frames: int) -> int:
+def _run_realtime(args, host, cam, env, frames: int, settings: dict,
+                  **scene_kw) -> int:
     """Realtime mode: `frames` frames, the last one saved (the reference's
     --screenshotFrameIndex contract, with denoiser warm-up)."""
+    from ..config import apply_scene_settings
     from ..models.realtime import RealtimeRenderer
     from ..models.renderer import realtime_config
     from ..post.tonemap import tonemap
@@ -110,8 +133,9 @@ def _run_realtime(args, host, cam, env, frames: int) -> int:
                           max_diffuse_bounces=args.max_diffuse_bounces or 3,
                           nee_enabled=not args.no_nee,
                           nee_distant_samples=1, nee_local_samples=1)
+    cfg = apply_scene_settings(cfg, settings)
     r = RealtimeRenderer(host, cam, cfg, env_radiance=env,
-                         device=args.device)
+                         device=args.device, **scene_kw)
     times = [time.time()]
     img = None
     for i in range(max(frames, 1)):
@@ -141,11 +165,12 @@ def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     import dataclasses
 
+    from ..config import apply_scene_settings
     from ..models.renderer import Renderer, reference_config
     from ..scene import envmap as EM
     from ..utils import image as IM
 
-    host, cam = load_scene(args)
+    host, cam, extra = load_scene(args)
     cfg = reference_config(max_bounces=args.max_bounces,
                            nee_enabled=not args.no_nee,
                            nee_distant_samples=args.nee_distant_samples,
@@ -153,14 +178,22 @@ def main(argv=None) -> int:
     if args.max_diffuse_bounces is not None:
         cfg = dataclasses.replace(
             cfg, max_diffuse_bounces=args.max_diffuse_bounces)
-    env = EM.load_equirect(args.env) if args.env else \
-        EM.bake_procedural_sky(sky_scale=args.sky_scale)
+    settings = extra.get("settings", {})
+    cfg = apply_scene_settings(cfg, settings)
+    env = extra.get("env_radiance")
+    if args.env:
+        env = EM.load_equirect(args.env)
+    if env is None:
+        env = EM.bake_procedural_sky(sky_scale=args.sky_scale)
+    scene_kw = dict(analytic_lights=extra.get("analytic_lights"),
+                    env_intensity=extra.get("env_intensity", 1.0))
     spp = args.spp if args.screenshot_frame_index is None \
         else args.screenshot_frame_index
     if args.mode == "realtime":
-        return _run_realtime(args, host, cam, env, spp)
+        return _run_realtime(args, host, cam, env, spp, settings, **scene_kw)
 
-    r = Renderer(host, cam, cfg, env_radiance=env, device=args.device)
+    r = Renderer(host, cam, cfg, env_radiance=env, device=args.device,
+                 **scene_kw)
     if args.checkpoint:
         r.load_checkpoint(args.checkpoint)
 

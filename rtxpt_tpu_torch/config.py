@@ -6,10 +6,10 @@ dataclasses of python scalars. The port carries the reference's fields
 with the reference's defaults: NEE on or off, the distant sampler
 (uniform, MIP-descent or presampled), the local sampler (power or
 ReGIR, grid or onion cells), the sample-generator tier ("ld", "hq" or
-"uniform") and the fused shade+NEE switch. It leaves out the reference's
-`use_analytic_lights`, which the reference reads nowhere, and
-`exact_alpha_test`, which only alpha-MASK scenes read: the Renderer still
-refuses them.
+"uniform"), the fused shade+NEE switch and the exact alpha test of
+visibility rays. It leaves out the reference's `use_analytic_lights` and
+`PTConstants.texlod_bias`, which the reference reads nowhere.
+`apply_scene_settings` applies a .scene.json's settings.
 """
 from __future__ import annotations
 
@@ -79,6 +79,10 @@ class PTConfig:
     # (StatelessHQUniformSampleGenerator.hlsli:20), "uniform" the plain
     # hash streams
     rng_quality: str = "ld"
+    # the exact per-hit texture alpha test of visibility rays that hit
+    # alpha-MASK materials (pt/visibility.py); the Renderer clears it for
+    # scenes without a MASK material with textures
+    exact_alpha_test: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +96,22 @@ class PTConstants:
 
 def default_constants(sample_base_index: int = 0) -> PTConstants:
     return PTConstants(sample_base_index=int(sample_base_index))
+
+
+def apply_scene_settings(cfg: PTConfig, settings: dict) -> PTConfig:
+    """A .scene.json SampleSettings node (ExtendedScene.h:83, consumed at
+    Sample.cpp:629-649) applied to cfg: its reference names or PTConfig
+    field names; other keys are ignored, as in the reference."""
+    mapping = {
+        "MaxBounces": "max_bounces",
+        "MaxDiffuseBounces": "max_diffuse_bounces",
+        "RealtimeMode": None,
+        "EnableRussianRoulette": "enable_russian_roulette",
+    }
+    names = {f.name for f in dataclasses.fields(cfg)}
+    updates = {}
+    for k, v in settings.items():
+        field = mapping.get(k, k if k in names else None)
+        if field:
+            updates[field] = v
+    return dataclasses.replace(cfg, **updates) if updates else cfg

@@ -29,10 +29,11 @@ def normalize(v):
     return v / torch.clamp(length(v), min=_TINY)
 
 
-def safe_normalize(v):
+def safe_normalize(v, fallback=None):
     l = length(v)
     n = v / torch.clamp(l, min=1e-20)
-    return torch.where(l > 1e-20, n, torch.zeros_like(v))
+    return torch.where(l > 1e-20, n,
+                       torch.zeros_like(v) if fallback is None else fallback)
 
 
 def cross(a, b):

@@ -59,6 +59,17 @@
 // slower on the H100 (PERF.md), since the resident blocks hide the copy,
 // and it is wasted where the block then skips the entry.
 //
+// The OMM channel (template flag OMM of the fused kernel; K1's
+// `_make_kernel(has_omm=True)` epilogue, `_pair_test`, :536-568): a masked
+// table carries each triangle's 16-bit opacity micro-mask as an exact
+// float in the word after e1 (tri12 column 7, zero in unmasked tables),
+// so it rides the row copies at no extra load. A pair that passes the
+// Möller–Trumbore and t tests takes u and v as its sign-folded numerators
+// over |a|, its cell as K5's leaf test does (csrc/bvh8_trace.cu: u * 4 and
+// v * 4 truncated, clamped to 0..3) and is rejected where bit cu * 4 + cv
+// is clear, before it can update the best t or end an any-hit lane: two
+// divisions, two multiplies and a shift on the pairs that hit.
+//
 // Lab modes (tools_torch/profile_mt_kernel.py, the counterpart of the
 // reference's ablated variants in tools/profile_mt_kernel.py): K1's
 // (enum Mode, `rtxpt_mt_dense_variant`) and the fused kernel's (enum
@@ -157,7 +168,8 @@ __device__ __forceinline__ void stage_rows(float4* dst, const float4* tri12,
 
 // one Möller–Trumbore test of the ray (o, d) against a tri12 row: true
 // and its t where it hits, sign-folded by a (two-sided), in the plain
-// version's operations and order
+// version's operations and order; OMM: and where its cell's mask bit is set
+template <bool OMM>
 __device__ __forceinline__ bool mt_row(float ox, float oy, float oz,
                                        float dx, float dy, float dz,
                                        const float4* row, float& t) {
@@ -182,6 +194,13 @@ __device__ __forceinline__ bool mt_row(float ox, float oy, float oz,
     const float sv = neg ? -vv : vv;
     const float st = neg ? -tt : tt;
     if (!(sv >= 0.0f) || !(su + sv <= absa) || !(st > 0.0f)) return false;
+    if (OMM) {
+        int cu = static_cast<int>(su / absa * 4.0f);
+        int cv = static_cast<int>(sv / absa * 4.0f);
+        cu = cu < 0 ? 0 : (cu > 3 ? 3 : cu);
+        cv = cv < 0 ? 0 : (cv > 3 ? 3 : cv);
+        if (((static_cast<int>(e1.w) >> (cu * 4 + cv)) & 1) == 0) return false;
+    }
     t = st / absa;
     return true;
 }
@@ -201,7 +220,7 @@ struct WalkShared {
 // (t, slot) minimum with a shared-memory atomicMin on (t bits, slot)
 // (t > 0, so the bits order as the floats); otherwise each live lane
 // tests the 64 rows itself.
-template <bool ANY_HIT, int MODE>
+template <bool ANY_HIT, int MODE, bool OMM>
 __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
                                      int cnt, const float4* tri12,
                                      WalkShared& ws, const Ray& r, bool act,
@@ -250,8 +269,8 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
                 const int lq = p / kCluster, k = p - lq * kCluster;
                 const float4 o = ws.o[lq], d = ws.d[lq];
                 float t;
-                if (!mt_row(o.x, o.y, o.z, d.x, d.y, d.z,
-                            ws.rows + k * kRowVecs, t))
+                if (!mt_row<OMM>(o.x, o.y, o.z, d.x, d.y, d.z,
+                                 ws.rows + k * kRowVecs, t))
                     continue;
                 const int s = c * kCluster + k;
                 // the sequential update's acceptance (below)
@@ -275,8 +294,8 @@ __device__ __forceinline__ void walk(const float* s_box, const int* s_list,
             int cslot = ANY_HIT ? -1 : slot;
             for (int k = 0; k < kCluster; ++k) {
                 float t;
-                if (!mt_row(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
-                            ws.rows + k * kRowVecs, t))
+                if (!mt_row<OMM>(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                                 ws.rows + k * kRowVecs, t))
                     continue;
                 const int s = c * kCluster + k;
                 if (ANY_HIT) {
@@ -327,8 +346,8 @@ mt_dense_kernel(const float* __restrict__ aabb,   // (nc, 6) recentered
     float best = r.tmax;
     int slot = -1, visits = 0;
     __syncthreads();
-    walk<ANY_HIT, MODE>(s_box, s_list, cnt, tri12, ws, r, act, best, slot,
-                        visits);
+    walk<ANY_HIT, MODE, false>(s_box, s_list, cnt, tri12, ws, r, act, best,
+                               slot, visits);
     if (in_range) {
         t_out[lane] = best;
         slot_out[lane] = MODE == kGate ? visits : slot;
@@ -431,7 +450,7 @@ __device__ __forceinline__ void tile_list(const Fused& p, FusedShared& sh,
 }
 
 // one tile: its keys, its worklist and the walk, then each lane's result
-template <bool ANY_HIT, int MODE>
+template <bool ANY_HIT, int MODE, bool OMM>
 __global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
     __shared__ FusedShared sh;
     __shared__ WalkShared ws;
@@ -458,8 +477,8 @@ __global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
     if (MODE == kLists)
         slot = sh.finite;
     else
-        walk<ANY_HIT, kWalk>(sh.box, sh.list, sh.finite, p.tri12, ws, r, act,
-                             best, slot, visits);
+        walk<ANY_HIT, kWalk, OMM>(sh.box, sh.list, sh.finite, p.tri12, ws, r,
+                                  act, best, slot, visits);
     if (in) {
         p.t_out[lane] = best;
         p.slot_out[lane] = slot;
@@ -468,20 +487,29 @@ __global__ void __launch_bounds__(kBlock) mt_dense_fused_kernel(Fused p) {
 
 int fused(const float* aabb, const float* tri12, int nc, const float* orig,
           const float* dirs, const float* t_max, const uint8_t* active,
-          float* t_out, int32_t* slot_out, int n, int any_hit, int mode,
-          cudaStream_t stream) {
+          float* t_out, int32_t* slot_out, int n, int any_hit, int omm,
+          int mode, cudaStream_t stream) {
     if (nc < 1 || nc > kMaxClusters || n < 1 ||
         (mode != kFused && mode != kLists))
         return static_cast<int>(cudaErrorInvalidValue);
     const Fused p{aabb, reinterpret_cast<const float4*>(tri12), nc, orig,
                   dirs, t_max, active, t_out, slot_out, n};
     const unsigned blocks = static_cast<unsigned>((n + kBlock - 1) / kBlock);
-    if (mode == kLists)   // the lists do not depend on any_hit
-        mt_dense_fused_kernel<false, kLists><<<blocks, kBlock, 0, stream>>>(p);
+    if (mode == kLists)   // the lists depend on neither any_hit nor omm
+        mt_dense_fused_kernel<false, kLists, false>
+            <<<blocks, kBlock, 0, stream>>>(p);
+    else if (any_hit && omm)
+        mt_dense_fused_kernel<true, kFused, true>
+            <<<blocks, kBlock, 0, stream>>>(p);
     else if (any_hit)
-        mt_dense_fused_kernel<true, kFused><<<blocks, kBlock, 0, stream>>>(p);
+        mt_dense_fused_kernel<true, kFused, false>
+            <<<blocks, kBlock, 0, stream>>>(p);
+    else if (omm)
+        mt_dense_fused_kernel<false, kFused, true>
+            <<<blocks, kBlock, 0, stream>>>(p);
     else
-        mt_dense_fused_kernel<false, kFused><<<blocks, kBlock, 0, stream>>>(p);
+        mt_dense_fused_kernel<false, kFused, false>
+            <<<blocks, kBlock, 0, stream>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,15 +624,16 @@ int launch_k1(const float* aabb, const float* tri12, int nc,
 
 }  // namespace
 
-// one dense trace: each tile's worklist and the walk
+// one dense trace: each tile's worklist and the walk; omm: the table's
+// rows carry opacity micro-masks, and the OMM channel tests them
 RTXPT_API int rtxpt_mt_dense_fused(const float* aabb, const float* tri12,
                                    int nc, const float* orig,
                                    const float* dirs, const float* t_max,
                                    const uint8_t* active, float* t_out,
                                    int32_t* slot_out, int n, int any_hit,
-                                   cudaStream_t stream) {
+                                   int omm, cudaStream_t stream) {
     return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
-                 n, any_hit, kFused, stream);
+                 n, any_hit, omm, kFused, stream);
 }
 
 // the fused kernel in one of its lab modes (enum FusedMode)
@@ -614,7 +643,7 @@ RTXPT_API int rtxpt_mt_dense_fused_variant(
     float* t_out, int32_t* slot_out, int n, int any_hit, int mode,
     cudaStream_t stream) {
     return fused(aabb, tri12, nc, orig, dirs, t_max, active, t_out, slot_out,
-                 n, any_hit, mode, stream);
+                 n, any_hit, 0, mode, stream);
 }
 
 RTXPT_API int rtxpt_mt_dense(const float* aabb, const float* tri12, int nc,

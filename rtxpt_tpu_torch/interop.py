@@ -34,16 +34,28 @@ from .restir.gi import GIReservoir
 from .restir.reservoir import Reservoir
 from .scene.envmap import EnvMap
 from .scene.lights import LightTable
-from .scene.types import SceneArrays
+from .scene.types import SceneArrays, TextureStack
 
 
 def _t(a, dtype, device):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def textures_from_arrays(*, pool, mip_offset, mip_size, n_mips,
+                         device="cuda") -> TextureStack:
+    i32 = torch.int32
+    return TextureStack(pool=_t(pool, torch.float32, device),
+                        mip_offset=_t(mip_offset, i32, device),
+                        mip_size=_t(mip_size, i32, device),
+                        n_mips=_t(n_mips, i32, device))
+
+
 def scene_from_arrays(*, positions, indices, vert_pack, tri_pack,
                       tri_geom_pack, mat_pack, material_ior,
-                      volume_absorption, device="cuda") -> SceneArrays:
+                      volume_absorption, textures=None,
+                      device="cuda") -> SceneArrays:
+    """`textures`: the reference's TextureStack (any object with its
+    fields) or None."""
     f32, i32 = torch.float32, torch.int32
     return SceneArrays(
         positions=_t(positions, f32, device), indices=_t(indices, i32, device),
@@ -52,15 +64,21 @@ def scene_from_arrays(*, positions, indices, vert_pack, tri_pack,
         tri_geom_pack=_t(tri_geom_pack, f32, device),
         mat_pack=_t(mat_pack, f32, device),
         mat_ior=_t(material_ior, f32, device),
-        volume_absorption=_t(volume_absorption, f32, device))
+        volume_absorption=_t(volume_absorption, f32, device),
+        textures=None if textures is None else textures_from_arrays(
+            pool=textures.pool, mip_offset=textures.mip_offset,
+            mip_size=textures.mip_size, n_mips=textures.n_mips,
+            device=device))
 
 
 def dense_from_arrays(*, aabb, tri9, center, num_clusters: int,
-                      device="cuda") -> DenseMT:
+                      omm=None, device="cuda") -> DenseMT:
+    """omm: the (NC*CLUSTER,) slot-order opacity masks, or None."""
     f32 = torch.float32
     return DenseMT(aabb=_t(aabb, f32, device), tri9=_t(tri9, f32, device),
                    center=_t(center, f32, device),
-                   num_clusters=int(num_clusters))
+                   num_clusters=int(num_clusters),
+                   omm=None if omm is None else _t(omm, torch.int32, device))
 
 
 def bvh8_from_arrays(*, table, leaf_tris, leaf_omm, leaf_size: int,
@@ -87,9 +105,16 @@ def accel_from_reference(accel, device="cuda"):
     """The port's DenseMT, BVH8 or BVH8TwoLevel from the reference's (any
     object with those fields)."""
     if hasattr(accel, "tri9"):
+        omm = None
+        if getattr(accel, "has_omm", False):
+            # the masks ride the fifth channel of the reference's weights:
+            # row ci*5*CLUSTER + 4*CLUSTER + ki, column 15
+            w = np.asarray(accel.weights)
+            omm = w.reshape(accel.num_clusters, 5, -1, 16)[:, 4, :, 15] \
+                .reshape(-1).astype(np.int32)
         return dense_from_arrays(aabb=accel.aabb, tri9=accel.tri9,
                                  center=accel.center,
-                                 num_clusters=accel.num_clusters,
+                                 num_clusters=accel.num_clusters, omm=omm,
                                  device=device)
     if hasattr(accel, "sub_aabb"):
         return two_level_from_arrays(
@@ -129,7 +154,7 @@ def assets_from_reference(scene, accel, env, lights,
             tri_geom_pack=scene.tri_geom_pack, mat_pack=scene.mat_pack,
             material_ior=scene.materials.ior,
             volume_absorption=scene.materials.volume_absorption,
-            device=device),
+            textures=scene.textures, device=device),
         env=env_from_arrays(
             radiance_quad=env.radiance_quad, alias_pack=env.alias_pack,
             height=env.height, width=env.width, intensity=env.intensity,

@@ -109,7 +109,8 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
             r = di.spatial_resample(assets, gb, r, px, py, width, height,
                                     frame)
             if not cfg.use_restir_gi:
-                di_d, di_s = di.final_shade(assets, gb, r)
+                di_d, di_s = di.final_shade(
+                    assets, gb, r, exact_alpha=cfg.exact_alpha_test)
     else:
         r_feedback = Reservoir.empty(n, dev)
 
@@ -188,10 +189,11 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
             gi_feedback = gr
             gr = gi.spatial_resample(gb, gr, px, py, width, height, frame)
             if cfg.use_restir_di:
-                di_d, di_s, gi_d, gi_s = di.fused_final_shade(assets, gb, r,
-                                                              gr)
+                di_d, di_s, gi_d, gi_s = di.fused_final_shade(
+                    assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
             else:
-                gi_d, gi_s = gi.final_shade(assets, gb, gr)
+                gi_d, gi_s = gi.final_shade(
+                    assets, gb, gr, exact_alpha=cfg.exact_alpha_test)
         ind_d = torch.where(gi_ok[..., None], gi_d, ind_d)
         ind_s = torch.where(gi_ok[..., None], gi_s, ind_s)
     else:
@@ -313,7 +315,8 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             r = di.spatial_resample(assets, gb, r, px, py, width, height,
                                     frame)
             if not cfg.use_restir_gi:
-                di_d, di_s = di.final_shade(assets, gb, r)
+                di_d, di_s = di.final_shade(
+                    assets, gb, r, exact_alpha=cfg.exact_alpha_test)
     else:
         r_feedback = Reservoir.empty(n, dev)
 
@@ -368,10 +371,11 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             gi_feedback = gr
             gr = gi.spatial_resample(gb, gr, px, py, width, height, frame)
             if cfg.use_restir_di:
-                di_d, di_s, gi_d, gi_s = di.fused_final_shade(assets, gb, r,
-                                                              gr)
+                di_d, di_s, gi_d, gi_s = di.fused_final_shade(
+                    assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
             else:
-                gi_d, gi_s = gi.final_shade(assets, gb, gr)
+                gi_d, gi_s = gi.final_shade(
+                    assets, gb, gr, exact_alpha=cfg.exact_alpha_test)
     else:
         gi_feedback = gi.GIReservoir.empty(n, dev)
 

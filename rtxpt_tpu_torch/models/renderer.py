@@ -14,8 +14,11 @@ The trace structure is the reference's tier for the scene's size, and
 only that one is built: the dense planes (ops/mt_dense.py) up to 8,192
 triangles, a single BVH8 (ops/bvh.py) up to 45,000, the two-level BVH8
 (ops/bvh2l.py) above. (The reference also builds a BVH2 and a triangle
-soup that nothing traces.) Textured and alpha-MASK scenes are refused
-until the texture paths are ported.
+soup that nothing traces.) Alpha-MASK triangles carry their opacity
+micro-masks (scene/omm.py, baked from the base color's alpha) into
+whichever tier is built; the texture stack (scene/textures.py) is built
+after it, so that the other glTF images, decoding on the texture cache's
+threads, overlap the build.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from ..pt import integrator
 from ..restir import regir as RG
 from ..scene import envmap as EM
 from ..scene import lights as LI
+from ..scene import omm as OMM
+from ..scene import textures as TX
 from ..scene.build import to_device
 from ..scene.camera import CameraData
 
@@ -65,47 +70,57 @@ def r2_jitter(index: int):
             ((0.5 + a2 * index) % 1.0) - 0.5)
 
 
-def check_supported(host_scene: dict):
-    """Raise NotImplementedError for scenes the port cannot render yet."""
-    if host_scene.get("texture_images"):
-        raise NotImplementedError("textured scenes are not ported yet")
-    if (np.asarray(host_scene["materials"]["alpha_mode"]) == 1).any():
-        raise NotImplementedError("alpha-MASK materials need the exact "
-                                  "alpha visibility path (not ported yet)")
+def has_mask_materials(host_scene: dict) -> bool:
+    """Whether the scene has an alpha-MASK material and textures: the
+    reference's condition for the exact alpha test
+    (rtxpt_tpu/models/renderer.py:81-88)."""
+    return bool((np.asarray(host_scene["materials"]["alpha_mode"]) == 1)
+                .any()) and bool(host_scene.get("texture_images"))
 
 
-def build_trace_structure(host_scene: dict, device):
+def build_trace_structure(host_scene: dict, device, tri_omm=None):
     """The trace structure of the reference's tier for the scene's
-    triangle count (rtxpt_tpu/models/renderer.py:120-148): a DenseMT, a
-    BVH8 or a BVH8TwoLevel."""
+    triangle count (rtxpt_tpu/models/renderer.py:120-148), with the
+    triangles' opacity masks `tri_omm` (scene/omm.py): a DenseMT, a BVH8
+    or a BVH8TwoLevel."""
     pos, idx = host_scene["positions"], host_scene["indices"]
     n_tris = idx.shape[0]
     if mt_dense.supported(n_tris):
-        return mt_dense.build_dense(pos, idx, device=device)
+        return mt_dense.build_dense(pos, idx, tri_omm=tri_omm, device=device)
     if n_tris <= BVH8_MAX_TRIS:
         return bvh_mod.collapse_bvh8(bvh_mod.build_bvh(pos, idx), pos, idx,
-                                     device=device)
-    return bvh2l.build_two_level(pos, idx, device=device)
+                                     tri_omm=tri_omm, device=device)
+    return bvh2l.build_two_level(pos, idx, tri_omm=tri_omm, device=device)
 
 
 class Renderer:
     def __init__(self, host_scene: dict, camera: CameraData,
                  cfg: Optional[C.PTConfig] = None, env_radiance=None,
+                 analytic_lights=None, env_intensity: float = 1.0,
                  device="cuda"):
-        check_supported(host_scene)
+        """analytic_lights: the scene loaders' point, spot, directional
+        and sphere lights (scene/lights.py); env_intensity scales the
+        environment."""
         self.device = torch.device(device)
         self.cfg = cfg or reference_config()
+        # the exact alpha re-test matters only where MASK materials exist
+        if self.cfg.exact_alpha_test and not has_mask_materials(host_scene):
+            self.cfg = dataclasses.replace(self.cfg, exact_alpha_test=False)
         self.camera = camera.to(self.device)
         self.host_scene = host_scene
-        self.scene = to_device(host_scene, self.device)
         if env_radiance is None:
             env_radiance = EM.bake_procedural_sky()
-        self.env = EM.make_envmap(env_radiance,
+        self.env = EM.make_envmap(env_radiance, intensity=env_intensity,
                                   enabled=self.cfg.use_env_lights,
                                   device=self.device)
-        self.lights = (LI.build_light_table(host_scene, device=self.device)
+        self.lights = (LI.build_light_table(host_scene, analytic_lights,
+                                            device=self.device)
                        if self.cfg.use_emissive_lights else None)
-        self.accel = build_trace_structure(host_scene, self.device)
+        self.accel = build_trace_structure(
+            host_scene, self.device, OMM.bake_opacity_masks(host_scene))
+        self.scene = to_device(host_scene, self.device, TX.build_texture_stack(
+            host_scene.get("texture_images"),
+            srgb=host_scene.get("texture_srgb"), device=self.device))
         self.assets = integrator.RenderAssets(
             scene=self.scene, env=self.env, lights=self.lights,
             accel=self.accel)

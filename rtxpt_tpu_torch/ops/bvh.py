@@ -239,11 +239,13 @@ def collapse_bvh8_np(bvh: BVH2, positions, indices,
     return table, leaf_tris.reshape(-1), leaf_omm.reshape(-1), n_nodes
 
 
-def collapse_bvh8(bvh: BVH2, positions, indices, device="cuda") -> BVH8:
-    """`collapse_bvh8_np` at LEAF_SIZE with every opacity mask cell set
-    (no alpha-MASK scene is rendered yet), uploaded to `device`."""
+def collapse_bvh8(bvh: BVH2, positions, indices, tri_omm=None,
+                  device="cuda") -> BVH8:
+    """`collapse_bvh8_np` at LEAF_SIZE, each leaf slot with its triangle's
+    opacity mask (`tri_omm` (T,) of scene/omm.py; all cells set where
+    None), uploaded to `device`."""
     table, leaf_tris, leaf_omm, n_nodes = collapse_bvh8_np(
-        bvh, positions, indices)
+        bvh, positions, indices, tri_omm=tri_omm)
     return BVH8(table=torch.as_tensor(table, device=device),
                 leaf_tris=torch.as_tensor(leaf_tris, device=device),
                 leaf_omm=torch.as_tensor(leaf_omm, device=device),

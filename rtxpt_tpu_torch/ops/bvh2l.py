@@ -61,10 +61,11 @@ class BVH8TwoLevel:
 
 
 def build_two_level(positions, indices, *, cap_tris: int = CAP_TRIS,
-                    device="cuda") -> BVH8TwoLevel:
+                    tri_omm=None, device="cuda") -> BVH8TwoLevel:
     """Partition the scene along a cut of its SAH tree and build one BVH8
-    per subtree (host side, leaves of LEAF_SIZE triangles, every opacity
-    mask cell set), then upload the stacked tables."""
+    per subtree (host side, leaves of LEAF_SIZE triangles, each leaf slot
+    with its triangle's opacity mask `tri_omm` (T,), all cells set where
+    None), then upload the stacked tables."""
     positions = np.asarray(positions, np.float32)
     indices = np.asarray(indices, np.int32)
     top = build_bvh(positions, indices)
@@ -99,7 +100,9 @@ def build_two_level(positions, indices, *, cap_tris: int = CAP_TRIS,
         tri_ids = order[lo:hi]
         sub_idx = indices[tri_ids]
         table, lt, lo_omm, _ = collapse_bvh8_np(
-            build_bvh(positions, sub_idx), positions, sub_idx)
+            build_bvh(positions, sub_idx), positions, sub_idx,
+            tri_omm=None if tri_omm is None
+            else np.asarray(tri_omm)[tri_ids])
         gl = np.where(lt >= 0, tri_ids[np.maximum(lt, 0)], -1)
         p = positions[sub_idx.reshape(-1)]
         subs.append((table, gl.astype(np.int32), lo_omm,

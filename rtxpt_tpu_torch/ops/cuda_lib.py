@@ -45,7 +45,7 @@ SIGNATURES = {
                              I, P),
     "rtxpt_mt_dense": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_mt_dense_variant": (P, P, I, P, P, P, P, P, P, P, P, I, I, P),
-    "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, P),
+    "rtxpt_mt_dense_fused": (P, P, I, P, P, P, P, P, P, I, I, I, P),
     "rtxpt_mt_dense_fused_variant": (P, P, I, P, P, P, P, P, P, I, I, I, P),
     "rtxpt_tile_keys": (P, I, P, P, P, P, P, P, P, I, I, P),
     "rtxpt_shade_nee": (P, P, P, I, I, I, I, I, I, F, F, P),

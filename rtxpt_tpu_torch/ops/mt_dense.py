@@ -4,14 +4,19 @@ MAX_TRIS triangles (counterpart of rtxpt_tpu/ops/mt_dense.py).
 Triangles are morton-ordered and chunked into clusters of CLUSTER rows of
 the recentered (p0, e1, e2) table `tri9` (column 9: original triangle
 id), which `resolve_hits` and the plain versions read; the kernels read
-the same rows as `tri12` (p0.xyz + id, e1.xyz + 0, e2.xyz + 0: three
-16-byte vectors a row). A trace is one launch of the fused kernel
+the same rows as `tri12` (p0.xyz + id, e1.xyz + mask, e2.xyz + 0: three
+16-byte vectors a row; the mask word is the triangle's 16-bit opacity
+micro-mask of scene/omm.py as an exact float where the table has masks,
+else 0). A trace is one launch of the fused kernel
 (``csrc/mt_dense.cu`` `rtxpt_mt_dense_fused`, `trace_dense_fused`): per
 tile of TILE lanes it builds the tile's worklist (the clusters some
 active lane of the tile can enter, nearest slab entry first: the work of
 the reference's prepass, `tile_worklists` in plain form) and walks it
 one thread per ray, slab-gating each cluster AABB against the lane's
-running closest t and running Möller–Trumbore on the cluster's rows.
+running closest t and running Möller–Trumbore on the cluster's rows;
+with masks (its OMM channel) a pair that passes is rejected where the
+mask bit of its (u, v) cell is clear, K5's rule (scene/omm.py
+`mask_bit_index`).
 The prepass K7 (`tile_keys`) and K1 walking worklists it is given
 (`trace_dense`) keep their entry points for the checks and the labs; no
 trace of the renderer launches them. The
@@ -28,19 +33,22 @@ the products with far-away origins), as in the reference.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from . import cuda_lib
+from ..scene.omm import mask_bit_index
 from .intersect import Hit, safe_inv
 
 CLUSTER = 64            # triangles per cluster (csrc/mt_dense.cu kCluster)
 MAX_TRIS = 8192         # beyond this the reference switches to BVH paths
 TILE = 128              # lanes per block and worklist (kBlock)
 # tri12's columns from tri9's (-1: zero): p0 (0:3), id (3), e1 (4:7),
-# e2 (8:11)
+# e2 (8:11); column 7 holds the opacity mask of a masked table
 _TRI12_COLS = (0, 1, 2, 9, 3, 4, 5, -1, 6, 7, 8, -1)
+OMM_COL = 7
 _PLAIN_CHUNK = 1 << 16  # rays per step of the plain version
 
 
@@ -61,11 +69,27 @@ def _morton3(q: np.ndarray) -> np.ndarray:
             | (part(q[:, 2]) << np.uint64(2)))
 
 
-def tri12_from_tri9(tri9):
+def tri12_from_tri9(tri9, omm=None):
     """(T,12) f32 rows of the kernels, 16-byte aligned vectors: tri9's p0
-    and id, e1 and 0, e2 and 0, bit for bit."""
+    and id, e1 and the mask (`omm` (T,) int, 0 where None), e2 and 0, bit
+    for bit."""
     padded = torch.cat([tri9, tri9.new_zeros((tri9.shape[0], 1))], 1)
-    return padded[:, [c if c >= 0 else 10 for c in _TRI12_COLS]]
+    tri12 = padded[:, [c if c >= 0 else 10 for c in _TRI12_COLS]]
+    if omm is not None:
+        tri12[:, OMM_COL] = omm.to(torch.float32)
+    return tri12
+
+
+def omm_from_tri12(tri12):
+    """The (T,) int32 masks of a masked tri12."""
+    return tri12[:, OMM_COL].to(torch.int32)
+
+
+def has_masks(tri12) -> bool:
+    """Whether rows `tri12` carry opacity masks: column OMM_COL is 0 in an
+    unmasked table; a masked one has a mask with a set bit, or padding
+    slots of all ones, unless every triangle is fully transparent."""
+    return bool(tri12[:, OMM_COL].any())
 
 
 def tri9_from_tri12(tri12):
@@ -79,11 +103,18 @@ class DenseMT:
     tri9: torch.Tensor        # (NC*CLUSTER,10) f32 recentered p0,e1,e2,id
     center: torch.Tensor      # (3,) f32 recenter point
     num_clusters: int
+    # (NC*CLUSTER,) i32 opacity masks in slot order; None: no mask has a
+    # clear bit, and the traces take no OMM channel
+    omm: Optional[torch.Tensor] = None
     # (NC*CLUSTER,12) f32, the kernels' rows (`tri12_from_tri9`)
     tri12: torch.Tensor = dataclasses.field(init=False)
 
     def __post_init__(self):
-        self.tri12 = tri12_from_tri9(self.tri9)
+        self.tri12 = tri12_from_tri9(self.tri9, self.omm)
+
+    @property
+    def has_omm(self) -> bool:
+        return self.omm is not None
 
     @property
     def aabb_c(self) -> torch.Tensor:
@@ -96,9 +127,11 @@ def supported(n_tris: int) -> bool:
     return n_tris <= MAX_TRIS
 
 
-def build_dense_np(positions, indices):
-    """Host build -> (aabb, tri9, center, num_clusters) numpy, identical
-    to the reference's `build_dense` tables."""
+def build_dense_np(positions, indices, tri_omm=None):
+    """Host build -> (aabb, tri9, center, num_clusters, omm) numpy,
+    identical to the reference's `build_dense` tables; omm: the (T,) masks
+    `tri_omm` (scene/omm.py) in slot order, padding slots all ones, or
+    None where no mask differs from 0xFFFF (the reference's `has_omm`)."""
     p = np.asarray(positions, np.float64)
     idx = np.asarray(indices, np.int64)
     t = idx.shape[0]
@@ -127,14 +160,18 @@ def build_dense_np(positions, indices):
     tri9[slot, 3:6] = e1a
     tri9[slot, 6:9] = e2a
     tri9[slot, 9] = order.astype(np.float32)
-    return aabb, tri9, center.astype(np.float32), nc
+    omm = None
+    if tri_omm is not None and (np.asarray(tri_omm) != 0xFFFF).any():
+        omm = np.full((t_pad,), 0xFFFF, np.int32)
+        omm[slot] = np.asarray(tri_omm, np.int32)[order]
+    return aabb, tri9, center.astype(np.float32), nc, omm
 
 
-def build_dense(positions, indices, device="cuda") -> DenseMT:
-    aabb, tri9, center, nc = build_dense_np(positions, indices)
-    t = lambda a: torch.as_tensor(a, device=device)
+def build_dense(positions, indices, tri_omm=None, device="cuda") -> DenseMT:
+    aabb, tri9, center, nc, omm = build_dense_np(positions, indices, tri_omm)
+    t = lambda a: None if a is None else torch.as_tensor(a, device=device)
     return DenseMT(aabb=t(aabb), tri9=t(tri9), center=t(center),
-                   num_clusters=nc)
+                   num_clusters=nc, omm=t(omm))
 
 
 def _pad_lanes(origins, dirs, t_max, active, tile: int):
@@ -292,11 +329,12 @@ def tile_worklists_interval(aabb, origins, dirs, t_max, active,
 
 
 def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit,
-                       member=None):
+                       member=None, omm=None):
     """K1's arithmetic on one chunk of rays, cluster by cluster in slot
     order. Only the lanes that pass a cluster's slab gate (and, with
     `member` (NC, n) bool, have it on their tile's worklist) are tested
-    against its rows."""
+    against its rows; with `omm` (NC*CLUSTER,) int masks, a pair whose
+    (u, v) cell's bit is clear is rejected."""
     n = o.shape[0]
     nc = aabb_c.shape[0]
     best = t_max.clone()
@@ -352,6 +390,11 @@ def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit,
         ok = ((absa > 1e-12) & (su >= 0.0) & (sv >= 0.0)
               & (su + sv <= absa) & (st > 0.0)
               & (t_hit < (t_max if any_hit else best)[lanes, None]))
+        if omm is not None:
+            # the cell of (u, v) = the sign-folded numerators over |a|
+            bit = mask_bit_index(su / absa, sv / absa)
+            m = omm[c * CLUSTER:(c + 1) * CLUSTER][None, :]
+            ok = ok & (((m >> bit) & 1) != 0)
         t_hit = torch.where(ok, t_hit, torch.inf)
         if any_hit:
             first = torch.where(ok, rows[None, :], CLUSTER).amin(1)
@@ -370,12 +413,14 @@ def _trace_plain_chunk(aabb_c, tri9, o, d, t_max, active, any_hit,
 
 
 def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
-                      any_hit: bool, worklists=None, tile: int = TILE):
+                      any_hit: bool, worklists=None, tile: int = TILE,
+                      omm=None):
     """Plain version of K1 (chunked over rays). With `worklists` =
     (counts, order) of tiles of `tile` lanes, a lane tests cluster c only
     if c is among its tile's first counts entries; the winners are those
     of the call without worklists, since a tile's list holds every cluster
-    whose slab gate one of its lanes can pass."""
+    whose slab gate one of its lanes can pass. `omm`: the (NC*CLUSTER,)
+    opacity masks of the OMM channel, or None."""
     n = origins_c.shape[0]
     member = None if worklists is None else worklist_mask(worklists)
     ts, slots = [], []
@@ -385,7 +430,7 @@ def trace_dense_plain(aabb_c, tri9, origins_c, dirs, t_max, active,
             torch.arange(s, min(s + _PLAIN_CHUNK, n),
                          device=aabb_c.device) // tile].T.contiguous()
         t, slot = _trace_plain_chunk(aabb_c, tri9, origins_c[sl], dirs[sl],
-                                     t_max[sl], active[sl], any_hit, m)
+                                     t_max[sl], active[sl], any_hit, m, omm)
         ts.append(t)
         slots.append(slot)
     if not ts:
@@ -425,7 +470,12 @@ def trace_dense(aabb_c, tri12, origins_c, dirs, t_max, active,
     tile_worklists() gives for these inputs, built here by K7 when None)
     are for tiles of TILE lane indices on the same recentered inputs, so
     every (lane, cluster) pair K1's gate lets through is on its tile's
-    list. The renderer's traces take `trace_dense_fused`."""
+    list. The renderer's traces take `trace_dense_fused`. It has no OMM
+    channel: a masked table (`has_masks`) raises."""
+    if has_masks(tri12):
+        raise ValueError("trace_dense: K1 walking given worklists has no "
+                         "OMM channel; trace masked tables with "
+                         "trace_dense_fused")
     cuda = cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active)
     n, nc = _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
     if worklists is None:
@@ -451,30 +501,33 @@ def trace_dense(aabb_c, tri12, origins_c, dirs, t_max, active,
 
 @cuda_lib.counted("mt_dense_fused")
 def trace_dense_fused(aabb_c, tri12, origins_c, dirs, t_max, active,
-                      any_hit: bool):
+                      any_hit: bool, omm: bool = False):
     """One dense trace in one launch: recentered cluster AABBs (NC,6),
     tri12 (NC*CLUSTER,12), recentered origins (N,3), directions (N,3),
     t_max (N,), active (N,) bool -> (t (N,) f32, slot (N,) i32). slot is
     the winning row (-1: no hit) and t its distance (t_max where none):
     the exact smallest t over all triangles, ties to the lowest slot;
-    any_hit stops at the first hit it finds. The kernel builds each
-    tile's worklist itself (`tile_worklists` is its plain form); on CPU
-    tensors, `trace_dense_plain` over all clusters, whose winners are the
-    kernel's."""
+    any_hit stops at the first hit it finds. With `omm` (a masked table,
+    DenseMT.has_omm) the OMM channel rejects the pairs whose mask bit is
+    clear. The kernel builds each tile's worklist itself (`tile_worklists`
+    is its plain form); on CPU tensors, `trace_dense_plain` over all
+    clusters, whose winners are the kernel's."""
     if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
         _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
         return trace_dense_plain(aabb_c, tri9_from_tri12(tri12), origins_c,
-                                 dirs, t_max, active, any_hit)
+                                 dirs, t_max, active, any_hit,
+                                 omm=omm_from_tri12(tri12) if omm else None)
     return launch_fused("rtxpt_mt_dense_fused", "mt_dense_fused", aabb_c,
-                        tri12, origins_c, dirs, t_max, active, any_hit)
+                        tri12, origins_c, dirs, t_max, active, any_hit,
+                        int(omm))
 
 
 def launch_fused(entry: str, counter: str, aabb_c, tri12, origins_c, dirs,
                  t_max, active, any_hit: bool, *extra):
     """Check a fused trace's CUDA tensors, allocate its outputs and launch
-    C entry point `entry` (``rtxpt_mt_dense_fused``, or the lab's variant
-    with its mode in `extra`), counting the launch on wrapper
-    `counter`."""
+    C entry point `entry` (``rtxpt_mt_dense_fused`` with its OMM flag in
+    `extra`, or the lab's variant with its mode), counting the launch on
+    wrapper `counter`."""
     n, nc = _check_trace(aabb_c, tri12, origins_c, dirs, t_max, active)
     t, slot = _outputs(n, dirs.device)
     if n:
@@ -528,7 +581,7 @@ def trace_closest(dmt: DenseMT, origins, dirs, t_max=1e30,
     that its kernel ignores: it always tests t > 0.)"""
     o_c, d, tm, act = _prepare(dmt, origins, dirs, t_max, active)
     t_q, slot = trace_dense_fused(dmt.aabb_c, dmt.tri12, o_c, d, tm, act,
-                                  any_hit=False)
+                                  any_hit=False, omm=dmt.has_omm)
     return resolve_hits(dmt, o_c, d, t_q, slot)
 
 
@@ -536,5 +589,5 @@ def trace_anyhit(dmt: DenseMT, origins, dirs, t_max=1e30, active=None):
     """True where the segment (0, t_max) is occluded."""
     o_c, d, tm, act = _prepare(dmt, origins, dirs, t_max, active)
     _, slot = trace_dense_fused(dmt.aabb_c, dmt.tri12, o_c, d, tm, act,
-                                any_hit=True)
+                                any_hit=True, omm=dmt.has_omm)
     return slot >= 0

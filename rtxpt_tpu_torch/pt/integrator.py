@@ -45,7 +45,7 @@ from ..config import (MODE_FILL_STABLE_PLANES, NEE_DISTANT_MIP_DESCENT,
                       NEE_DISTANT_UNIFORM, NEE_LOCAL_REGIR, RNG_QUALITIES,
                       PTConfig, PTConstants)
 from ..core import mathutils as mu
-from ..core import rng
+from ..core import raycone, rng
 from ..ops import mt_dense, traverse
 from ..restir import regir as RG
 from ..scene import envmap as EM
@@ -343,7 +343,8 @@ def _shade_step(assets, cfg, consts4, path, surf, shade, thp,
         occluded = VIS.trace_visibility(
             assets, out["vis_origin"].repeat(k_total, 1),
             torch.cat([out[f"nee_dir{i}"] for i in range(k_total)], dim=0),
-            t_max=torch.cat(dists, dim=0), active=all_act)
+            t_max=torch.cat(dists, dim=0), active=all_act,
+            exact=cfg.exact_alpha_test)
         visible = (~occluded).reshape(k_total, nb)
         lit = [visible[i] & needs[i] for i in range(k_total)]
         if fill:
@@ -577,7 +578,8 @@ def _chain_shade_step(assets, cfg, consts4, path, surf, shade, thp,
         occluded = VIS.trace_visibility(
             assets, sd.compute_new_ray_origin(torch.ones_like(shade))
             .repeat(k_total, 1), torch.cat(dirs, dim=0),
-            t_max=torch.cat(dists, dim=0) * (1.0 - 1e-4), active=all_act)
+            t_max=torch.cat(dists, dim=0) * (1.0 - 1e-4), active=all_act,
+            exact=cfg.exact_alpha_test)
         visible = (~occluded).reshape(k_total, nb)
         contrib_d = sum(torch.where(visible[i][..., None], diffs[i], 0.0)
                         for i in range(k_total))
@@ -775,7 +777,8 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
         # UpdatePathTravelled (PathTracer.hlsli:267-277)
         t_travel = torch.where(hit.valid, hit.t, mu.K_MAX_RAY_TRAVEL)
         vertex_index = path.vertex_index + path.active.to(torch.int32)
-        cone_width = path.cone_width + path.cone_spread * t_travel
+        cone_width = raycone.propagate_distance(path.cone_width,
+                                                path.cone_spread, t_travel)
         scene_length = torch.clamp(path.scene_length + t_travel,
                                    max=mu.K_MAX_RAY_TRAVEL)
         path = path._replace(
@@ -811,7 +814,7 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
 
         # HandleHit (PathTracer.hlsli:371-525)
         surf = shading.load_surface(assets.scene, hit.prim, hit.bary,
-                                    path.direction)
+                                    path.direction, cone_width=cone_width)
         sd = surf.sd
         # volume absorption (Beer-Lambert; PathTracer.hlsli:406-415); an
         # injected base hit's chain absorption was applied by BUILD

@@ -5,8 +5,9 @@ A wavefront of hits is loaded with the surface fetch of ops/gather.py
 (K2 + K3 in one launch): the triangle row, the barycentric blend of its
 three vertex rows, its per-triangle constants and its material row — the
 reference's four TPU fetches, with plain loads instead of one-hot
-matmuls. Textured materials come with the texture queue; the Renderer
-refuses textured scenes until then.
+matmuls. Textured materials then take their texture taps
+(scene/textures.py) at the ray cone's LOD: base color and opacity,
+metal-rough, emissive and the normal map.
 """
 from __future__ import annotations
 
@@ -107,11 +108,21 @@ def _adjust_shading_normal(n, v, oriented_face_n, tangent_w):
     return n2, t, b
 
 
+def _slot_uv(mrow, uv, slot: int):
+    """A UV slot's KHR_texture_transform affine (offset, rotation and
+    scale, the reference's per-slot transform) applied to uv."""
+    a = mrow[..., ST.MP_UV_AFFINE + 6 * slot:ST.MP_UV_AFFINE + 6 * slot + 6]
+    return torch.stack(
+        [a[..., 0] * uv[..., 0] + a[..., 1] * uv[..., 1] + a[..., 4],
+         a[..., 2] * uv[..., 0] + a[..., 3] * uv[..., 1] + a[..., 5]], -1)
+
+
 def load_surface(scene: ST.SceneArrays, prim, bary, ray_dir,
-                 outside_ior=None) -> SurfaceData:
+                 outside_ior=None, cone_width=None) -> SurfaceData:
     """Gather + interpolate surface attributes for a wavefront of hits and
     build StandardBSDFData like the bridge. prim (N,) triangle ids (miss
-    lanes are masked downstream); bary (N,2); ray_dir (N,3)."""
+    lanes are masked downstream); bary (N,2); ray_dir (N,3); cone_width
+    (N,) the ray cone's width at the hit, or None for mip 0."""
     # the triangle row, its vertices blended by (1 - b0 - b1, b0, b1), its
     # geometry row (N,5) and its material row (N,46): one launch
     vi, geom, mrow, mid = gather.gather_surface(
@@ -146,6 +157,42 @@ def load_surface(scene: ST.SceneArrays, prim, bary, ray_dir,
     nested_priority = torch.clamp(
         1 + mrow[..., ST.MP_NESTED_PRIO].to(torch.int32),
         max=K_MAX_NESTED_PRIORITY)
+    opacity = torch.ones_like(roughness)
+
+    # texture taps with the ray cone's LOD (sampleGeometryMaterial +
+    # createTextureSampler, BridgeDonut:337-352, 411)
+    if scene.textures is not None:
+        from ..scene import textures as TX
+        lod = None
+        if cone_width is not None:
+            # the base slot's affine scales UV areas by |det|; its raw
+            # per-triangle area comes with the geometry row
+            ab = mrow[..., ST.MP_UV_AFFINE:ST.MP_UV_AFFINE + 4]
+            uv_area = geom[..., 3] * torch.abs(ab[..., 0] * ab[..., 3]
+                                               - ab[..., 1] * ab[..., 2])
+            lod = TX.ray_cone_lod(cone_width, torch.sum(face_n * v, dim=-1),
+                                  uv_area, geom[..., 4])
+        tex = lambda col: mrow[..., col].to(torch.int32)
+        base_tap = TX.sample_stack(scene.textures, tex(ST.MP_BASE_TEX),
+                                   _slot_uv(mrow, uv, ST.UV_SLOT_BASE), lod)
+        base_color = base_color * base_tap[..., :3]
+        opacity = base_tap[..., 3]
+        mr_tex = tex(ST.MP_MR_TEX)
+        mr = TX.sample_stack(scene.textures, mr_tex,
+                             _slot_uv(mrow, uv, ST.UV_SLOT_MR), lod)
+        has_mr = mr_tex >= 0
+        roughness = torch.where(has_mr, roughness * mr[..., 1], roughness)
+        metalness = torch.where(has_mr, metalness * mr[..., 2], metalness)
+        em_tap = TX.sample_stack(scene.textures, tex(ST.MP_EMISSIVE_TEX),
+                                 _slot_uv(mrow, uv, ST.UV_SLOT_EMISSIVE),
+                                 lod)
+        emissive = emissive * em_tap[..., :3]
+        nm = tex(ST.MP_NORMAL_TEX)
+        nm_tap = TX.sample_stack(scene.textures, nm,
+                                 _slot_uv(mrow, uv, ST.UV_SLOT_NORMAL), lod)
+        n = torch.where((nm >= 0)[..., None],
+                        TX.perturb_normal(n, t, b, nm_tap), n)
+        n, t, b = _adjust_shading_normal(n, v, oriented_ng, tan)
 
     spec_trans = transmission * (1.0 - metalness)
     diff_trans = diffuse_transmission * (1.0 - metalness)
@@ -167,7 +214,7 @@ def load_surface(scene: ST.SceneArrays, prim, bary, ray_dir,
     sd = ShadingData(
         pos=pos, v=v, n=n, t=t, b=b, uv=uv, face_n=face_n,
         vertex_n=vertex_n, front_facing=front_facing, material_id=mid,
-        opacity=torch.ones_like(roughness), ior=outside_ior,
+        opacity=opacity, ior=outside_ior,
         shadow_nol_fadeout=shadow_fade, thin_surface=thin,
         nested_priority=nested_priority)
     return SurfaceData(

@@ -271,10 +271,11 @@ def spatial_resample(assets, gb: GBuffer, cur: Reservoir, px, py,
         target=torch.where(take, ph_cc, r.target))
 
 
-def final_shade(assets, gb: GBuffer, r: Reservoir
+def final_shade(assets, gb: GBuffer, r: Reservoir, exact_alpha=False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """DIFinalShading.hlsl: visibility ray + weighted contribution;
-    returns the (diffuse, specular) DI radiance."""
+    returns the (diffuse, specular) DI radiance. exact_alpha: the
+    visibility ray's exact alpha test (PTConfig.exact_alpha_test)."""
     p_hat, cd, cs, direction, distance = eval_target(assets, gb, r.light,
                                                      r.uv)
     w = r.contribution_weight()
@@ -282,12 +283,13 @@ def final_shade(assets, gb: GBuffer, r: Reservoir
     origin = gb.surface.sd.compute_new_ray_origin(torch.ones_like(need))
     occluded = VIS.trace_visibility(assets, origin, direction,
                                     t_max=distance * (1.0 - 1e-4),
-                                    active=need)
+                                    active=need, exact=exact_alpha)
     scale = torch.where(need & ~occluded, w, 0.0)[..., None]
     return cd * scale, cs * scale
 
 
-def fused_final_shade(assets, gb: GBuffer, r_di: Reservoir, r_gi):
+def fused_final_shade(assets, gb: GBuffer, r_di: Reservoir, r_gi,
+                      exact_alpha=False):
     """Fused DI + GI final shading (RtxdiPass::ExecuteFusedDIGIFinal,
     RtxdiPass.cpp:533): both reservoirs' visibility rays go through one
     any-hit trace of 2N lanes. Returns (di_d, di_s, gi_d, gi_s)."""
@@ -306,7 +308,7 @@ def fused_final_shade(assets, gb: GBuffer, r_di: Reservoir, r_gi):
         assets, torch.cat([origin, origin], 0), torch.cat([dir_d, dir_g], 0),
         t_max=torch.cat([dist_d * (1.0 - 1e-4),
                          torch.clamp(dist_g - 1e-3, min=1e-4)], 0),
-        active=torch.cat([need_d, need_g], 0))
+        active=torch.cat([need_d, need_g], 0), exact=exact_alpha)
     s_d = torch.where(need_d & ~occluded[:n], w_d, 0.0)[..., None]
     s_g = torch.where(need_g & ~occluded[n:], w_g, 0.0)[..., None]
     return cd_d * s_d, cs_d * s_d, cd_g * s_g, cs_g * s_g

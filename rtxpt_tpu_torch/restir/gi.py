@@ -164,9 +164,10 @@ def spatial_resample(gb: GBuffer, cur: GIReservoir, px, py, width: int,
     return r
 
 
-def final_shade(assets, gb: GBuffer, r: GIReservoir
+def final_shade(assets, gb: GBuffer, r: GIReservoir, exact_alpha=False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """GIFinalShading.hlsl: reconnection visibility + weighted shade."""
+    """GIFinalShading.hlsl: reconnection visibility + weighted shade.
+    exact_alpha: the ray's exact alpha test (PTConfig.exact_alpha_test)."""
     p_hat, cd, cs, direction, dist = eval_target(gb, r.pos, r.radiance,
                                                  r.valid)
     w = r.contribution_weight()
@@ -174,6 +175,6 @@ def final_shade(assets, gb: GBuffer, r: GIReservoir
     origin = gb.surface.sd.compute_new_ray_origin(torch.ones_like(need))
     occluded = VIS.trace_visibility(assets, origin, direction,
                                     t_max=torch.clamp(dist - 1e-3, min=1e-4),
-                                    active=need)
+                                    active=need, exact=exact_alpha)
     scale = torch.where(need & ~occluded, w, 0.0)[..., None]
     return cd * scale, cs * scale

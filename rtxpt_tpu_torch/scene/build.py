@@ -176,8 +176,9 @@ class SceneBuilder:
         )
 
 
-def to_device(host: dict, device) -> SceneArrays:
-    """Pack the host dict of SceneBuilder.finish() and upload it."""
+def to_device(host: dict, device, textures=None) -> SceneArrays:
+    """Pack the host dict of SceneBuilder.finish() and upload it, with the
+    texture stack `textures` (scene/textures.py) where the scene has one."""
     vp, tp, tg, mp = pack_tables(
         np.asarray(host["positions"]), np.asarray(host["normals"]),
         np.asarray(host["tangents"]), np.asarray(host["uvs"]),
@@ -194,4 +195,5 @@ def to_device(host: dict, device) -> SceneArrays:
         tri_geom_pack=t(tg, torch.float32),
         mat_pack=t(mp, torch.float32),
         mat_ior=t(mats["ior"], torch.float32),
-        volume_absorption=t(mats["volume_absorption"], torch.float32))
+        volume_absorption=t(mats["volume_absorption"], torch.float32),
+        textures=textures)

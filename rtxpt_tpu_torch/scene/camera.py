@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ..core import mathutils as mu
+from ..core import raycone
 
 
 class CameraData(NamedTuple):
@@ -48,7 +49,7 @@ def make_camera(width: int, height: int, pos, look_dir, up=(0.0, 1.0, 0.0),
     v = v / np.linalg.norm(v)
     ulen = focal_distance * math.tan(fov_y * 0.5) * aspect
     vlen = focal_distance * math.tan(fov_y * 0.5)
-    spread = math.atan(2.0 * math.tan(fov_y * 0.5) / height)
+    spread = raycone.pixel_spread_angle(fov_y, height)
     f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
     return CameraData(
         pos=f32(pos), direction=f32(d), u=f32(u * ulen), v=f32(v * vlen),

@@ -318,16 +318,21 @@ def sample_presampled(env: EnvMap, pre: PresampledEnv, u1):
 
 
 def load_equirect(path: str, target_height: Optional[int] = None):
-    """An equirectangular environment from a Radiance .hdr file (the
-    EnvMapBaker "loaded texture" path), nearest-resampled to (H, 2H, 3)
-    float32 with H a power of two (by default the largest one not above
-    the file's height, between 8 and 1024). .exr and LDR images need
-    packages the port does not depend on and raise NotImplementedError."""
+    """An equirectangular environment from a Radiance .hdr file or an LDR
+    .png (sRGB -> linear, as the reference's LDR path) (the EnvMapBaker
+    "loaded texture" path), nearest-resampled to (H, 2H, 3) float32 with H
+    a power of two (by default the largest one not above the file's
+    height, between 8 and 1024). .exr and other images need packages the
+    port does not depend on and raise NotImplementedError."""
     ext = os.path.splitext(path)[1].lower()
-    if ext != ".hdr":
+    if ext == ".hdr":
+        img = _load_radiance_hdr(path)
+    elif ext == ".png":
+        from ..utils.image import load_png
+        img = load_png(path) ** 2.2
+    else:
         raise NotImplementedError(f"environment format {ext!r}: the port "
-                                  "reads Radiance .hdr only")
-    img = _load_radiance_hdr(path)
+                                  "reads Radiance .hdr and .png")
     h0 = img.shape[0]
     if target_height is None:
         target_height = 1 << max(int(np.floor(np.log2(max(h0, 2)))), 3)

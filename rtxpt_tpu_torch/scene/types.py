@@ -3,11 +3,13 @@
 The reference also packs bf16 one-hot "gather planes" for the TPU's
 matrix unit; on the GPU a row gather is a plain load, so the port keeps
 only the plain f32/i32 packed tables that `ops/gather.py` reads.
-Packing runs host-side in numpy; `SceneArrays` holds the device copies.
+Packing runs host-side in numpy; `SceneArrays` holds the device copies,
+and `TextureStack` the texel pool of scene/textures.py.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,6 +35,17 @@ MP_DOUBLE_SIDED = 20
 MP_UV_AFFINE = 21      # 21:45 — 4 slots x 6 affine coefficients
 MP_SPECULAR_FACTOR = 45
 MP_COLS = 46
+UV_SLOT_BASE, UV_SLOT_NORMAL, UV_SLOT_MR, UV_SLOT_EMISSIVE = 0, 1, 2, 3
+
+
+class TextureStack(NamedTuple):
+    """Every mip of every scene texture in one flat (P, 4) f32 texel pool,
+    with per-texture (offset, size) tables: the bindless texture table
+    (t_BindlessTextures). Offsets stay below 2^31 rows."""
+    pool: torch.Tensor           # (P,4) f32 texels
+    mip_offset: torch.Tensor     # (K,L) i32 flat offset of mip l
+    mip_size: torch.Tensor       # (K,L) i32 edge size of mip l
+    n_mips: torch.Tensor         # (K,) i32 mip count per texture
 
 
 @dataclasses.dataclass
@@ -46,6 +59,7 @@ class SceneArrays:
     mat_pack: torch.Tensor       # (M,46) f32, layout above
     mat_ior: torch.Tensor        # (M,) f32 interior IoR (nested resolve)
     volume_absorption: torch.Tensor  # (M,3) f32 Beer-Lambert sigma_a
+    textures: Optional[TextureStack] = None
 
     @property
     def num_triangles(self) -> int:

@@ -57,15 +57,17 @@ def _per_frame(frame):
     return frame if isinstance(frame, list) else [frame] * FRAMES
 
 
-def reference_frames(cfg: dict, frame, w=W, h=H):
+def reference_frames(cfg: dict, frame, w=W, h=H, scene=None):
     """(the reference renderer, [(frame, state)] of FRAMES frames);
-    `frame`: render_frame's keywords (see _per_frame)."""
+    `frame`: render_frame's keywords (see _per_frame); `scene`: (host
+    dict, the reference's camera) in place of programmer-art."""
+    host, cam = scene or (JP.build_programmer_art().finish(),
+                          JP.default_camera(w, h))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("RTXPT_SHADE_KERNEL", "1")
         mp.setenv("RTXPT_SHADE_KERNEL_INTERPRET", "1")
         mp.setenv("RTXPT_DENSE_INTERPRET", "1")
-        jr = JRealtime(JP.build_programmer_art().finish(),
-                       JP.default_camera(w, h), j_realtime_config(**cfg),
+        jr = JRealtime(host, cam, j_realtime_config(**cfg),
                        env_radiance=JEM.bake_procedural_sky(height=32))
         frames = []
         for kw in _per_frame(frame):
@@ -74,11 +76,13 @@ def reference_frames(cfg: dict, frame, w=W, h=H):
     return jr, frames
 
 
-def port_renderer(jr, cfg: dict, tables: str, w=W, h=H):
+def port_renderer(jr, cfg: dict, tables: str, w=W, h=H, scene=None):
     """The port's RealtimeRenderer on the CPU, on its own build or on the
-    reference renderer's tables."""
-    r = RealtimeRenderer(TP.build_programmer_art().finish(),
-                         TP.default_camera(w, h), realtime_config(**cfg),
+    reference renderer's tables; `scene`: (host dict, the port's camera)
+    in place of programmer-art."""
+    host, cam = scene or (TP.build_programmer_art().finish(),
+                          TP.default_camera(w, h))
+    r = RealtimeRenderer(host, cam, realtime_config(**cfg),
                          env_radiance=TEM.bake_procedural_sky(height=32),
                          device="cpu")
     if tables == "shared":

@@ -88,6 +88,29 @@ def test_cli_reference_options_on_cpu(tmp_path, extra):
     assert np.isfinite(hdr).all() and hdr.mean() > 0.0
 
 
+@pytest.mark.parametrize("flag", [[], ["--no-nee"]], ids=["nee", "no-nee"])
+def test_cli_realtime_no_nee(monkeypatch, tmp_path, flag):
+    """--mode realtime --no-nee builds its config with nee_enabled False,
+    and without the flag True (the reference's realtime mode ignores the
+    flag; ROADMAP §3)."""
+    from rtxpt_tpu_torch.models import realtime as RT
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def init(self, host, cam, cfg=None, **kw):
+        seen["cfg"] = cfg
+        raise Built
+
+    monkeypatch.setattr(RT.RealtimeRenderer, "__init__", init)
+    with pytest.raises(Built):
+        cli.main(["--mode", "realtime", "--width", "8", "--height", "6",
+                  "--spp", "1", "--device", "cpu", "--output",
+                  str(tmp_path / "o.png"), "--quiet"] + flag)
+    assert seen["cfg"].nee_enabled is not bool(flag)
+
+
 def test_cli_refuses_exr_env(tmp_path):
     path = tmp_path / "sky.exr"
     path.write_bytes(b"\0" * 16)

@@ -159,18 +159,20 @@ def test_gather_surface_unaligned_tables_bit_equal(dev, offset):
         assert torch.equal(a, b)
 
 
-def _dense_rays(dev, n, seed=1, active=0.9):
-    """A 1000-triangle dense table and n rays through it: origins inside
-    and around it (some at cluster centers), finite and infinite t_max,
-    a share `active` of the lanes active -> (the table, the kernels'
-    arguments (aabb_c, tri12, origins, directions, t_max, active))."""
+def _dense_rays(dev, n, seed=1, active=0.9, omm=False):
+    """A 1000-triangle dense table (omm: with random 16-bit opacity masks)
+    and n rays through it: origins inside and around it (some at cluster
+    centers), finite and infinite t_max, a share `active` of the lanes
+    active -> (the table, the kernels' arguments (aabb_c, tri12, origins,
+    directions, t_max, active))."""
     r = np.random.RandomState(seed)
     n_tris = 1000
     c = r.uniform(-4, 4, (n_tris, 3))
     pos = np.concatenate([c + r.uniform(-0.4, 0.4, (n_tris, 3))
                           for _ in range(3)]).astype(np.float32)
     idx = np.arange(3 * n_tris, dtype=np.int32).reshape(3, n_tris).T
-    dmt = mt_dense.build_dense(pos, idx, device=dev)
+    masks = r.randint(0, 1 << 16, n_tris) if omm else None
+    dmt = mt_dense.build_dense(pos, idx, tri_omm=masks, device=dev)
     o = r.uniform(-8, 8, (n, 3))
     aabb = dmt.aabb.cpu().numpy()
     inside = r.rand(n) < 0.2
@@ -267,6 +269,31 @@ def test_fused_trace_matches_plain(dev, any_hit, share, n):
               f"|diff| t {float((t_k - t_p)[same].abs().max()):.3g}")
         torch.testing.assert_close(t_k[same], t_p[same], rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_fused_trace_omm_matches_plain(dev, any_hit):
+    """The fused trace's OMM channel (random 16-bit masks) against the
+    plain version with the masks: one launch; closest, the same slot and
+    the same t bits on every lane; any-hit, the same occlusion flag. The
+    unfused K1 refuses the masked table."""
+    dmt, args = _dense_rays(dev, 20037, omm=True)
+    assert dmt.has_omm
+    cuda_lib.reset_launch_counts()
+    t_k, s_k = mt_dense.trace_dense_fused(*args, any_hit=any_hit, omm=True)
+    assert cuda_lib.launch_counts()["mt_dense_fused"] == 1
+    t_p, s_p = mt_dense.trace_dense_plain(args[0], dmt.tri9, *args[2:],
+                                          any_hit=any_hit, omm=dmt.omm)
+    if any_hit:
+        assert torch.equal(s_k >= 0, s_p >= 0)
+    else:
+        assert torch.equal(s_k, s_p)
+        assert torch.equal(t_k.view(torch.int32), t_p.view(torch.int32))
+    # the masks rejected hits
+    _, s_n = mt_dense.trace_dense_fused(*args, any_hit=any_hit)
+    assert (s_n >= 0).sum() > (s_k >= 0).sum()
+    with pytest.raises(ValueError, match="no OMM channel"):
+        mt_dense.trace_dense(*args, any_hit=any_hit)
 
 
 def _tie_args(dev, n=300):

@@ -153,12 +153,18 @@ def test_load_equirect_matches_reference(tmp_path, rle):
     assert TEM.load_equirect(str(path)).shape == (16, 32, 3)
 
 
-@pytest.mark.parametrize("ext", [".exr", ".png"])
+@pytest.mark.parametrize("ext", [".exr", ".png", ".jpg"])
 def test_load_equirect_refuses_other_formats(tmp_path, ext):
+    """.exr and other images raise NotImplementedError; .png is read (its
+    PNG reader refuses a file that is not one)."""
     path = tmp_path / f"sky{ext}"
     path.write_bytes(b"\0" * 16)
-    with pytest.raises(NotImplementedError, match="hdr"):
-        TEM.load_equirect(str(path))
+    if ext == ".png":
+        with pytest.raises(ValueError, match="not a PNG"):
+            TEM.load_equirect(str(path))
+    else:
+        with pytest.raises(NotImplementedError, match="hdr"):
+            TEM.load_equirect(str(path))
 
 
 def _rle_file(h, w, body: bytes) -> bytes:

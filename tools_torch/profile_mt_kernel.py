@@ -51,13 +51,15 @@ def inorder_worklists(nc: int, tiles: int, device):
 
 
 @cuda_lib.counted("mt_dense_variant")
-def trace_variant(aabb_c, tri9, origins_c, dirs, t_max, active, mode: str,
+def trace_variant(aabb_c, tri12, origins_c, dirs, t_max, active, mode: str,
                   worklists=None):
     """Closest-hit K1 (rows `tri12`) in lab mode `mode` over tiles of
     M.TILE lanes, with `worklists` (default: K7's) -> (t, slot); in mode
     "gate", slot holds each lane's count of visited clusters and t its
-    t_max."""
-    if not cuda_lib.on_cuda(aabb_c, tri9, origins_c, dirs, t_max, active):
+    t_max. It has no OMM channel: a masked table raises."""
+    if M.has_masks(tri12):
+        raise ValueError("the K1 lab has no OMM channel")
+    if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
         raise ValueError("the dense-trace lab runs on a CUDA device")
     n, nc = origins_c.shape[0], aabb_c.shape[0]
     tiles = (n + M.TILE - 1) // M.TILE
@@ -73,7 +75,7 @@ def trace_variant(aabb_c, tri9, origins_c, dirs, t_max, active, mode: str,
     if n:
         cuda_lib.bump("mt_dense_variant")
         cuda_lib.launch("rtxpt_mt_dense_variant", aabb_c.data_ptr(),
-                        tri9.data_ptr(), nc, counts.data_ptr(),
+                        tri12.data_ptr(), nc, counts.data_ptr(),
                         order.data_ptr(), origins_c.data_ptr(),
                         dirs.data_ptr(), t_max.data_ptr(), active.data_ptr(),
                         t.data_ptr(), slot.data_ptr(), n, _KERNEL_MODE[mode])
@@ -85,7 +87,9 @@ def trace_fused_variant(aabb_c, tri12, origins_c, dirs, t_max, active,
                         mode: str, any_hit: bool):
     """The fused trace in lab mode `mode` -> (t, slot); in mode "lists",
     slot holds the length of each lane's tile's worklist and t its
-    t_max."""
+    t_max. Mode "fused" has no OMM channel: a masked table raises."""
+    if mode != "lists" and M.has_masks(tri12):
+        raise ValueError("the fused K1 lab has no OMM channel")
     if not cuda_lib.on_cuda(aabb_c, tri12, origins_c, dirs, t_max, active):
         raise ValueError("the dense-trace lab runs on a CUDA device")
     return M.launch_fused("rtxpt_mt_dense_fused_variant",
@@ -247,7 +251,7 @@ def main():
             print(f"visits/tile at tile {tile}: exact {visits(ex[0])}; "
                   f"interval {visits(iv[0])}")
         k7 = time_ms(lambda: M.tile_keys(aabb_c, o_c, d, tmax, act), 20)
-        trace = time_ms(lambda: M.trace_dense(*args, **kw), 20)
+        trace = time_ms(lambda: M.trace_dense(*args, kw["any_hit"]), 20)
         fused = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
         print(f"K7 (keys and sorted worklists) {k7:.4f} ms; K7 + K1 "
               f"(trace_dense) {trace:.4f} ms; fused (trace_dense_fused) "

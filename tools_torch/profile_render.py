@@ -76,7 +76,8 @@ def _group(name: str) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser("rtxpt_tpu_torch render profile")
     p.add_argument("--scene", default="city",
-                   choices=["programmer-art", "city"])
+                   help="'programmer-art' | 'city' | a .gltf/.glb/"
+                   ".scene.json path, as the CLI's --scene")
     p.add_argument("--width", type=int, default=1920)
     p.add_argument("--height", type=int, default=1080)
     p.add_argument("--spp", type=int, default=2)
@@ -102,8 +103,12 @@ def main(argv=None) -> int:
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.scene import envmap as EM
     args.diffuse_only = False
-    host, cam = load_scene(args)
-    env = EM.bake_procedural_sky(height=64)
+    host, cam, extra = load_scene(args)
+    env = extra.get("env_radiance")
+    if env is None:
+        env = EM.bake_procedural_sky(height=64)
+    scene_kw = dict(analytic_lights=extra.get("analytic_lights"),
+                    env_intensity=extra.get("env_intensity", 1.0))
     w, h, spp = args.width, args.height, args.spp
     if args.mode == "realtime":
         from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
@@ -111,7 +116,8 @@ def main(argv=None) -> int:
         cfg = realtime_config(**{**dict(
             use_restir_di=True, use_restir_gi=True, denoiser_enabled=True,
             use_stable_planes=True), **overrides})
-        r = RealtimeRenderer(host, cam, cfg, env_radiance=env, device="cuda")
+        r = RealtimeRenderer(host, cam, cfg, env_radiance=env, device="cuda",
+                             **scene_kw)
         spp = 1
         frame_kw = {}
         if args.display:
@@ -127,7 +133,8 @@ def main(argv=None) -> int:
         cfg = reference_config(**{**dict(
             max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
             nee_local_samples=1), **overrides})
-        r = Renderer(host, cam, cfg, env_radiance=env, device="cuda")
+        r = Renderer(host, cam, cfg, env_radiance=env, device="cuda",
+                     **scene_kw)
 
         def render():
             r.reset_accumulation()
