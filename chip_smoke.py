@@ -76,7 +76,7 @@ its seconds):
      2 spp and require `bvh8_trace_2l` once per two-level trace call, no
      K4, and the mean within 10% of the city phase's; hold every
      configuration's 64x48 2-spp GPU render against the CPU's (PSNR >
-     40 dB), and three 64x48 realtime frames through the FILL chain
+     40 dB), and two 64x48 realtime frames through the FILL chain
      (shade_megakernel=False; no K4 FILL) against the CPU's;
   7. realtime: the default realtime pipeline (3 stable planes, ReSTIR DI
      + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE 2+2). On the city at
@@ -97,7 +97,7 @@ its seconds):
      FILL bounce and K4 not at all) and the frame to be finite and not
      black. Then the
      port on the card against the port on the CPU (programmer-art 64x48,
-     3 frames, PSNR > 40 dB), and the estimator oracle of
+     2 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card on stable planes (phase 8
      runs it on PSR-lite): the mean of 32 `ref-vs-realtime` frames at
      48x32 against the port's 32-spp reference render (median block
@@ -116,7 +116,7 @@ its seconds):
      RealtimeRenderer defaults (its kernels checked at 518,400 lanes, 3
      timed frames of 1920x1080). The city at 1920x1080 denoised by ReBLUR
      (3 timed frames with the launch checks). GPU vs CPU (PSNR > 40 dB,
-     64x48, frame 3): PSR-lite, its ref-vs-realtime preset, ReBLUR on both
+     64x48, frame 2): PSR-lite, its ref-vs-realtime preset, ReBLUR on both
      pipelines, TAAU from 32x24 to 64x48, and photo_denoise_auto on a
      2-spp reference render. The estimator oracle on PSR-lite (the
      reference's own configuration). Denoiser quality
@@ -152,15 +152,46 @@ its seconds):
      the CLI (`--scene PATH --device cuda`) at 800x600 8 spp with the
      counters set to 0 just before (the bench's launch checks), and at
      64x48 2 spp on the card against the CPU (PSNR > 40 dB);
-  12. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+  12. skinned: the skinned figure of tools_torch/animated_scenes.py (a
+     tube of 512 segments x 24 sides over a chain of 64 joints, its last
+     8 segments an emissive primitive of the same skin, a floor and a
+     camera: 24,578 triangles, the single-BVH8 tier), written to a
+     temporary directory and posed at 0.5 s of its animation: the BVH8
+     refit on the card bit-equal to the CPU's refit of the same positions,
+     every leaf triangle inside its parent slot's box, the `animate` call
+     timed; K5 against its plain version on the posed first bounce's
+     camera and NEE traces (0 lanes differ in slot and t bits), the
+     surface fetch, K2 and K4 on that bounce; the 800x600 8-spp bench
+     render through the CLI (`--animate-time 0.5`) with the counters set
+     to 0 just before: K5 once per trace call, K6 and the two-level trace
+     not at all, the surface fetch once per load_surface call, K4 once per
+     bounce; 64x48 GPU vs CPU (PSNR > 40 dB). The same figure at 128
+     segments (6,146 triangles, the dense tier): the fused dense trace on
+     refresh_dense's planes against its plain version (0 lanes differ),
+     its kernels on the first bounce, the CLI render's launch checks, GPU
+     vs CPU. `--animate` realtime at 1920x1080 (the default pipeline): the
+     path's kernels on the first frame, then 3 frames with the animate
+     call before each, with the realtime launch checks (K5 once per trace
+     call);
+  13. instanced city: build_city() written as a glTF (3,219 mesh nodes
+     over the four meshes, one glTF mesh per mesh and material, one
+     animation that moves 64 of the spheres; 404,186 triangles): the gate
+     must pick the instanced TLAS; one round's K5 launch against its plain
+     version (0 lanes differ), the first bounce's other kernels, the
+     camera trace call timed with its rounds; the 1920x1080 1-spp bench
+     render through the CLI (`--animate-time 0.5`) with K5 once per round,
+     the surface fetch and K4 as on the bench; 64x36 GPU vs CPU; the same
+     file without its animation must take the two-level BVH8;
+  14. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  13. print a JSON line describing the kernels (each kernel's numbers on
+  15. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
-     of the first such path, named in `measured_on`), then the result line.
+     of the first main path that runs it, else of the first path that
+     checks it, named in `measured_on`), then the result line.
 
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
@@ -241,12 +272,26 @@ FOLIAGE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
 # the reference configurations' paths through the chain of tensor ops
 BENCH_CHAIN_PATH = ("mt_dense_fused", "gather_rows", "gather_surface")
 CITY_REGIR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
+# the animated scenes' paths (posed by Renderer.animate): the skinned
+# figure in the single-BVH8 tier (K5 once per trace, on the refitted
+# table) and in the dense tier (on refresh_dense's planes), and the
+# rigid-animated city on the instanced TLAS (K5 once per round)
+SKINNED_BVH8_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
+                     "shade_nee")
+RT_SKINNED_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
+                   "shade_nee_fill")
+SKINNED_DENSE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
+                      "shade_nee")
+INSTANCED_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
+                  "shade_nee")
 # a kernel that runs once per trace call: (the module whose trace_closest
 # and trace_anyhit make those calls, the kernels its path no longer runs)
 ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
                                 ("bvh8_trace", "bvh8_trace_sub")),
               "mt_dense_fused": ("rtxpt_tpu_torch.ops.mt_dense",
-                                 ("mt_dense", "tile_keys"))}
+                                 ("mt_dense", "tile_keys")),
+              "bvh8_trace": ("rtxpt_tpu_torch.ops.traverse",
+                             ("bvh8_trace_sub", "bvh8_trace_2l"))}
 PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "bench_chain": BENCH_CHAIN_PATH, "city_regir": CITY_REGIR_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH,
@@ -254,11 +299,18 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_360p_psr": RT_ART_PSR_PATH,
          "realtime_city_taau": RT_CITY_PATH,
          "foliage_dense": FOLIAGE_PATH, "city_foliage": CITY_PATH,
-         "realtime_city_foliage": RT_CITY_PATH, "gltf_scene": FOLIAGE_PATH}
+         "realtime_city_foliage": RT_CITY_PATH, "gltf_scene": FOLIAGE_PATH,
+         "skinned_bvh8": SKINNED_BVH8_PATH,
+         "realtime_skinned": RT_SKINNED_PATH,
+         "skinned_dense": SKINNED_DENSE_PATH,
+         "instanced_city": INSTANCED_PATH}
 # the bench workload's configuration and size (width, height, spp), the
 # city's size, and the reference configurations other than the default
 # that phase 6 renders the bench under
 BENCH_SIZE, CITY_SIZE = (800, 600, 8), (1920, 1080, 2)
+# the instanced city's render (width, height, spp) and the skinned
+# figure's realtime frames (width, height)
+INSTANCED_SIZE, SKINNED_RT_SIZE = (1920, 1080, 1), (1920, 1080)
 BENCH_CFG = dict(max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
                  nee_local_samples=1)
 OTHER_CONFIGS = {"NEE off": dict(nee_enabled=False),
@@ -340,6 +392,19 @@ def time_ms(fn, iters: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_call(fn):
+    """(fn()'s result, its device time in ms by CUDA events): times a call
+    whose result is needed anyway, such as a plain version's."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def device_ms(fn, iters: int = 10, reps: int = 5) -> float:
     """Mean device time of the work fn() launches: `iters` calls captured
     in a CUDA graph (after a warm-up call) and the graph replayed `reps`
@@ -375,7 +440,8 @@ class Capture:
                "gather_surface": "rtxpt_tpu_torch.ops.gather",
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
-               "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8"}
+               "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8",
+               "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8"}
     # (module, function, which calls count: None for all): the realtime
     # frame's stages, as models/realtime.py calls them, and the visibility
     # traces that cast at least one ray
@@ -699,7 +765,8 @@ def check_dense(accel, traces, label) -> dict:
     says; the fused kernel's lab modes (tools_torch/profile_mt_kernel.py);
     kernel and plain times and the bounds summed over the timed traces ->
     {"mt_dense_fused": ..., "mt_dense": ..., "tile_keys": ...}. The
-    plain version, timed once per trace, is that of both traces."""
+    plain version, timed on the call the kernels are held against, is
+    that of both traces."""
     from rtxpt_tpu_torch.ops import mt_dense as M
     from tools_torch import profile_mt_kernel as PM
     # max |diff|, ms, plain ms, bytes, ops
@@ -714,7 +781,7 @@ def check_dense(accel, traces, label) -> dict:
         def plain():
             return M.trace_dense_plain(aabb_c, tri9, o_c, d, tmax, act,
                                        kw["any_hit"])
-        ref = plain()
+        ref, pms = timed_call(plain)
         wl, *k7 = check_k7(args, f"{label} {what}")
         got = M.trace_dense(*args, kw["any_hit"], worklists=wl)
         torch.cuda.synchronize()
@@ -729,7 +796,6 @@ def check_dense(accel, traces, label) -> dict:
             tot[name][0] = max(tot[name][0], err)
         if not timed:
             continue
-        pms = time_ms(plain, 2)
         ms = time_ms(lambda: M.trace_dense(*args, kw["any_hit"],
                                            worklists=wl), 20)
         fms = time_ms(lambda: M.trace_dense_fused(*args, **kw), 20)
@@ -1836,7 +1902,7 @@ def reference_configs(results: dict, card: str, host_city, bench_hdr,
             if device == "cuda":
                 torch.cuda.synchronize()
                 cuda_lib.reset_launch_counts()
-            for _ in range(3):
+            for _ in range(2):
                 img = rs.render_frame(64, 48)
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1844,7 +1910,7 @@ def reference_configs(results: dict, card: str, host_city, bench_hdr,
             require_chain(counts, shc, "realtime FILL chain")
         imgs.append(rs.tonemapped(img).cpu().numpy())
     m = IM.compare(*imgs)
-    print(f"realtime FILL chain GPU vs CPU (plain) 64x48, frame 3: PSNR "
+    print(f"realtime FILL chain GPU vs CPU (plain) 64x48, frame 2: PSNR "
           f"{m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}; launches {counts}",
           flush=True)
     require(np.isfinite(imgs[0]).all() and m["psnr"] > PSNR_MIN,
@@ -1867,9 +1933,10 @@ def capture_realtime_frame(r, w, h, frame_kw=None):
     ray and the ReSTIR visibility trace. Under the exact alpha test the
     visibility traces are the re-queue's first closest trace of a
     trace_visibility call that casts a ray. A two-level trace is one
-    launch."""
-    from rtxpt_tpu_torch.ops import bvh2l
+    launch, a single-BVH8 trace one K5 launch."""
+    from rtxpt_tpu_torch.ops import bvh, bvh2l
     name = "trace_bvh8_2l" if isinstance(r.accel, bvh2l.BVH8TwoLevel) \
+        else "trace_bvh8" if isinstance(r.accel, bvh.BVH8) \
         else "trace_dense_fused"
     stable = r.cfg.use_stable_planes
     shade = "shade_nee_fill" if stable else "shade_nee"
@@ -1925,6 +1992,9 @@ def check_realtime_kernels(r, w, h, label, frame_kw=None) -> dict:
     timed = [(what, call, True) for what, call, _ in traces]
     if name == "trace_dense_fused":
         out = check_dense(r.accel, timed, label)
+    elif name == "trace_bvh8":
+        out = check_k5_exact([(what, call) for what, call, _ in traces],
+                             label)
     else:
         out = check_two_level(timed, label)
     out.update(check_surface_kernels(first, label, fill=fill))
@@ -1932,7 +2002,7 @@ def check_realtime_kernels(r, w, h, label, frame_kw=None) -> dict:
 
 
 def realtime_frames(r, w, h, label, card, path, warmups=2,
-                    frames=3, frame_kw=None) -> dict:
+                    frames=3, frame_kw=None, before=None) -> dict:
     """`warmups` frames (the no-history and the history variant: 2 from a
     new renderer), then `frames` timed frames (render_frame's keywords
     `frame_kw`) with the launch counters set to 0 just before, each
@@ -1942,20 +2012,26 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     on a dense one, and no K1 or K7; K4 FILL once per bounce on stable
     planes, K4 on PSR-lite, and the other not at all) and the last frame
     to be finite and not black, at the display size where `frame_kw`
-    asks for one. Returns the counts."""
+    asks for one. `before(i)`, where given, runs before frame i (warm-ups
+    included) and returns its own seconds, printed beside the frames.
+    Returns the counts."""
     from rtxpt_tpu_torch.ops import cuda_lib
     frame_kw = frame_kw or {}
     fill = r.cfg.use_stable_planes
     shade = "shade_nee_fill" if fill else "shade_nee"
-    for _ in range(warmups):
+    for i in range(warmups):
+        if before is not None:
+            before(i)
         r.render_frame(w, h, **frame_kw)
         torch.cuda.synchronize()
     cuda_lib.reset_launch_counts()
-    walls, fills = [], []
+    walls, fills, extra = [], [], []
     kernel = next(k for k in ONE_LAUNCH if k in path)
     with TraceCalls(ONE_LAUNCH[kernel][0]) as tc, SurfaceCalls() as sc, \
             ShadeCalls() as shc:
-        for _ in range(frames):
+        for i in range(frames):
+            if before is not None:
+                extra.append(before(warmups + i) * 1e3)
             t0 = time.perf_counter()
             img = r.render_frame(w, h, **frame_kw)
             torch.cuda.synchronize()
@@ -1971,7 +2047,10 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
           f"{f' -> {dw}x{dh}' if (dw, dh) != (w, h) else ''}: "
           f"{sum(ms) / len(ms):.1f} ms/frame (frames "
           f"{', '.join(f'{x:.1f}' for x in ms)} ms; "
-          f"{'FILL ' if fill else ''}bounces {fills}) on {card}; {tc.n} "
+          f"{'FILL ' if fill else ''}bounces {fills})"
+          + (f", before each frame {', '.join(f'{x:.1f}' for x in extra)} "
+             "ms (not in the frames)" if extra else "")
+          + f" on {card}; {tc.n} "
           f"trace calls, {sc.n} load_surface calls, {shc.n} bounces; "
           f"launches over {frames} frames {counts}", flush=True)
     for name in path:
@@ -2026,7 +2105,7 @@ def realtime(results: dict, card: str, host_city) -> dict:
 
 
 def realtime_gpu_vs_cpu(host, what, cfg=None, frame_kw=None, w=64, h=48,
-                        frames=3):
+                        frames=2):
     """The port on the card against the port on the CPU: `frames` frames
     of a RealtimeRenderer (configuration `cfg`, None for its defaults;
     render_frame's keywords `frame_kw`) at w x h from each, the last
@@ -2339,10 +2418,11 @@ class VisStats:
                 f"unresolved after the re-queue's last trace")
 
 
-def check_dense_omm(traces, label) -> dict:
-    """On captured dense traces of a masked table [(what, (args, kw) of
-    trace_dense_fused, timed)]: the fused launch with its OMM channel
-    against the plain version over all clusters with the masks: closest,
+def check_dense_omm(traces, label, masked=True) -> dict:
+    """On captured dense traces of a masked table (masked=False: of an
+    unmasked one) [(what, (args, kw) of trace_dense_fused, timed)]: the
+    fused launch with its OMM channel (masked) against the plain version
+    over all clusters with the masks: closest,
     the same slot and the same t bits on every lane; any-hit, the same
     occlusion flag on every lane (its slot is the first hit in visit
     order), with the masks the trace's rows carry; kernel and plain
@@ -2352,9 +2432,9 @@ def check_dense_omm(traces, label) -> dict:
     ms = pms = nbytes = ops = 0.0
     for what, (args, kw), timed in traces:
         aabb_c, tri12, o_c, d, tmax, act = args
-        require(kw.get("omm") and M.has_masks(tri12),
-                f"{label} {what}: not a masked trace")
-        omm = M.omm_from_tri12(tri12)
+        require(bool(kw.get("omm") and M.has_masks(tri12)) == masked,
+                f"{label} {what}: the trace's masks are not as expected")
+        omm = M.omm_from_tri12(tri12) if masked else None
         lanes = int(act.sum())
         require(lanes > 0, f"{label} {what}: no active lane")
 
@@ -2373,7 +2453,8 @@ def check_dense_omm(traces, label) -> dict:
                                           != t_p.view(torch.int32))).sum())
             kind = "slot and t bits"
         hits = int((s_k >= 0).sum())
-        line = (f"mt_dense_fused OMM {label} {what}: {o_c.shape[0]} lanes, "
+        line = (f"mt_dense_fused{' OMM' if masked else ''} {label} {what}: "
+                f"{o_c.shape[0]} lanes, "
                 f"{lanes} active, {hits} hits; {kind} differ from the "
                 f"plain version's on {differ} lanes")
         require(differ == 0, line)
@@ -2747,6 +2828,410 @@ def gltf_scene(results: dict, card: str) -> dict:
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
+def check_k5_exact(calls, label) -> dict:
+    """K5 on captured calls [(what, (args, kw) of trace_bvh8)]: the kernel
+    against its plain version, 0 lanes differing in slot and t bits
+    (any-hit: in the occlusion flag); kernel (CUDA events, 20 launches)
+    and plain times and the bound (bvh8_work, from the plain version's
+    counts) summed -> {"bvh8_trace": result}."""
+    from rtxpt_tpu_torch.ops import traverse_bvh8 as T8
+    ms = pms = nbytes = ops = 0.0
+    err = 0.0
+    for what, (args, kw) in calls:
+        act = args[-1]
+        lanes = int(act.sum())
+        stats = {}
+        t_k, s_k, uv_k = T8.trace_bvh8(*args, **kw)
+        (t_p, s_p, uv_p), p_ms = timed_call(
+            lambda: T8.trace_bvh8_plain(*args, **kw, stats=stats))
+        if kw["any_hit"]:
+            differ = int(((s_k >= 0) != (s_p >= 0)).sum())
+            kind = "occlusion flag"
+        else:
+            differ = int(((s_k != s_p) | (t_k.view(torch.int32)
+                                          != t_p.view(torch.int32))).sum())
+            kind = "slot and t bits"
+            m = s_k >= 0
+            if bool(m.any()):
+                err = max(err, float((uv_k - uv_p)[m].abs().max()))
+        k_ms = time_ms(lambda: T8.trace_bvh8(*args, **kw), 20)
+        nb, op = bvh8_work(args, stats, False)
+        b_ms, b_by = bound(nb, op)
+        line = (f"bvh8_trace {label} {what}: 1 launch over {act.numel()} "
+                f"lanes, {lanes} active, {int((s_k >= 0).sum())} hits; "
+                f"{kind} differ from the plain version's on {differ} "
+                f"lanes; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}); the plain walk visited "
+                f"{stats['node_rows']} node rows and {stats['leaf_tris']} "
+                "leaf triangles")
+        print(line, flush=True)
+        require(differ == 0 and lanes > 0, line)
+        ms, pms, nbytes, ops = ms + k_ms, pms + p_ms, nbytes + nb, ops + op
+    b_ms, b_by = bound(nbytes, ops)
+    return {"bvh8_trace": dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                               library_ms=None, bound_ms=b_ms,
+                               bound_by=b_by)}
+
+
+def check_refit(rest, posed, positions, indices, label):
+    """A BVH8 refit on the card against the same refit on the CPU: `rest`
+    is the table before posing (a CPU copy), `posed` the card's refitted
+    one, `positions` the card's posed vertices; tables bit-equal. Every
+    leaf's triangles must lie inside its parent slot's box."""
+    from rtxpt_tpu_torch.scene import animation as AN
+    t0 = time.perf_counter()
+    cpu = AN.refit_bvh8(rest, positions.cpu(), indices.cpu())
+    cpu_s = time.perf_counter() - t0
+    gpu_ms = call_ms(lambda: AN.refit_bvh8(posed, positions, indices), 5)
+    differ = int((cpu.table != posed.table.cpu()).sum())
+    table, nn, ls = posed.table, posed.num_nodes, posed.leaf_size
+    codes = table[:nn, 48:56].long()
+    node, slot = torch.nonzero(codes < -1, as_tuple=True)
+    leaf = (-codes[node, slot] - 1) >> 5
+    tris = posed.leaf_tris.view(-1, ls)[leaf]                  # (L, ls)
+    pts = positions[indices[tris.clamp(min=0)].long()]          # (L,ls,3,3)
+    box = table[node, :48].view(-1, 8, 6)[
+        torch.arange(node.numel(), device=table.device), slot]
+    inside = ((pts >= box[:, None, None, :3])
+              & (pts <= box[:, None, None, 3:])).all(-1).all(-1)
+    outside = int((~inside & (tris >= 0)).sum())
+    print(f"refit {label}: {table.shape[0]} rows ({nn} nodes); the card's "
+          f"table differs from the CPU's refit of the same positions in "
+          f"{differ} floats; {int((tris >= 0).sum())} leaf triangles, "
+          f"{outside} outside their parent slot's box; refit "
+          f"{gpu_ms:.3f} ms on the card (host clock), {cpu_s * 1e3:.1f} ms "
+          "on the CPU", flush=True)
+    require(differ == 0 and outside == 0, f"refit {label}: {differ} floats "
+            f"differ, {outside} triangles outside their boxes")
+
+
+def cli_gpu_vs_cpu(scene, folder, w, h, spp, what, extra=()):
+    """The CLI's HDR (--dump-npy) of `scene` on the card against the CPU's
+    (arguments `extra` on both), tonemapped alike: PSNR > 40 dB."""
+    from rtxpt_tpu_torch.app import cli
+    from rtxpt_tpu_torch.post.tonemap import tonemap
+    from rtxpt_tpu_torch.utils import image as IM
+    hdrs = []
+    for device in ("cuda", "cpu"):
+        out = f"{folder}/{device}_{w}x{h}"
+        require(cli.main(["--scene", scene, "--width", str(w), "--height",
+                          str(h), "--spp", str(spp), "--device", device,
+                          "--output", out + ".png", "--dump-npy",
+                          out + ".npy", "--quiet", *extra]) == 0,
+                f"{what}: CLI failed on {device}")
+        hdrs.append(np.load(out + ".npy"))
+    require(np.isfinite(hdrs[0]).all() and hdrs[0].mean() > 0.0,
+            f"{what}: bad HDR")
+    imgs = [tonemap(torch.as_tensor(x), auto_expose=True).numpy()
+            for x in hdrs]
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"{what} GPU vs CPU (plain) {w}x{h} {spp}spp, the CLI's HDR "
+          f"tonemapped: PSNR {m['psnr']:.2f} dB, SMAPE {m['smape']:.5f}; "
+          f"HDR values bit-equal {int((hdrs[0] == hdrs[1]).sum())} of "
+          f"{hdrs[0].size}", flush=True)
+    require(m["psnr"] > PSNR_MIN, f"{what} GPU vs CPU: {m}")
+
+
+def cli_counted(args, module, what, card, path) -> dict:
+    """cli.main(args) with every launch counter set to 0 just before:
+    requires the kernels of `path` to have launched, `module`'s trace
+    calls one ONE_LAUNCH kernel each, one surface fetch per load_surface
+    and one K4 per bounce; returns the counts."""
+    from rtxpt_tpu_torch.app import cli
+    from rtxpt_tpu_torch.ops import cuda_lib
+    kernel = next(k for k in ONE_LAUNCH if k in path)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with TraceCalls(module) as tc, SurfaceCalls() as sc, \
+            ShadeCalls() as shc:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = cuda_lib.launch_counts()
+    require(rc == 0, f"{what}: CLI failed")
+    print(f"{what} through the CLI on {card}: {wall * 1e3:.1f} ms wall "
+          f"from the command (loading, builds and animate included); "
+          f"{tc.n} trace calls, {sc.n} load_surface calls, {shc.n} "
+          f"bounces; launches {counts}", flush=True)
+    for name in path:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the {what} path")
+    require_one_launch_per_trace(counts, tc.n, what, kernel)
+    require_one_surface_fetch(counts, sc.n, what)
+    require_one_shade_per_bounce(counts, shc.n, what)
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+
+
+def bench_args(scene, w, h, spp, *extra):
+    """The CLI's arguments for the bench configuration on --device cuda,
+    the image written beside `scene`."""
+    return ["--scene", scene, "--width", str(w), "--height", str(h),
+            "--spp", str(spp), "--device", "cuda", "--max-bounces", "6",
+            "--max-diffuse-bounces", "4", "--nee-distant-samples", "1",
+            "--nee-local-samples", "1", "--output", scene + ".png",
+            "--quiet", *extra]
+
+
+def posed_renderer(scene, w, h, time_s, device="cuda", realtime=False):
+    """(Renderer or RealtimeRenderer of the glTF `scene` in the bench
+    configuration (realtime: the default pipeline), its glTF info, the
+    trace structure before posing, the animate call's ms), posed at
+    `time_s` seconds."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.scene import gltf
+    host, info = gltf.load_gltf(scene)
+    cam = gltf.camera_from_info(info, w, h)
+    kw = dict(analytic_lights=gltf.analytic_lights_from_info(info),
+              device=device)
+    r = RealtimeRenderer(host, cam, **kw) if realtime else \
+        Renderer(host, cam, reference_config(**BENCH_CFG), **kw)
+    rest = r.accel
+    ms = call_ms(lambda: r.animate(info, time_s), 1)
+    return r, info, rest, ms
+
+
+def skinned(results: dict, card: str) -> dict:
+    """The skinned phase (12.); returns the launch counts of its main-path
+    runs by path."""
+    import dataclasses
+    import tempfile
+    from rtxpt_tpu_torch.ops import bvh, mt_dense
+    from tools_torch import animated_scenes as AS
+    launches = {}
+    w, h, spp = BENCH_SIZE
+    with tempfile.TemporaryDirectory() as folder:
+        fig = AS.skinned_figure(f"{folder}/figure.gltf")
+        fig_dense = AS.skinned_figure(f"{folder}/figure_dense.gltf",
+                                      rings=128)
+        # ---- the single-BVH8 tier: K5 on the posed first bounce, the
+        # refit against the CPU's, then the 800x600 8-spp CLI render
+        r, info, rest, a_ms = posed_renderer(fig, w, h, 0.5)
+        require(isinstance(r.accel, bvh.BVH8), "skinned figure: not on the "
+                "single-BVH8 tier")
+        joints = len(info["skins"][0]["joints"])
+        print(f"skinned figure: {r.scene.num_triangles} triangles, {joints} "
+              f"joints, BVH8 of {r.accel.num_rows} rows; animate "
+              f"{a_ms:.1f} ms (host clock: keyframes, skinning, tables, "
+              f"refit, lights)", flush=True)
+        check_refit(dataclasses.replace(
+            rest, table=rest.table.cpu(), leaf_tris=rest.leaf_tris.cpu(),
+            leaf_omm=rest.leaf_omm.cpu(), topology=None), r.accel,
+            r.scene.positions, r.scene.indices, "skinned figure")
+        animate_ms = call_ms(lambda: r.animate(info, 0.5), 5)
+        print(f"skinned figure: animate {animate_ms:.2f} ms a call (host "
+              "clock, mean of 5)", flush=True)
+        with Capture(dict(FIRST_BOUNCE, trace_bvh8=2)) as cap:
+            r.render_sample(w, h, 0)
+            torch.cuda.synchronize()
+        calls = cap.calls["trace_bvh8"]
+        require([kw["any_hit"] for _, kw in calls] == [False, True],
+                "skinned figure: the first traces are not camera, NEE")
+        results["skinned_bvh8"].update(check_k5_exact(
+            [("posed camera", calls[0]), ("posed NEE any-hit", calls[1])],
+            "skinned figure"))
+        results["skinned_bvh8"].update(check_surface_kernels(
+            cap, "skinned figure"))
+        del cap, calls, r, rest
+        launches["skinned_bvh8"] = cli_counted(
+            bench_args(fig, w, h, spp, "--animate-time", "0.5"),
+            ONE_LAUNCH["bvh8_trace"][0], f"skinned figure {w}x{h} {spp}spp",
+            card, SKINNED_BVH8_PATH)
+        cli_gpu_vs_cpu(fig, folder, 64, 48, 2, "skinned figure posed",
+                       ("--animate-time", "0.5"))
+
+        # ---- the dense tier: the fused dense trace on refresh_dense's
+        # planes
+        r, info, rest, a_ms = posed_renderer(fig_dense, w, h, 0.5)
+        require(isinstance(r.accel, mt_dense.DenseMT), "dense figure: not "
+                "on the dense tier")
+        require(not torch.equal(r.accel.aabb, rest.aabb),
+                "dense figure: the cluster boxes did not move")
+        print(f"dense figure: {r.scene.num_triangles} triangles; animate "
+              f"{a_ms:.1f} ms", flush=True)
+        with Capture(dict(FIRST_BOUNCE, trace_dense_fused=2)) as cap:
+            r.render_sample(w, h, 0)
+            torch.cuda.synchronize()
+        calls = cap.calls["trace_dense_fused"]
+        results["skinned_dense"].update(check_dense_omm(
+            [("posed camera", calls[0], True),
+             ("posed NEE any-hit", calls[1], True)], "dense figure",
+            masked=False))
+        results["skinned_dense"].update(check_surface_kernels(
+            cap, "dense figure"))
+        del cap, calls, r, rest
+        launches["skinned_dense"] = cli_counted(
+            bench_args(fig_dense, w, h, spp, "--animate-time", "0.5"),
+            ONE_LAUNCH["mt_dense_fused"][0],
+            f"dense figure {w}x{h} {spp}spp", card, SKINNED_DENSE_PATH)
+        cli_gpu_vs_cpu(fig_dense, folder, 64, 48, 2, "dense figure posed",
+                       ("--animate-time", "0.5"))
+
+        # ---- realtime --animate at 1920x1080, the default pipeline
+        rw, rh = SKINNED_RT_SIZE
+        r, info, _, _ = posed_renderer(fig, rw, rh, 0.0, realtime=True)
+        results["realtime_skinned"].update(
+            check_realtime_kernels(r, rw, rh, "realtime skinned"))
+        torch.cuda.empty_cache()
+
+        def tick(i):
+            t0 = time.perf_counter()
+            r.animate(info, i / 60.0)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        launches["realtime_skinned"] = realtime_frames(
+            r, rw, rh, "skinned figure --animate", card, RT_SKINNED_PATH,
+            warmups=1, before=tick)
+        del r
+        torch.cuda.empty_cache()
+        # the realtime CLI's flags on the card
+        from rtxpt_tpu_torch.app import cli
+        require(cli.main(["--scene", fig, "--mode", "realtime", "--animate",
+                          "--animate-fps", "30", "--spp", "3", "--width",
+                          "320", "--height", "180", "--device", "cuda",
+                          "--output", f"{folder}/rt.png", "--dump-npy",
+                          f"{folder}/rt.npy", "--quiet"]) == 0
+                and np.isfinite(np.load(f"{folder}/rt.npy")).all(),
+                "skinned figure: the realtime CLI with --animate failed")
+    return launches
+
+
+class RoundCalls:
+    """Counts the instanced TLAS's trace calls that cast at least one ray,
+    their chunks and rounds (ops/instanced.py's `stats`), while active;
+    keeps the arguments of the first closest-hit call in `first` (tl,
+    origins, dirs, keywords)."""
+
+    def __enter__(self):
+        from rtxpt_tpu_torch.ops import instanced
+        self.mod, self.n, self.stats, self.first = instanced, 0, {}, None
+        self.orig = {name: getattr(instanced, name)
+                     for name in ("trace_closest", "trace_anyhit")}
+        for name, fn in self.orig.items():
+            def counted(tl, origins, dirs, _fn=fn, _name=name, **kw):
+                self.n += origins.shape[0] > 0
+                if _name == "trace_closest" and self.first is None:
+                    self.first = (tl, origins.clone(), dirs.clone(),
+                                  {k: v.clone() if torch.is_tensor(v) else v
+                                   for k, v in kw.items()})
+                return _fn(tl, origins, dirs, stats=self.stats, **kw)
+            setattr(instanced, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def instanced_city(results: dict, card: str) -> dict:
+    """The instanced city phase (13.); returns the launch counts of its
+    main-path render."""
+    import tempfile
+    from rtxpt_tpu_torch.app import cli
+    from rtxpt_tpu_torch.models import renderer as R
+    from rtxpt_tpu_torch.ops import cuda_lib, instanced
+    from rtxpt_tpu_torch.scene import gltf
+    from tools_torch import animated_scenes as AS
+    w, h, spp = INSTANCED_SIZE
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        city_file = AS.rigid_city(f"{folder}/city.gltf")
+        still_file = AS.rigid_city(f"{folder}/city_still.gltf",
+                                   animated=False)
+        r, info, _, a_ms = posed_renderer(city_file, w, h, 0.5)
+        tl = r.accel
+        require(isinstance(tl, instanced.InstancedTL) and
+                R.uses_instanced(r.host_scene),
+                "instanced city: the gate did not pick the instanced TLAS")
+        print(f"instanced city: {r.scene.num_triangles} triangles, "
+              f"{tl.num_instances} instances of {tl.num_meshes} meshes "
+              f"(BLASes of up to {tl.rows} rows), "
+              f"{len(r.host_scene['animations'])} animated nodes; written, "
+              f"loaded and built in {time.perf_counter() - t0:.1f} s; "
+              f"animate {a_ms:.1f} ms", flush=True)
+        animate_ms = call_ms(lambda: r.animate(info, 0.5), 5)
+        print(f"instanced city: animate {animate_ms:.2f} ms a call (host "
+              "clock, mean of 5)", flush=True)
+        # one round's K5 launch (the camera trace's first) against its
+        # plain version; the surface fetch, K2, K3 and K4 of the first
+        # bounce; the camera trace timed whole, with its rounds
+        with Capture(dict(FIRST_BOUNCE, trace_bvh8=1)) as cap, \
+                RoundCalls() as rc:
+            r.render_sample(w, h, 0)
+            torch.cuda.synchronize()
+        results["instanced_city"].update(check_k5_exact(
+            [("camera, first round", cap.calls["trace_bvh8"][0])],
+            "instanced city"))
+        results["instanced_city"].update(check_surface_kernels(
+            cap, "instanced city"))
+        del cap
+        print(f"instanced city 1-spp sample {w}x{h}: {rc.n} trace calls, "
+              f"{rc.stats['chunks']} chunks, {rc.stats['rounds']} rounds",
+              flush=True)
+        # the camera trace call whole, and its rounds
+        tl, o, d, kw = rc.first
+        c_ms = call_ms(lambda: instanced.trace_closest(tl, o, d, **kw), 2)
+        st = {}
+        instanced.trace_closest(tl, o, d, stats=st, **kw)
+        print(f"instanced city camera trace {w}x{h}: {c_ms:.2f} ms a call "
+              f"(host clock), {st['chunks']} chunks, {st['rounds']} rounds "
+              f"(one K5 launch each), {c_ms / st['rounds']:.3f} ms a round "
+              f"on {card}", flush=True)
+        results["instanced_city"]["bvh8_trace"].update(
+            camera_call_ms=c_ms, camera_rounds=st["rounds"],
+            camera_chunks=st["chunks"], ms_per_round=c_ms / st["rounds"])
+        del rc, tl, o, d
+        del r
+        torch.cuda.empty_cache()
+        # the main path through the CLI: K5 once per round
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        with RoundCalls() as rc, SurfaceCalls() as sc, ShadeCalls() as shc:
+            t0 = time.perf_counter()
+            code = cli.main(bench_args(city_file, w, h, spp,
+                                       "--animate-time", "0.5"))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = cuda_lib.launch_counts()
+        rounds, chunks = rc.stats.get("rounds", 0), rc.stats.get("chunks", 0)
+        print(f"instanced city {w}x{h} {spp}spp through the CLI on {card}: "
+              f"{wall * 1e3:.1f} ms wall from the command (loading, builds "
+              f"and animate included); {rc.n} trace calls, {chunks} chunks, "
+              f"{rounds} rounds ({rounds / max(rc.n, 1):.1f} a trace call), "
+              f"{sc.n} load_surface calls, {shc.n} bounces; launches "
+              f"{counts}", flush=True)
+        require(code == 0, "instanced city: CLI failed")
+        for name in INSTANCED_PATH:
+            require(counts[KERNELS[name][0]] > 0,
+                    f"{name} was not launched on the instanced city path")
+        require(counts["bvh8_trace"] == rounds > 0
+                and counts["bvh8_trace_2l"] == 0
+                and counts["bvh8_trace_sub"] == 0,
+                f"instanced city: {counts['bvh8_trace']} K5 launches for "
+                f"{rounds} rounds: {counts}")
+        require_one_surface_fetch(counts, sc.n, "instanced city")
+        require_one_shade_per_bounce(counts, shc.n, "instanced city")
+        launches = {name: counts.get(KERNELS[name][0], 0)
+                    for name in KERNELS}
+        cli_gpu_vs_cpu(city_file, folder, 64, 36, 1, "instanced city posed",
+                       ("--animate-time", "0.5"))
+        # the same file without its animation: the two-level BVH8
+        host, _ = gltf.load_gltf(still_file)
+        require(not R.uses_instanced(host), "still city: gate took the TLAS")
+        cuda_lib.reset_launch_counts()
+        require(cli.main(["--scene", still_file, "--width", "64",
+                          "--height", "36", "--spp", "1", "--device", "cuda",
+                          "--output", f"{folder}/still.png",
+                          "--quiet"]) == 0, "still city: CLI failed")
+        still = cuda_lib.launch_counts()
+        print(f"still city (no animation) 64x36 1spp: launches {still}",
+              flush=True)
+        require(still["bvh8_trace_2l"] > 0 and still["bvh8_trace"] == 0,
+                f"still city: not on the two-level BVH8: {still}")
+    return launches
+
+
 def gather_instances(report: str):
     """Print the registers, shared memory and spills of every kernel
     instance of csrc/gather.cu from ptxas's report; none may spill."""
@@ -2831,6 +3316,9 @@ def main() -> int:
                                       results, card)
     launches.update(phase("city foliage", city_foliage, results, card))
     launches["gltf_scene"] = phase("glTF loader", gltf_scene, results, card)
+    launches.update(phase("skinned", skinned, results, card))
+    launches["instanced_city"] = phase("instanced city", instanced_city,
+                                       results, card)
     lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]
@@ -2838,11 +3326,14 @@ def main() -> int:
                 "shapes")
     kernels = []
     for name, (_, src, rep) in {**KERNELS, **lab_kernels}.items():
-        # the top-level numbers are those of the first path that checks
-        # the kernel (K1-K4, K7: the bench; K5, K6 and the two-level
-        # trace: the city; K4 FILL: the realtime city; K8, K9: the labs);
-        # by_path holds every path's
-        path = next(p for p in results if name in results[p])
+        # the top-level numbers are those of the first main path that
+        # runs the kernel and checks it (K1-K4: the bench; K5: the skinned
+        # figure; the two-level trace: the city; K4 FILL: the realtime
+        # city), else of the first path that checks it (K6 and K7: the
+        # city and the bench; K8, K9: the labs); by_path holds every path's
+        path = next((p for p in PATHS if name in PATHS[p]
+                     and name in results[p]), None) or \
+            next(p for p in results if name in results[p])
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=sum(c.get(name, 0) for c in launches.values()),

@@ -18,7 +18,11 @@ ReSTIR, denoiser or TAA). `--env sky.hdr` lights the scene with a
 Radiance .hdr (or an LDR .png) in place of the procedural sky;
 `--no-nee` turns next-event estimation off, in both modes (the
 reference's realtime mode ignores it); `--photo-denoise` runs the
-offline photo-mode denoiser on a reference-mode render.
+offline photo-mode denoiser on a reference-mode render. A glTF scene's
+animations: `--animate-time T` poses its skins and animated nodes at T
+seconds before a reference render; `--animate` (realtime) advances them
+before each frame, frame i at i / `--animate-fps`; `--animation-index`
+picks the file's animation.
 """
 from __future__ import annotations
 
@@ -78,12 +82,22 @@ def build_arg_parser():
                    help="accumulation checkpoint file (.npz): resumes if "
                    "it exists, saves on exit")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--animate-time", type=float, default=None,
+                   help="pose glTF animations at this time (seconds) "
+                   "before rendering (reference mode; SampleUI's "
+                   "animation scrubber)")
+    p.add_argument("--animate", action="store_true",
+                   help="realtime mode: advance glTF animations every "
+                   "frame at --animate-fps")
+    p.add_argument("--animate-fps", type=float, default=60.0)
+    p.add_argument("--animation-index", type=int, default=0)
     return p
 
 
 def load_scene(args):
     """(host scene dict, camera, extra) for --scene; extra: the scene
-    file's env_radiance, env_intensity, analytic_lights and settings."""
+    file's env_radiance, env_intensity, analytic_lights and settings, and
+    a glTF file's info as anim_info (what Renderer.animate poses)."""
     from ..scene import procedural
     if args.scene == "programmer-art":
         return (procedural.build_programmer_art(
@@ -101,7 +115,8 @@ def load_scene(args):
             host["texture_images"] = info["textures"]
             host["texture_srgb"] = info["texture_srgb"]
         return (host, gltf.camera_from_info(info, args.width, args.height),
-                dict(analytic_lights=gltf.analytic_lights_from_info(info)))
+                dict(analytic_lights=gltf.analytic_lights_from_info(info),
+                     anim_info=info))
     if args.scene.endswith(".json"):
         from ..scene import scene_json
         return scene_json.load_scene_json(args.scene, args.width,
@@ -116,7 +131,7 @@ def _sync(device):
 
 
 def _run_realtime(args, host, cam, env, frames: int, settings: dict,
-                  **scene_kw) -> int:
+                  anim_info=None, **scene_kw) -> int:
     """Realtime mode: `frames` frames, the last one saved (the reference's
     --screenshotFrameIndex contract, with denoiser warm-up)."""
     from ..config import apply_scene_settings
@@ -139,6 +154,9 @@ def _run_realtime(args, host, cam, env, frames: int, settings: dict,
     times = [time.time()]
     img = None
     for i in range(max(frames, 1)):
+        if args.animate and anim_info is not None:
+            # per-frame animation tick (DeviceManager Animate + Render)
+            r.animate(anim_info, i / args.animate_fps, args.animation_index)
         img = r.render_frame(args.width, args.height, taa=restir)
         _sync(args.device)
         times.append(time.time())
@@ -189,11 +207,16 @@ def main(argv=None) -> int:
                     env_intensity=extra.get("env_intensity", 1.0))
     spp = args.spp if args.screenshot_frame_index is None \
         else args.screenshot_frame_index
+    anim_info = extra.get("anim_info")
     if args.mode == "realtime":
-        return _run_realtime(args, host, cam, env, spp, settings, **scene_kw)
+        return _run_realtime(args, host, cam, env, spp, settings,
+                             anim_info=anim_info, **scene_kw)
 
     r = Renderer(host, cam, cfg, env_radiance=env, device=args.device,
                  **scene_kw)
+    if args.animate_time is not None and anim_info is not None:
+        # pose skinned and rigid node animations (Scene::Refresh) at T
+        r.animate(anim_info, args.animate_time, args.animation_index)
     if args.checkpoint:
         r.load_checkpoint(args.checkpoint)
 

@@ -2,9 +2,9 @@
 package's.
 
 The parity tests run both packages on identical tables: the reference
-builds its SceneArrays packs, DenseMT planes, BVH8 or two-level BVH8
-tables, EnvMap and LightTable, and these functions turn their fields (as
-numpy arrays) into the port's device tables. The realtime converters do
+builds its SceneArrays packs, DenseMT planes, BVH8, two-level BVH8 or
+instanced TLAS tables, EnvMap and LightTable, and these functions turn
+their fields (as numpy arrays) into the port's device tables. The realtime converters do
 the same for the state one frame hands the next (stable planes, the
 G-buffer, ReSTIR reservoirs, ReLAX and ReBLUR histories, the TAA and TAAU
 histories); the reference's uint32 branch ids and nested-dielectric
@@ -23,6 +23,7 @@ from .denoise.reblur import ReblurState
 from .denoise.relax import DenoiserState
 from .ops.bvh import BVH8
 from .ops.bvh2l import BVH8TwoLevel
+from .ops.instanced import InstancedTL
 from .ops.mt_dense import DenseMT
 from .post.taa import TAAState
 from .post.taau import TAAUState
@@ -101,9 +102,30 @@ def two_level_from_arrays(*, sub_tables, sub_leaf_tris, sub_leaf_omm,
                         leaf_size=int(leaf_size), rows=int(rows))
 
 
+def instanced_from_arrays(*, mesh_tables, mesh_leaf_tris, inst_mesh,
+                          inst_inv, inst_aabb, inst_tri_offset, inst_flip,
+                          inst_by_mesh, leaf_size: int, rows: int,
+                          device="cuda") -> InstancedTL:
+    """The reference's leaves carry no opacity masks: every cell is set."""
+    f32, i32 = torch.float32, torch.int32
+    leaf_tris = _t(mesh_leaf_tris, i32, device)
+    return InstancedTL(
+        mesh_tables=_t(mesh_tables, f32, device), mesh_leaf_tris=leaf_tris,
+        mesh_leaf_omm=torch.full_like(leaf_tris, 0xFFFF),
+        inst_mesh=_t(inst_mesh, i32, device),
+        inst_inv=_t(inst_inv, f32, device),
+        inst_aabb=_t(inst_aabb, f32, device),
+        inst_tri_offset=_t(inst_tri_offset, i32, device),
+        inst_flip=_t(inst_flip, torch.bool, device),
+        inst_by_mesh=_t(inst_by_mesh, i32, device),
+        leaf_size=int(leaf_size), rows=int(rows))
+
+
 def accel_from_reference(accel, device="cuda"):
-    """The port's DenseMT, BVH8 or BVH8TwoLevel from the reference's (any
-    object with those fields)."""
+    """The port's DenseMT, InstancedTL, BVH8 or BVH8TwoLevel from the
+    reference's (any object with those fields). A BVH8 refits with the
+    reference's topology: `bvh.refit_topology` reads it from the table's
+    code columns."""
     if hasattr(accel, "tri9"):
         omm = None
         if getattr(accel, "has_omm", False):
@@ -116,6 +138,14 @@ def accel_from_reference(accel, device="cuda"):
                                  center=accel.center,
                                  num_clusters=accel.num_clusters, omm=omm,
                                  device=device)
+    if hasattr(accel, "inst_aabb"):
+        return instanced_from_arrays(
+            mesh_tables=accel.mesh_tables,
+            mesh_leaf_tris=accel.mesh_leaf_tris, inst_mesh=accel.inst_mesh,
+            inst_inv=accel.inst_inv, inst_aabb=accel.inst_aabb,
+            inst_tri_offset=accel.inst_tri_offset,
+            inst_flip=accel.inst_flip, inst_by_mesh=accel.inst_by_mesh,
+            leaf_size=accel.leaf_size, rows=accel.rows, device=device)
     if hasattr(accel, "sub_aabb"):
         return two_level_from_arrays(
             sub_tables=accel.sub_tables, sub_leaf_tris=accel.sub_leaf_tris,
@@ -135,11 +165,15 @@ def env_from_arrays(*, radiance_quad, alias_pack, height: int, width: int,
                   enabled=bool(np.asarray(enabled)))
 
 
-def lights_from_arrays(*, pack, cdf, total_power,
+def lights_from_arrays(*, pack, cdf, total_power, tri=None,
                        device="cuda") -> LightTable:
+    """tri: the rows' triangle ids (-1 analytic), which refresh_pack reads,
+    or None."""
     return LightTable(pack=_t(pack, torch.float32, device),
                       cdf=_t(cdf, torch.float32, device),
-                      total_power=float(np.asarray(total_power, np.float32)))
+                      total_power=float(np.asarray(total_power, np.float32)),
+                      tri=None if tri is None else _t(tri, torch.int32,
+                                                      device))
 
 
 def assets_from_reference(scene, accel, env, lights,
@@ -161,7 +195,8 @@ def assets_from_reference(scene, accel, env, lights,
             enabled=env.enabled, device=device),
         lights=None if lights is None else lights_from_arrays(
             pack=lights.pack, cdf=lights.cdf,
-            total_power=lights.total_power, device=device),
+            total_power=lights.total_power,
+            tri=getattr(lights, "tri", None), device=device),
         accel=accel_from_reference(accel, device))
 
 

@@ -483,7 +483,11 @@ def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
 
 class RealtimeRenderer(Renderer):
     """Frame-loop driver of the realtime mode (DeviceManager::
-    RunMessageLoop + Sample::Render)."""
+    RunMessageLoop + Sample::Render). `animate` (Renderer's) replaces
+    `self.assets` between frames; every stage of `render_frame` reads the
+    assets it is given, so nothing of the old pose is cached, and the
+    temporal histories carry across the pose change, as in the reference
+    (rtxpt_tpu/models/realtime.py:638-861)."""
 
     def __init__(self, host_scene, camera, cfg: Optional[C.PTConfig] = None,
                  mesh=None, **kw):

@@ -13,12 +13,16 @@ sampler its env list) render sample by sample.
 The trace structure is the reference's tier for the scene's size, and
 only that one is built: the dense planes (ops/mt_dense.py) up to 8,192
 triangles, a single BVH8 (ops/bvh.py) up to 45,000, the two-level BVH8
-(ops/bvh2l.py) above. (The reference also builds a BVH2 and a triangle
-soup that nothing traces.) Alpha-MASK triangles carry their opacity
-micro-masks (scene/omm.py, baked from the base color's alpha) into
-whichever tier is built; the texture stack (scene/textures.py) is built
-after it, so that the other glTF images, decoding on the texture cache's
-threads, overlap the build.
+(ops/bvh2l.py) above, or the instanced TLAS (ops/instanced.py) for a
+rigid-animated scene above 45,000 (`build_trace_structure`). (The
+reference also builds a BVH2 and a triangle soup that nothing traces.)
+`animate` poses a glTF scene's skins and node animations
+(scene/animation.py) and replaces the tables, the trace structure and the
+light rows. Alpha-MASK triangles carry their opacity micro-masks
+(scene/omm.py, baked from the base color's alpha) into whichever tier is
+built; the texture stack (scene/textures.py) is built after it, so that
+the other glTF images, decoding on the texture cache's threads, overlap
+the build.
 """
 from __future__ import annotations
 
@@ -31,10 +35,11 @@ import torch
 
 from .. import config as C
 from ..ops import bvh as bvh_mod
-from ..ops import bvh2l, mt_dense
+from ..ops import bvh2l, instanced, mt_dense
 from ..post import accumulation, tonemap
 from ..pt import integrator
 from ..restir import regir as RG
+from ..scene import animation as AN
 from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene import omm as OMM
@@ -44,6 +49,9 @@ from ..scene.camera import CameraData
 
 REGEN_CHUNK = 8
 BVH8_MAX_TRIS = 45_000    # above this the two-level BVH8 takes over
+# the instanced gate's limits (rtxpt_tpu/models/renderer.py:105-118)
+INSTANCED_MAX_INSTANCES = 8192
+INSTANCED_MAX_MESH_TRIS = 25_000
 
 
 def reference_config(**overrides) -> C.PTConfig:
@@ -78,15 +86,35 @@ def has_mask_materials(host_scene: dict) -> bool:
                 .any()) and bool(host_scene.get("texture_images"))
 
 
+def uses_instanced(host_scene: dict) -> bool:
+    """The reference's instanced gate (rtxpt_tpu/models/renderer.py:
+    105-118) without its environment switch: the scene carries instancing
+    and no skin, has over 45,000 triangles and animated nodes (the glTF
+    loader's `animations`), at most 8,192 instances and no mesh over
+    25,000 triangles. A static scene takes the two-level BVH8, which the
+    reference measured faster; the instanced TLAS is the large-scene
+    structure with a rigid-motion update path."""
+    inst = host_scene.get("instancing")
+    return (inst is not None and not host_scene.get("skin_bindings")
+            and host_scene["indices"].shape[0] > BVH8_MAX_TRIS
+            and bool(host_scene.get("animations"))
+            and len(inst["mesh_of_instance"]) <= INSTANCED_MAX_INSTANCES
+            and max(m["indices"].shape[0] for m in inst["meshes"])
+            <= INSTANCED_MAX_MESH_TRIS)
+
+
 def build_trace_structure(host_scene: dict, device, tri_omm=None):
     """The trace structure of the reference's tier for the scene's
-    triangle count (rtxpt_tpu/models/renderer.py:120-148), with the
-    triangles' opacity masks `tri_omm` (scene/omm.py): a DenseMT, a BVH8
-    or a BVH8TwoLevel."""
+    triangle count (rtxpt_tpu/models/renderer.py:105-148), with the
+    triangles' opacity masks `tri_omm` (scene/omm.py): a DenseMT, an
+    InstancedTL (`uses_instanced`; its leaves carry no masks, as in the
+    reference), a BVH8 or a BVH8TwoLevel."""
     pos, idx = host_scene["positions"], host_scene["indices"]
     n_tris = idx.shape[0]
     if mt_dense.supported(n_tris):
         return mt_dense.build_dense(pos, idx, tri_omm=tri_omm, device=device)
+    if uses_instanced(host_scene):
+        return instanced.build_instanced(host_scene["instancing"], device)
     if n_tris <= BVH8_MAX_TRIS:
         return bvh_mod.collapse_bvh8(bvh_mod.build_bvh(pos, idx), pos, idx,
                                      tri_omm=tri_omm, device=device)
@@ -234,6 +262,22 @@ class Renderer:
         self.accum = torch.as_tensor(data["accum"], device=self.device)
         self.sample_index = int(data["sample_index"])
         return True
+
+    def animate(self, info: dict, time: float, animation_index: int = 0):
+        """Pose the glTF scene of `info` (gltf.load_gltf's) at `time`
+        seconds of animation `animation_index` (Scene::Refresh and the
+        skinned BLAS updates; rtxpt_tpu/models/renderer.py:334-359): the
+        tables, the trace structure (refit, re-read or instance rows) and
+        the light rows of emissive triangles are replaced, and later
+        renders see the new pose. Accumulation is not reset."""
+        self.scene, self.accel = AN.refresh_skinned(
+            self.host_scene, info, self.scene, self.accel, time,
+            animation_index)
+        self.lights = LI.refresh_pack(self.lights, self.scene.positions,
+                                      self.scene.indices)
+        self.assets = dataclasses.replace(self.assets, scene=self.scene,
+                                          accel=self.accel,
+                                          lights=self.lights)
 
     def tonemapped(self, hdr, exposure: float = 1.0,
                    auto_expose: bool = True):

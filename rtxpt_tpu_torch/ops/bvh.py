@@ -13,14 +13,21 @@ Host side (numpy), like the reference's BLAS builds:
     (p0, e1, e2). Rows are max(56, 9 * leaf_size) floats wide: 144 at the
     renderer's leaf size, LEAF_SIZE = 16.
 
+Refit after animation keeps the topology and recomputes bounds (the
+per-frame skinned-BLAS update, Sample.cpp:1355-1380): `refit` for the
+BVH2, and for the BVH8 `refit_topology`, the child codes and depth levels
+of its node rows, read from the table's own code columns (48:56), so that
+a table carried across from the reference refits with the reference's
+topology (scene/animation.py `refit_bvh8` sweeps them).
+
 The reference also packs the table into bf16 planes for its TPU kernel's
 matrix-unit gathers; the CUDA kernel reads the float32 rows directly, so
-the port carries only the table. Refit (animated geometry) is not ported.
+the port carries only the table.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -79,10 +86,73 @@ class BVH8:
     leaf_omm: torch.Tensor    # (R * leaf_size,) i32 16-bit opacity masks
     leaf_size: int
     num_nodes: int
+    # refit_topology's (codes, levels), computed on first use; refits keep
+    # the codes, so a refitted copy shares it
+    topology: Optional[tuple] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
     @property
     def num_rows(self) -> int:
         return self.table.shape[0]
+
+
+def refit_topology(bvh8: BVH8):
+    """(codes (Nn, 8) i64 tensor on the table's device, levels: tuple of
+    i64 tensors of node-row ids by depth, root first) from the table's
+    code columns 48:56, cached on `bvh8`. Levels are found breadth-first
+    from the root, the reference's depth (`collapse_bvh8` refit_info)."""
+    if bvh8.topology is None:
+        codes = bvh8.table[:bvh8.num_nodes, 48:56].cpu().numpy() \
+            .astype(np.int64)
+        levels, frontier = [], np.zeros(1, np.int64)
+        while frontier.size:
+            levels.append(frontier)
+            kids = codes[frontier].reshape(-1)
+            frontier = np.sort(kids[kids >= 0])
+        dev = bvh8.table.device
+        bvh8.topology = (torch.as_tensor(codes, device=dev),
+                         tuple(torch.as_tensor(lv, device=dev)
+                               for lv in levels))
+    return bvh8.topology
+
+
+def refit(bvh: BVH2, positions, indices) -> BVH2:
+    """Bottom-up refit of a BVH2's child bounds after vertex animation,
+    topology unchanged (rtxpt_tpu/ops/bvh.py:575-615), host side: each
+    leaf's bounds over its triangles' vertices (all of them; the
+    reference reads at most 8, its builds' leaf size), each node's over
+    its children's, deepest level first. No render path traces a BVH2."""
+    positions = np.asarray(positions, np.float32)
+    indices = np.asarray(indices, np.int64)
+    tri = positions[indices[np.asarray(bvh.order, np.int64)]]  # (T,3,3)
+    tmin, tmax = tri.min(axis=1), tri.max(axis=1)
+    cb = np.array(bvh.child_bounds, np.float32)
+    ci = np.asarray(bvh.child_idx)
+    ks = np.arange(LEAF_MAX)
+
+    def leaf_bounds(code):
+        start, count = decode_leaf(code)
+        idx = np.clip(start[:, None] + ks[None, :], 0,
+                      max(tmin.shape[0] - 1, 0))
+        valid = (ks[None, :] < count[:, None])[..., None]
+        return (np.where(valid, tmin[idx], np.inf).min(axis=1),
+                np.where(valid, tmax[idx], -np.inf).max(axis=1))
+
+    for level in bvh.levels[::-1]:
+        ids = np.asarray(level, np.int64)
+        new_b = []
+        for side in range(2):
+            c = ci[ids, side].astype(np.int64)
+            is_leaf = c < 0
+            llo, lhi = leaf_bounds(np.where(is_leaf, c, -1))
+            nb = cb[np.where(is_leaf, 0, c)]
+            lo = np.where(is_leaf[:, None], llo,
+                          np.minimum(nb[:, 0:3], nb[:, 6:9]))
+            hi = np.where(is_leaf[:, None], lhi,
+                          np.maximum(nb[:, 3:6], nb[:, 9:12]))
+            new_b += [lo, hi]
+        cb[ids] = np.concatenate(new_b, axis=-1)
+    return BVH2(cb, bvh.child_idx, bvh.order, bvh.levels)
 
 
 def node_tri_ranges(bvh: BVH2):

@@ -174,6 +174,32 @@ def build_dense(positions, indices, tri_omm=None, device="cuda") -> DenseMT:
                    num_clusters=nc, omm=t(omm))
 
 
+def refresh_dense(dense: DenseMT, positions, indices) -> DenseMT:
+    """The planes re-read from deformed device positions (the per-frame
+    skinned-BLAS update; rtxpt_tpu/ops/mt_dense.py:230-300): each slot's
+    recentered (p0, e1, e2) and the cluster AABBs. The build-time morton
+    slot order, the padding, `center` and the opacity masks are kept, so
+    only the triangles' coordinates change; padding slots' boxes repeat
+    the last real triangle, as the build pads them."""
+    ids = dense.tri9[:, 9].to(torch.int64)              # original ids, -1 pad
+    valid = (ids >= 0)[:, None]
+    tri = indices[ids.clamp(min=0)].long()
+    p0w = positions[tri[:, 0]]
+    center = dense.center
+    p0 = torch.where(valid, p0w - center, 0.0)
+    e1 = torch.where(valid, positions[tri[:, 1]] - p0w, 0.0)
+    e2 = torch.where(valid, positions[tri[:, 2]] - p0w, 0.0)
+    pts = torch.stack([p0, p0 + e1, p0 + e2], 1) + center   # (t_pad,3,3)
+    slots = torch.arange(ids.shape[0], device=ids.device)
+    last = torch.where(valid[:, 0], slots, 0).max()
+    pts = torch.where(valid[:, :, None], pts, pts[last])
+    pc = pts.reshape(dense.num_clusters, CLUSTER * 3, 3)
+    aabb = torch.cat([pc.amin(1), pc.amax(1)], -1)
+    tri9 = torch.cat([p0, e1, e2, dense.tri9[:, 9:10]], -1)
+    return DenseMT(aabb=aabb, tri9=tri9, center=center,
+                   num_clusters=dense.num_clusters, omm=dense.omm)
+
+
 def _pad_lanes(origins, dirs, t_max, active, tile: int):
     """Lanes padded to a multiple of `tile` as the reference's
     `_trace_dense` pads them: origin 0, direction 1, t_max 0, inactive."""

@@ -8,13 +8,16 @@ builds its tiles' worklists itself), a
 ``ops/bvh2l.py`` (the whole two-level trace in one launch of
 ``traverse_bvh8.trace_bvh8_2l``), a single `BVH8` to K5
 (``ops/traverse_bvh8.py``), whose leaf slots map to triangle ids through
-the table's `leaf_tris`. The reference's instanced TLAS is not ported.
+the table's `leaf_tris`, and an `InstancedTL` (rigid-animated scenes over
+45,000 triangles, models/renderer.py's instanced gate) to
+``ops/instanced.py``: near-to-far rounds over instance chunks, each round
+one K5 launch against a mesh's object-space table.
 """
 from __future__ import annotations
 
 import torch
 
-from . import bvh2l, mt_dense
+from . import bvh2l, instanced, mt_dense
 from . import traverse_bvh8 as T8
 from .bvh import BVH8
 from .intersect import Hit
@@ -33,6 +36,9 @@ def trace_closest(accel, origins, dirs, t_max=1e30, active=None) -> Hit:
         return mt_dense.trace_closest(accel, origins, dirs, t_max, active)
     if isinstance(accel, bvh2l.BVH8TwoLevel):
         return bvh2l.trace_closest(accel, origins, dirs, t_max, active)
+    if isinstance(accel, instanced.InstancedTL):
+        return instanced.trace_closest(accel, origins, dirs, t_max=t_max,
+                                       active=active)
     if isinstance(accel, BVH8):
         t, slot, uv = _trace_bvh8(accel, origins, dirs, t_max, active, False)
         prim = torch.where(slot >= 0,
@@ -48,6 +54,9 @@ def trace_anyhit(accel, origins, dirs, t_max=1e30, active=None):
         return mt_dense.trace_anyhit(accel, origins, dirs, t_max, active)
     if isinstance(accel, bvh2l.BVH8TwoLevel):
         return bvh2l.trace_anyhit(accel, origins, dirs, t_max, active)
+    if isinstance(accel, instanced.InstancedTL):
+        return instanced.trace_anyhit(accel, origins, dirs, t_max=t_max,
+                                      active=active)
     if isinstance(accel, BVH8):
         return _trace_bvh8(accel, origins, dirs, t_max, active, True)[1] >= 0
     raise TypeError(f"no trace path for {type(accel).__name__}")

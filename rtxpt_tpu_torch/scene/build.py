@@ -1,9 +1,12 @@
 """Host-side scene assembly (counterpart of rtxpt_tpu/scene/build.py).
 
 numpy mesh pool + instance flattening to world space, then `to_device`
-uploads the packed tables to one torch device. Skinning, rigid-animation
-and instancing metadata of the reference come with the animated and
-instanced scene paths; the static slice does not carry them.
+uploads the packed tables to one torch device. `finish()` also keeps what
+animation needs (scene/animation.py): the object-space rest pose, joints
+and weights of each skinned instance (`skin_bindings`), the rest geometry
+and baked transform of each instance rooted at a scene-graph node
+(`rigid_bindings`), and the un-flattened instancing the instanced TLAS
+builds from (`instancing`, ops/instanced.py).
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ class Mesh:
     tangents: Optional[np.ndarray] = None   # (V,4)
     uvs: Optional[np.ndarray] = None
     material: int = 0
+    joints: Optional[np.ndarray] = None     # (V,4) i32 skin joints
+    weights: Optional[np.ndarray] = None    # (V,4) f32 skin weights
 
 
 @dataclasses.dataclass
@@ -32,6 +37,9 @@ class Instance:
     mesh: int
     transform: np.ndarray            # (3,4) affine, row-major
     material_override: int = -1
+    skin: int = -1                   # skin id (scene/gltf.py skins list)
+    node: int = -1                   # source scene-graph node (rigid
+    #                                  animation retargets this instance)
 
 
 def compute_vertex_normals(positions: np.ndarray,
@@ -102,12 +110,13 @@ class SceneBuilder:
         return len(self.meshes) - 1
 
     def add_instance(self, mesh: int, transform: Optional[np.ndarray] = None,
-                     material_override: int = -1) -> int:
+                     material_override: int = -1, skin: int = -1,
+                     node: int = -1) -> int:
         if transform is None:
             transform = np.eye(3, 4, dtype=np.float32)
         self.instances.append(Instance(mesh, np.asarray(transform,
                                                         np.float32),
-                                       material_override))
+                                       material_override, skin, node))
         return len(self.instances) - 1
 
     def finish(self) -> dict:
@@ -115,6 +124,7 @@ class SceneBuilder:
             self.add_material()
         pos_l, nrm_l, tan_l, uv_l, idx_l, mat_l, inst_l = \
             [], [], [], [], [], [], []
+        skin_bindings, rigid_bindings = [], []
         voffset = 0
         for iid, inst in enumerate(self.instances):
             m = self.meshes[inst.mesh]
@@ -150,6 +160,43 @@ class SceneBuilder:
                    else m.material)
             mat_l.append(np.full((m.indices.shape[0],), mid, np.int32))
             inst_l.append(np.full((m.indices.shape[0],), iid, np.int32))
+            if inst.skin >= 0 and m.joints is not None:
+                # skinned instance: the object-space rest pose, joints and
+                # weights; skinning replaces this vertex range each frame
+                # (donut Scene::Refresh skinning_cs path)
+                skin_bindings.append(dict(
+                    instance=iid, skin=inst.skin,
+                    vertex_start=voffset, vertex_count=p.shape[0],
+                    rest_positions=np.asarray(m.positions, np.float32),
+                    rest_normals=np.asarray(
+                        m.normals if m.normals is not None else
+                        compute_vertex_normals(m.positions, m.indices),
+                        np.float32),
+                    joints=np.asarray(m.joints, np.int32),
+                    weights=np.asarray(m.weights, np.float32)))
+            elif inst.node >= 0:
+                # rigid instance rooted at a scene-graph node: the rest
+                # geometry and baked transform, so that a node animation
+                # re-flattens just this vertex range (donut SceneGraph
+                # transform refresh)
+                rest_n = (m.normals if m.normals is not None else
+                          compute_vertex_normals(m.positions, m.indices))
+                if m.tangents is not None:
+                    rest_t = np.asarray(m.tangents, np.float32)
+                else:
+                    rest_uv = (m.uvs if m.uvs is not None else
+                               np.zeros((m.positions.shape[0], 2),
+                                        np.float32))
+                    rest_t = compute_tangents(
+                        np.asarray(m.positions, np.float32),
+                        np.asarray(rest_n, np.float32), rest_uv, m.indices)
+                rigid_bindings.append(dict(
+                    instance=iid, node=inst.node,
+                    vertex_start=voffset, vertex_count=p.shape[0],
+                    baked_transform=np.asarray(xf, np.float32).copy(),
+                    rest_positions=np.asarray(m.positions, np.float32),
+                    rest_normals=np.asarray(rest_n, np.float32),
+                    rest_tangents=np.asarray(rest_t, np.float32)))
             voffset += p.shape[0]
 
         mats = {k: np.stack(v) if np.ndim(v[0]) else np.array(v)
@@ -164,7 +211,24 @@ class SceneBuilder:
             idx_l = [np.asarray([[0, 1, 2]], np.int32)]
             mat_l = [np.zeros((1,), np.int32)]
             inst_l = [np.zeros((1,), np.int32)]
+        # the un-flattened structure of the instanced TLAS (ops/
+        # instanced.py): each instance's mesh, transform and first flat
+        # triangle, and each mesh's object-space geometry
+        # (RTXPT/Sample.cpp:1353-1421's TLAS-over-BLAS shape)
+        tri_offsets = np.cumsum([0] + [self.meshes[i.mesh].indices.shape[0]
+                                       for i in self.instances])[:-1]
+        instancing = dict(
+            mesh_of_instance=np.asarray([i.mesh for i in self.instances],
+                                        np.int32),
+            transforms=np.stack([i.transform for i in self.instances])
+            .astype(np.float32),
+            tri_offset=tri_offsets.astype(np.int32),
+            meshes=[dict(positions=np.asarray(m.positions, np.float32),
+                         indices=np.asarray(m.indices, np.int32))
+                    for m in self.meshes],
+        ) if self.instances else None
         return dict(
+            instancing=instancing,
             positions=np.concatenate(pos_l),
             normals=np.concatenate(nrm_l),
             tangents=np.concatenate(tan_l),
@@ -173,6 +237,8 @@ class SceneBuilder:
             tri_mat=np.concatenate(mat_l),
             tri_instance=np.concatenate(inst_l),
             materials=mats,
+            skin_bindings=skin_bindings,
+            rigid_bindings=rigid_bindings,
         )
 
 

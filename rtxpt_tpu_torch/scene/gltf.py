@@ -11,9 +11,13 @@ Images decode with the port's readers: DDS (scene/dds.py) and PNG
 (utils/image.py `decode_png_rgba`), to (H, W, 4) uint8 RGBA. An image in
 any other format, or one that cannot be decoded, raises ValueError naming
 the image and its format (the reference falls back to a white 4x4
-texture). Skins and animations come with the animation queue: a skinned
-node's meshes are placed at their bind pose, as the reference places them
-before its first skinning pass.
+texture). Skins: JOINTS_0 / WEIGHTS_0 (weights normalised to sum 1), each
+skin's joints and inverse binds; a skinned node's meshes are placed at
+their bind pose with `skin=` (scene/animation.py poses them), every other
+mesh node's with `node=` (a rigid binding a node animation retargets).
+`info` carries the parsed file (`gltf`) and the skins; `host["animations"]`
+lists the nodes the file's animation channels target, which the
+renderer's instanced gate reads (models/renderer.py).
 """
 from __future__ import annotations
 
@@ -274,13 +278,21 @@ def load_gltf(path: str, scene_builder: Optional[SceneBuilder] = None,
                    if "TANGENT" in attrs else None)
             uv = (gf.accessor(attrs["TEXCOORD_0"]).astype(np.float32)
                   if "TEXCOORD_0" in attrs else None)
+            joints = (gf.accessor(attrs["JOINTS_0"]).astype(np.int32)
+                      if "JOINTS_0" in attrs else None)
+            weights = None
+            if "WEIGHTS_0" in attrs:
+                weights = gf.accessor(attrs["WEIGHTS_0"]).astype(np.float32)
+                weights = weights / np.maximum(
+                    weights.sum(-1, keepdims=True), 1e-6)
             if "indices" in p:
                 idx = gf.accessor(p["indices"]).astype(np.int32)
             else:
                 idx = np.arange(pos.shape[0], dtype=np.int32)
             idx = idx.reshape(-1, 3)
             mid = mat_ids[p["material"]] if "material" in p else mat_ids[0]
-            prims.append(sb.add_mesh(Mesh(pos, idx, nrm, tan, uv, mid)))
+            prims.append(sb.add_mesh(Mesh(pos, idx, nrm, tan, uv, mid,
+                                          joints=joints, weights=weights)))
         mesh_prims.append(prims)
 
     # ---- node hierarchy -> world transforms + instances
@@ -294,12 +306,15 @@ def load_gltf(path: str, scene_builder: Optional[SceneBuilder] = None,
         xf = _compose(parent, _node_transform(node))
         world[ni] = xf
         if "mesh" in node:
+            skin = node.get("skin", -1)
             for mesh_id in mesh_prims[node["mesh"]]:
-                # a skinned mesh is in world space at its bind pose: its
-                # instance transform stays identity (donut
-                # SkinnedMeshInstance semantics)
-                sb.add_instance(mesh_id, None if node.get("skin", -1) >= 0
-                                else xf)
+                if skin >= 0:
+                    # skinned: the joint matrices place the geometry in
+                    # world space; the instance transform stays identity
+                    # (donut SkinnedMeshInstance semantics)
+                    sb.add_instance(mesh_id, None, skin=skin)
+                else:
+                    sb.add_instance(mesh_id, xf, node=ni)
         if "camera" in node:
             cameras.append((g["cameras"][node["camera"]], xf))
         ext = node.get("extensions", {}).get("KHR_lights_punctual")
@@ -327,11 +342,48 @@ def load_gltf(path: str, scene_builder: Optional[SceneBuilder] = None,
                    m.get("emissiveTexture", {}).get("index", -1)):
             if 0 <= ti < n_tex:
                 srgb[ti] = True
-    info = dict(cameras=cameras, lights=punctual_lights,
+    skins = []
+    for sk in g.get("skins", []):
+        joints = sk.get("joints", [])
+        if "inverseBindMatrices" in sk:
+            # glTF column-major 4x4 -> (3,4) affine rows
+            m44 = gf.accessor(sk["inverseBindMatrices"]).astype(
+                np.float32).reshape(-1, 4, 4)
+            inv = np.ascontiguousarray(np.transpose(m44, (0, 2, 1))[:, :3])
+        else:
+            inv = np.tile(np.eye(3, 4, dtype=np.float32),
+                          (len(joints), 1, 1))
+        skins.append(dict(joints=list(joints), inverse_bind=inv))
+    host["animations"] = sorted({
+        ch["target"]["node"] for a in g.get("animations", [])
+        for ch in a.get("channels", [])
+        if ch.get("target", {}).get("path") in ("translation", "rotation",
+                                                "scale")
+        and "node" in ch["target"]})
+    info = dict(cameras=cameras, lights=punctual_lights, gltf=gf,
                 textures=(early_textures if early_textures is not None
                           else decode_textures(gf)),
-                texture_srgb=srgb)
+                texture_srgb=srgb, skins=skins)
     return host, info
+
+
+def compute_world_transforms(g: dict, nodes: list) -> list:
+    """World (3,4) transform per node from (possibly animated) node dicts
+    `nodes` over the scene of file json `g` (the per-frame SceneGraph::
+    Refresh transform sweep); nodes outside the scene get identity."""
+    world = [None] * len(nodes)
+    ident = np.eye(3, 4, dtype=np.float32)
+
+    def visit(ni, parent):
+        xf = _compose(parent, _node_transform(nodes[ni]))
+        world[ni] = xf
+        for c in nodes[ni].get("children", []):
+            visit(c, xf)
+
+    scene = g.get("scenes", [{}])[g.get("scene", 0)]
+    for root in scene.get("nodes", range(len(nodes))):
+        visit(root, ident)
+    return [ident if w is None else w for w in world]
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"

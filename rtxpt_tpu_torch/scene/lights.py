@@ -46,6 +46,9 @@ class LightTable:
     pack: torch.Tensor       # (L, LP_COLS) f32 packed rows
     cdf: torch.Tensor        # (L,) f32 inclusive normalized power CDF
     total_power: float
+    # (L,) i32 scene triangle of each row (-1: analytic), which
+    # refresh_pack re-reads; None where the rows cannot be refreshed
+    tri: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
@@ -164,7 +167,43 @@ def build_light_table(host_scene: dict, analytic: Optional[list] = None,
                        power, np.concatenate(axes), np.concatenate(cones))
     return LightTable(pack=torch.as_tensor(pack, device=device),
                       cdf=torch.as_tensor(cdf, device=device),
-                      total_power=float(np.float32(total)))
+                      total_power=float(np.float32(total)),
+                      tri=torch.as_tensor(np.concatenate(tris),
+                                          device=device))
+
+
+def refresh_pack(lt: Optional[LightTable], positions, indices
+                 ) -> Optional[LightTable]:
+    """The rows' triangle vertices (p0, e1, e2) and inverse areas re-read
+    from (posed) device positions: the light side of Scene::Refresh
+    (rtxpt_tpu/scene/lights.py:123-131). Like the reference, every row
+    re-reads its triangle clamped to the table, an analytic row triangle
+    0, whose columns its evaluation never reads; centroids and powers
+    keep their build-time values."""
+    if lt is None:
+        return lt
+    if lt.tri is None:
+        raise ValueError("refresh_pack: the light table carries no "
+                         "triangle ids")
+    t = lt.tri.long().clamp(0, indices.shape[0] - 1)
+    tri_idx = indices[t].long()
+    p0 = positions[tri_idx[:, 0]]
+    e1 = positions[tri_idx[:, 1]] - p0
+    e2 = positions[tri_idx[:, 2]] - p0
+    area = 0.5 * torch.linalg.norm(torch.cross(e1, e2, dim=-1), dim=-1)
+    kind = lt.pack[:, LP_KIND]
+    radius = lt.pack[:, LP_RADIUS]
+    inv_area = torch.where(
+        kind == LIGHT_TRIANGLE, 1.0 / torch.clamp(area, min=1e-9),
+        torch.where(kind == LIGHT_SPHERE,
+                    1.0 / torch.clamp(4.0 * np.pi * radius * radius,
+                                      min=1e-9), 1.0))
+    pack = lt.pack.clone()
+    pack[:, LP_P0:LP_P0 + 3] = p0
+    pack[:, LP_E1:LP_E1 + 3] = e1
+    pack[:, LP_E2:LP_E2 + 3] = e2
+    pack[:, LP_INV_AREA] = inv_area
+    return dataclasses.replace(lt, pack=pack)
 
 
 def pick_light(lt: LightTable, u):

@@ -4,7 +4,9 @@ The reference also packs bf16 one-hot "gather planes" for the TPU's
 matrix unit; on the GPU a row gather is a plain load, so the port keeps
 only the plain f32/i32 packed tables that `ops/gather.py` reads.
 Packing runs host-side in numpy; `SceneArrays` holds the device copies,
-and `TextureStack` the texel pool of scene/textures.py.
+and `TextureStack` the texel pool of scene/textures.py. Animation rewrites
+`positions`, `vert_pack` columns 0:3, 3:6 and 6:10 and `tri_geom_pack` on
+the device (scene/animation.py, `tri_geom_pack_device`).
 """
 from __future__ import annotations
 
@@ -110,6 +112,23 @@ def tri_geom_pack(positions, uvs, indices):
     uv_area = 0.5 * np.abs(e1[..., 0] * e2[..., 1] - e1[..., 1] * e2[..., 0])
     return np.concatenate([fn, uv_area[:, None], world_area[:, None]],
                           axis=-1)
+
+
+def tri_geom_pack_device(positions, uvs, indices):
+    """`tri_geom_pack` on device tensors (positions (V,3), uvs (V,2),
+    indices (T,3)): re-derived after skinning or rigid motion, so that
+    the surface fetch reads the posed face normals and areas (the uv
+    area does not change with the pose)."""
+    i = indices.long()
+    p0, p1, p2 = positions[i[:, 0]], positions[i[:, 1]], positions[i[:, 2]]
+    cr = torch.cross(p1 - p0, p2 - p0, dim=-1)
+    ln = torch.linalg.norm(cr, dim=-1, keepdim=True)
+    fn = cr / torch.clamp(ln, min=1e-20)
+    u0 = uvs[i[:, 0]]
+    e1 = uvs[i[:, 1]] - u0
+    e2 = uvs[i[:, 2]] - u0
+    uv_area = 0.5 * torch.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+    return torch.cat([fn, uv_area[:, None], 0.5 * ln], -1)
 
 
 def _effective_uv_affine(m: dict):
