@@ -182,13 +182,45 @@ its seconds):
      render through the CLI (`--animate-time 0.5`) with K5 once per round,
      the surface fetch and K4 as on the bench; 64x36 GPU vs CPU; the same
      file without its animation must take the two-level BVH8;
-  14. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+  14. multi-device (rtxpt_tpu_torch/parallel/; the ranks started by
+     tools_torch/sharded_frames.py `spawn` after the CUDA library is
+     built): torch.cuda.device_count() ranks over NCCL, one card each,
+     where there are two cards or more, else two ranks on cuda:0 over
+     gloo with the halo and gather buffers copied through host memory
+     (printed). The single-device oracles first, on the card: two frames
+     of each pipeline at 32x192 (ReSTIR DI + GI, no denoiser or TAA), the
+     1-spp render at 32x16, five frames of the realtime city at
+     1920x1080 (default pipeline; the last 3 timed) and three without
+     TAA. Then on every rank:
+     the same two pipelines through RealtimeRenderer(mesh=) (stage 1 on
+     the rank's rows), held to the reference's seam contract against
+     the single-device frames (rtol 1e-4 / atol 1e-5 off 21 rows about
+     each seam, the band's mean within 15%, the pixels not bit-equal
+     printed); render_image_sharded against render_sample (rtol 1e-5 /
+     atol 1e-6, the pixels not bit-equal printed); the city at 1920x1080
+     (default pipeline: stable planes, ReLAX, TAA), 2 warm-ups and 3
+     timed frames with the counters set to 0 just before: every rank
+     returns the same finite frame, its mean within 5% of one device's
+     (PSNR printed), and launches the realtime city's kernels
+     (`bvh8_trace_2l`, K2, the surface fetch, K4 FILL; no K5, K6 or K4);
+     each rank prints its ms per frame, the halo and gather bytes and ms
+     per frame (CUDA events around each exchange) and its launches per
+     kernel. The launches, summed over the ranks, are the kernels line's
+     path `realtime_sharded`; then every rank renders one more frame, of
+     which rank 0 holds the path's kernels against their plain versions
+     on its rows' launches (the path's numbers in the kernels line).
+     Last, 3 city frames without TAA on every rank, against one device's:
+     every pixel within rtol 1e-4 / atol 1e-5 on the rows beyond the
+     reach of a seam, the frame's edge and (from the second frame) the
+     rows whose boiling-filter block differs on their rank. A rank that
+     fails or runs past 480 s fails the phase;
+  15. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  15. print a JSON line describing the kernels (each kernel's numbers on
+  16. print a JSON line describing the kernels (each kernel's numbers on
      every path that checks it under `by_path`; at the top level, those
      of the first main path that runs it, else of the first path that
      checks it, named in `measured_on`), then the result line.
@@ -303,7 +335,8 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "skinned_bvh8": SKINNED_BVH8_PATH,
          "realtime_skinned": RT_SKINNED_PATH,
          "skinned_dense": SKINNED_DENSE_PATH,
-         "instanced_city": INSTANCED_PATH}
+         "instanced_city": INSTANCED_PATH,
+         "realtime_sharded": RT_CITY_PATH}
 # the bench workload's configuration and size (width, height, spp), the
 # city's size, and the reference configurations other than the default
 # that phase 6 renders the bench under
@@ -1971,11 +2004,12 @@ def capture_realtime_frame(r, w, h, frame_kw=None):
     return name, first, traces
 
 
-def check_realtime_kernels(r, w, h, label, frame_kw=None) -> dict:
+def check_realtime_kernels(r, w, h, label, frame_kw=None,
+                           lanes=None) -> dict:
     """Every kernel of a realtime path against its plain version on the
     launches capture_realtime_frame() records (K4 FILL, or K4 on
-    PSR-lite, on all w*h lanes of the first bounce) -> {kernel name:
-    result}."""
+    PSR-lite, on all `lanes` lanes of the first bounce: by default w*h;
+    a rank's rows on a mesh) -> {kernel name: result}."""
     name, first, traces = capture_realtime_frame(r, w, h, frame_kw)
     for what, call, any_hit in traces:
         require(call is not None, f"{label} {what}: no {name} call "
@@ -1986,9 +2020,10 @@ def check_realtime_kernels(r, w, h, label, frame_kw=None) -> dict:
     fill = r.cfg.use_stable_planes
     shade = "shade_nee_fill" if fill else "shade_nee"
     require(first.calls[shade], f"{label}: no {shade} launch")
-    lanes = first.calls[shade][0][0][0].shape[1]
-    require(lanes == w * h, f"{label}: the first bounce's {shade} has "
-            f"{lanes} lanes, not {w * h}")
+    got = first.calls[shade][0][0][0].shape[1]
+    lanes = w * h if lanes is None else lanes
+    require(got == lanes, f"{label}: the first bounce's {shade} has "
+            f"{got} lanes, not {lanes}")
     timed = [(what, call, True) for what, call, _ in traces]
     if name == "trace_dense_fused":
         out = check_dense(r.accel, timed, label)
@@ -3232,6 +3267,298 @@ def instanced_city(results: dict, card: str) -> dict:
     return launches
 
 
+# phase 14: the parity frames (tests/test_parallel.py:122-163, both
+# pipelines), the sharded 1-spp render (:34-55) and the full-width city
+PARITY_SIZE, RENDER_1SPP_SIZE, SEAM_BAND = (32, 192), (32, 16), 21
+SHARDED_CITY_SIZE, UNTAA_FRAMES = (1920, 1080), 3
+
+
+def parity_config(stable: bool):
+    """tests/test_parallel.py:122-163: ReSTIR DI + GI, no denoiser."""
+    from rtxpt_tpu_torch.models.renderer import realtime_config
+    return realtime_config(use_restir_di=True, use_restir_gi=True,
+                           denoiser_enabled=False, use_stable_planes=stable,
+                           max_bounces=3, max_diffuse_bounces=2)
+
+
+def render_1spp_config():
+    from rtxpt_tpu_torch.models.renderer import reference_config
+    return reference_config(max_bounces=3, max_diffuse_bounces=2,
+                            nee_distant_samples=1, nee_local_samples=1)
+
+
+def parity_frames(host, mesh=None):
+    """Two frames of each pipeline at PARITY_SIZE without TAA, and the
+    1-spp render at RENDER_1SPP_SIZE: on the card (mesh None) or on this
+    rank's rows of `mesh` (render_image_sharded)."""
+    from rtxpt_tpu_torch import config as C
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import Renderer
+    from rtxpt_tpu_torch.parallel import meshutils
+    from rtxpt_tpu_torch.scene import envmap as EM
+    from rtxpt_tpu_torch.scene import procedural
+    device = mesh.device if mesh is not None else "cuda"
+    sky = EM.bake_procedural_sky(height=32)
+    w, h = PARITY_SIZE
+    out = {}
+    for stable in (False, True):
+        r = RealtimeRenderer(host, procedural.default_camera(w, h),
+                             parity_config(stable), env_radiance=sky,
+                             mesh=mesh, device=device)
+        out[f"frames_{stable}"] = [r.render_frame(w, h, taa=False).cpu()
+                                   for _ in range(2)]
+        out[f"sharded_{stable}"] = r._shard_stage1(h)
+    w, h = RENDER_1SPP_SIZE
+    cfg = render_1spp_config()
+    r = Renderer(host, procedural.default_camera(w, h), cfg,
+                 env_radiance=sky, device=device)
+    out["render"] = (r.render_sample(w, h, 0, jitter_aa=False)
+                     if mesh is None else meshutils.render_image_sharded(
+                         r.assets, r._camera(w, h, (0.0, 0.0)), cfg,
+                         C.default_constants(0), w, h, mesh)).cpu()
+    return out
+
+
+def city_frames_no_taa(host_city, mesh=None):
+    """UNTAA_FRAMES frames of the realtime city at SHARDED_CITY_SIZE
+    (default pipeline, TAA off: stage 1 and ReLAX) from a new renderer, on
+    the card (mesh None) or on `mesh`."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.scene import procedural
+    w, h = SHARDED_CITY_SIZE
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h), mesh=mesh,
+                         device=mesh.device if mesh is not None else "cuda")
+    return [r.render_frame(w, h, taa=False).cpu()
+            for _ in range(UNTAA_FRAMES)]
+
+
+def sharded_rank(mesh, host_city, shade):
+    """One rank of phase 14: the parity cases, the city frames (then
+    rank 0 holds the city path's kernels against their plain versions on
+    the launches of one more frame, its rows' shapes, while the other
+    ranks render that frame and wait), and the city without TAA."""
+    import torch.distributed as dist
+    from rtxpt_tpu_torch.scene import procedural
+    from tools_torch import sharded_frames
+    SHADE.update(shade)                # K4's instances, for its bound
+    out = parity_frames(procedural.build_programmer_art().finish(), mesh)
+    w, h = SHARDED_CITY_SIZE
+
+    def check(r):
+        # a frame's exchanges are collective: every rank renders it
+        got = None
+        if mesh.rank == 0:
+            got = check_realtime_kernels(r, w, h, "realtime sharded",
+                                         lanes=w * h // mesh.size)
+        else:
+            r.render_frame(w, h)
+        dist.barrier()
+        return got
+
+    out["city"] = sharded_frames.timed_frames(
+        mesh, host_city, procedural.city_camera(w, h), w, h, after=check)
+    torch.cuda.empty_cache()
+    out["untaa"] = city_frames_no_taa(host_city, mesh)
+    return out
+
+
+def boiling_rows(h: int, ranks: int):
+    """(h,) True on the rows whose 16-row block of ReSTIR's boiling filter
+    (restir/di.py boiling_filter, zero-padded at the buffer's end) is not
+    the same on the row's rank as on one device: the filter blocks the
+    rank's own rows, as the reference's does, so a rank whose first row
+    is not a multiple of 16, or whose last block is short, judges those
+    rows against another block's mean."""
+    rows = h // ranks
+    y = np.arange(h)
+    y0 = y // rows * rows
+    start = y0 + (y - y0) // 16 * 16
+    end = np.minimum(start + 16, y0 + rows)
+    return (start != y // 16 * 16) | (end != np.minimum(y // 16 * 16 + 16,
+                                                        h))
+
+
+def check_far_rows(got, one, ranks: int):
+    """The sharded city without TAA against one device's: rows farther
+    than the reach of a seam, of the frame's top and bottom (ReLAX's edge
+    clamp) and, from the second frame (the temporal passes'), of a row
+    whose boiling-filter block differs (boiling_rows) within rtol 1e-4 /
+    atol 1e-5 on every frame. The reach: stage 1's band, ReLAX's halo,
+    and two rows a frame of the denoiser's history (its 3x3 clamp box and
+    bilinear reprojection). Prints what differs elsewhere."""
+    from rtxpt_tpu_torch.parallel.meshutils import _POST_HALO
+    from rtxpt_tpu_torch.post import tonemap
+    from rtxpt_tpu_torch.utils import image as IM
+    h = one[0].shape[0]
+    shown = lambda x: tonemap.tonemap(torch.from_numpy(x)).numpy()
+    boiling = boiling_rows(h, ranks)
+    for f, (a, b) in enumerate(zip(got, one)):
+        a, b = a.numpy(), b.numpy()
+        require(np.isfinite(a).all(), f"sharded city, no TAA, frame {f}: "
+                "not finite")
+        reach = SEAM_BAND + _POST_HALO + 2 * (f + 1)
+        far = np.ones(h, bool)
+        sources = list(range(0, h + 1, h // ranks)) + (
+            list(np.nonzero(boiling)[0]) if f else [])
+        for s in sources:
+            far[max(s - reach, 0):min(s + reach, h)] = False
+        d = np.abs(a[far] - b[far])
+        off = ~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1)
+        ta, tb = shown(a), shown(b)
+        db = lambda m: IM.compare(ta[m], tb[m])["psnr"] if m.any() \
+            else float("nan")
+        what = f" or a row of the {int(boiling.sum())} whose " \
+            "boiling-filter block differs" if f else ""
+        print(f"multi-device city {a.shape[1]}x{h} without TAA, frame {f}: "
+              f"on the {int(far.sum())} rows farther than {reach} from a "
+              f"seam, the frame's edge{what}, "
+              f"{int((d > 0).any(-1).sum())} pixels not bit-equal to one "
+              f"device (max |diff| {d.max() if d.size else 0:.3g}), "
+              f"{int(off[far].sum())} outside rtol 1e-4 / atol 1e-5; "
+              f"elsewhere {int(off[~far].sum())} outside on "
+              f"{int(off[~far].any(1).sum())} rows; PSNR (tonemapped) "
+              f"{db(np.ones(h, bool)):.2f} dB whole, {db(~far):.2f} "
+              "elsewhere", flush=True)
+        require(far.any(), "sharded city: no row beyond the reach")
+        require(not off[far].any(), f"sharded city, no TAA, frame {f}: "
+                f"{int(off[far].sum())} pixels far from the seams differ "
+                "from one device")
+
+
+def check_seams(got, one, ranks: int, what: str):
+    """The reference's seam contract (tests/test_parallel.py:148-163): off
+    a band of SEAM_BAND rows about each seam rtol 1e-4 / atol 1e-5, the
+    last frame's band mean within 15%."""
+    h = got[0].shape[0]
+    rows = h // ranks
+    band = np.zeros(h, bool)
+    for s in range(rows, h, rows):
+        band[max(s - SEAM_BAND, 0):min(s + SEAM_BAND, h)] = True
+    for f, (a, b) in enumerate(zip(got, one)):
+        a, b = a.numpy(), b.numpy()
+        require(np.isfinite(a).all(), f"{what} frame {f}: not finite")
+        require(np.allclose(a[~band], b[~band], rtol=1e-4, atol=1e-5),
+                f"{what} frame {f}: off the seams, max |diff| "
+                f"{np.abs(a[~band] - b[~band]).max()}")
+        print(f"{what} frame {f}: {int((a[~band] != b[~band]).any(-1).sum())}"
+              f" of {int((~band).sum()) * a.shape[1]} off-band pixels not "
+              f"bit-equal to one device; band means {a[band].mean():.6f} "
+              f"sharded, {b[band].mean():.6f} one device", flush=True)
+    ma, mb = a[band].mean(), b[band].mean()
+    require(abs(ma - mb) < 0.15 * max(abs(mb), 1e-3),
+            f"{what}: the seam band's mean {ma} against {mb}")
+
+
+def multi_device(results: dict, card: str, host_city) -> dict:
+    """Phase 14: multi-device rendering over torch.distributed ranks
+    (tools_torch/sharded_frames.py starts them); returns the launch
+    counts of the ranks' timed city frames, summed over the ranks."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.ops import cuda_lib
+    from rtxpt_tpu_torch.post import tonemap
+    from rtxpt_tpu_torch.scene import procedural
+    from rtxpt_tpu_torch.utils import image as IM
+    from tools_torch import sharded_frames
+    size, backend = sharded_frames.choose_ranks()
+    print(f"multi-device: {size} ranks over {backend}, " + (
+        "one card each" if backend == "nccl" else
+        "all on cuda:0, the halo and gather buffers copied through host "
+        "memory") + f"; {card}", flush=True)
+    # the single-device oracles first, so nothing else runs on the card
+    # while the ranks are timed
+    one = parity_frames(procedural.build_programmer_art().finish())
+    w, h = SHARDED_CITY_SIZE
+    r = RealtimeRenderer(host_city, procedural.city_camera(w, h),
+                         device="cuda")
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        img = r.render_frame(w, h)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    one_city = tonemap.tonemap(img).cpu().numpy()
+    one_mean = float(img.mean())
+    del r, img
+    one_untaa = city_frames_no_taa(host_city)
+    print(f"multi-device: one device {w}x{h} city "
+          f"{sum(walls[2:]) / 3:.1f} ms/frame (frames "
+          f"{', '.join(f'{x:.1f}' for x in walls[2:])}) on {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+    cuda_lib.lib()                   # built before the ranks start
+    t0 = time.perf_counter()
+    res = sharded_frames.spawn(sharded_rank, size, backend,
+                               args=(host_city, SHADE), timeout_s=480)
+    print(f"multi-device: the ranks took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for stable in (False, True):
+        key = f"frames_{stable}"
+        require(all(x[f"sharded_{stable}"] for x in res),
+                f"{key}: stage 1 did not run on the ranks' rows")
+        for x in res[1:]:
+            require(all(torch.equal(a, b) for a, b in zip(x[key],
+                                                          res[0][key])),
+                    f"{key}: the ranks returned different frames")
+        check_seams(res[0][key], one[key], size,
+                    f"multi-device {'stable planes' if stable else 'PSR-lite'}"
+                    f" {PARITY_SIZE[0]}x{PARITY_SIZE[1]}")
+    for x in res:
+        a, b = x["render"].numpy(), one["render"].numpy()
+        require(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+                f"render_image_sharded: max |diff| {np.abs(a - b).max()}")
+    print(f"multi-device render_image_sharded {RENDER_1SPP_SIZE[0]}x"
+          f"{RENDER_1SPP_SIZE[1]}: {int((a != b).any(-1).sum())} pixels of "
+          f"{a.shape[0] * a.shape[1]} not bit-equal to render_sample",
+          flush=True)
+    city = [x["city"] for x in res]
+    img = city[0]["image"]
+    require(img.shape == (h, w, 3) and bool(torch.isfinite(img).all()),
+            "multi-device city: bad frame")
+    require(all(torch.equal(c["image"], img) for c in city[1:]),
+            "multi-device city: the ranks returned different frames")
+    require(all(c["sharded"] for c in city),
+            "multi-device city: stage 1 did not run on the ranks' rows")
+    mean = float(img.mean())
+    require(abs(mean - one_mean) < 0.05 * one_mean,
+            f"multi-device city: mean {mean} against one device's "
+            f"{one_mean}")
+    shown = tonemap.tonemap(img).numpy()
+    m = IM.compare(shown, one_city)
+    # rows beyond the reach of a seam (stage 1's band and ReLAX's halo)
+    # and of the frame's top and bottom (ReLAX's edge clamp)
+    far = np.ones(h, bool)
+    reach = SEAM_BAND + 34
+    for s in range(0, h + 1, h // size):
+        far[max(s - reach, 0):min(s + reach, h)] = False
+    far_db = IM.compare(shown[far], one_city[far])["psnr"]
+    print(f"multi-device city {w}x{h}, frame 5: PSNR {m['psnr']:.2f} dB "
+          f"against one device (tonemapped), {far_db:.2f} dB on the "
+          f"{int(far.sum())} rows farther than {reach} from a seam or the "
+          f"frame's edge; means {mean:.6f} and {one_mean:.6f}", flush=True)
+    sharded_frames.report(city, card, backend, w, h)
+    for x in res[1:]:
+        require(all(torch.equal(a, b) for a, b in zip(x["untaa"],
+                                                      res[0]["untaa"])),
+                "multi-device city without TAA: the ranks returned "
+                "different frames")
+    check_far_rows(res[0]["untaa"], one_untaa, size)
+    # rank 0's kernel checks on its rows' launches
+    results["realtime_sharded"].update(city[0]["after"])
+    total = {}
+    for c in city:
+        counts = c["launches"]
+        for name in RT_CITY_PATH:
+            require(counts[KERNELS[name][0]] > 0, f"{name} was not launched "
+                    f"on rank {c['rank']}'s city frames")
+        for name in ONE_LAUNCH["bvh8_trace_2l"][1] + ("shade_nee",):
+            require(counts[name] == 0, f"rank {c['rank']}'s city frames "
+                    f"launched {name}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return {"realtime_sharded": {name: total.get(KERNELS[name][0], 0)
+                                 for name in KERNELS}}
+
+
 def gather_instances(report: str):
     """Print the registers, shared memory and spills of every kernel
     instance of csrc/gather.cu from ptxas's report; none may spill."""
@@ -3319,6 +3646,8 @@ def main() -> int:
     launches.update(phase("skinned", skinned, results, card))
     launches["instanced_city"] = phase("instanced city", instanced_city,
                                        results, card)
+    launches.update(phase("multi-device", multi_device, results, card,
+                          host_city))
     lab_kernels = phase("labs K8, K9", labs, results)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]

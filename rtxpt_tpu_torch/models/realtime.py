@@ -29,8 +29,15 @@ upscaler (post/taau.py) in its place. All temporal state (reservoirs,
 denoiser, TAA and TAAU histories, the previous camera) lives on the
 renderer between frames. Each stage of the stable-planes frame runs
 inside a profiler range named "realtime:<stage>"
-(tools_torch/profile_render.py reads them). Not carried yet: multi-device
-meshes and animation; a mesh raises NotImplementedError.
+(tools_torch/profile_render.py reads them).
+
+With a `mesh` of more than one rank (parallel/meshutils.py; one process a
+device) each rank renders its slab of rows: stage 1 on its rows when the
+height divides by the mesh size (pt_frame_sharded), else on the whole
+frame on every rank; the denoiser on its rows with the neighbours' halo
+rows (denoise_taa_sharded); then the ranks gather the composed colour and
+the motion, and TAA or TAAU runs on the whole frame on every rank, which
+returns the whole frame.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ from ..core import mathutils as mu
 from ..core import rng
 from ..denoise import reblur, relax
 from ..ops.intersect import Hit
+from ..parallel import meshutils
 from ..post import taa as taa_mod
 from ..post import taau
 from ..pt import bsdf as B
@@ -84,9 +92,20 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
               prev_res: Optional[Reservoir],
               prev_gi: Optional[gi.GIReservoir], prev_gb_normal, prev_gb_z,
               px, py, consts, *, cfg: C.PTConfig, width: int, height: int,
-              has_prev: bool) -> FrameOutputs:
+              has_prev: bool, y0: int = 0, rows: Optional[int] = None,
+              prev_rows: Optional[int] = None) -> FrameOutputs:
     """PSR-lite stage 1: the G-buffer, ReSTIR DI, the indirect paths and
-    ReSTIR GI."""
+    ReSTIR GI.
+
+    The row window (parallel/meshutils.pt_frame_sharded): px, py are
+    `rows` rows of the frame from global row y0, and the previous frame's
+    buffers `prev_rows` rows centred on them (halo rows above and below).
+    The defaults are the whole frame."""
+    rows = height if rows is None else rows
+    prev_rows = rows if prev_rows is None else prev_rows
+    win = dict(y0=y0, rows=rows)
+    prev_win = dict(win, prev_y0=y0 - (prev_rows - rows) // 2,
+                    prev_rows=prev_rows)
     n = px.shape[0]
     dev = px.device
     with _range("realtime:gbuffer"):
@@ -104,10 +123,10 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
             if has_prev and prev_res is not None:
                 r = di.temporal_resample(assets, gb, r, prev_res,
                                          prev_gb_normal, prev_gb_z, px, py,
-                                         width, height, frame)
+                                         width, height, frame, **prev_win)
             r_feedback = r
             r = di.spatial_resample(assets, gb, r, px, py, width, height,
-                                    frame)
+                                    frame, **win)
             if not cfg.use_restir_gi:
                 di_d, di_s = di.final_shade(
                     assets, gb, r, exact_alpha=cfg.exact_alpha_test)
@@ -185,9 +204,10 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
             if has_prev and prev_gi is not None:
                 gr = gi.temporal_resample(gb, gr, prev_gi, prev_gb_normal,
                                           prev_gb_z, px, py, width, height,
-                                          frame)
+                                          frame, **prev_win)
             gi_feedback = gr
-            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame)
+            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame,
+                                     **win)
             if cfg.use_restir_di:
                 di_d, di_s, gi_d, gi_s = di.fused_final_shade(
                     assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
@@ -203,7 +223,7 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
     # delta chain is weighed by the chain's throughput
     env_bg = torch.where(gb.valid[..., None], 0.0,
                          gb.psr_thp * EM.eval_dir(assets.env, gb.view_dir))
-    shp = (height, width)
+    shp = (rows, width)
     r3 = lambda a: a.reshape(shp + (3,))
     return FrameOutputs(
         di_diffuse=r3(di_d), di_specular=r3(di_s),
@@ -218,9 +238,11 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
 
 
 def _post_frame(out: FrameOutputs, den_diff, den_spec, taa_state, *,
-                use_den: bool, use_taa: bool, method: str = "relax"):
-    """PSR-lite stage 2: demodulate, denoise, compose, TAA. Returns
-    (colour, diffuse and specular denoiser states, TAA state)."""
+                use_den: bool, use_taa: bool, method: str = "relax",
+                den=None):
+    """PSR-lite stage 2: demodulate, denoise (`den`'s `denoise`, by
+    default the method's module), compose, TAA. Returns (colour, diffuse
+    and specular denoiser states, TAA state)."""
     eps = 1e-3
     diff_in = (out.di_diffuse + out.indirect_diffuse) / torch.clamp(
         out.diffuse_albedo, min=eps)
@@ -229,7 +251,7 @@ def _post_frame(out: FrameOutputs, den_diff, den_spec, taa_state, *,
     relax_mask = None
     if use_den:
         with _range(f"realtime:{method}"):
-            den = DENOISERS[method]
+            den = den or DENOISERS[method]
             diff_f, den_diff = den.denoise(den_diff, diff_in, out.normal,
                                            out.view_z, out.motion)
             spec_f, den_spec = den.denoise(den_spec, spec_in, out.normal,
@@ -280,12 +302,19 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
                      prev_res: Optional[Reservoir],
                      prev_gi: Optional[gi.GIReservoir], prev_gb_normal,
                      prev_gb_z, px, py, consts, *, cfg: C.PTConfig,
-                     width: int, height: int, has_prev: bool):
+                     width: int, height: int, has_prev: bool, y0: int = 0,
+                     rows: Optional[int] = None,
+                     prev_rows: Optional[int] = None):
     """Stage 1: BUILD -> ReSTIR DI on the dominant plane -> FILL -> ReSTIR
     GI -> the per-plane radiance channels. Returns (planes, committed
     diffuse (N,P,4), committed specular (N,P,4), specular motion (N,P,2),
     DI feedback reservoir, GI feedback reservoir, G-buffer normal and
-    view depth)."""
+    view depth). y0/rows/prev_rows: the row window, as in _pt_frame."""
+    rows = height if rows is None else rows
+    prev_rows = rows if prev_rows is None else prev_rows
+    win = dict(y0=y0, rows=rows)
+    prev_win = dict(win, prev_y0=y0 - (prev_rows - rows) // 2,
+                    prev_rows=prev_rows)
     n = px.shape[0]
     dev = px.device
     P = cfg.stable_plane_count
@@ -308,12 +337,12 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             if has_prev and prev_res is not None:
                 r = di.temporal_resample(assets, gb, r, prev_res,
                                          prev_gb_normal, prev_gb_z, px, py,
-                                         width, height, frame)
+                                         width, height, frame, **prev_win)
             # the temporal output, not the spatial one, feeds the next
             # frame (RTXDI: spatially merged feedback loops energy)
             r_feedback = r
             r = di.spatial_resample(assets, gb, r, px, py, width, height,
-                                    frame)
+                                    frame, **win)
             if not cfg.use_restir_gi:
                 di_d, di_s = di.final_shade(
                     assets, gb, r, exact_alpha=cfg.exact_alpha_test)
@@ -367,9 +396,10 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             if has_prev and prev_gi is not None:
                 gr = gi.temporal_resample(gb, gr, prev_gi, prev_gb_normal,
                                           prev_gb_z, px, py, width, height,
-                                          frame)
+                                          frame, **prev_win)
             gi_feedback = gr
-            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame)
+            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame,
+                                     **win)
             if cfg.use_restir_di:
                 di_d, di_s, gi_d, gi_s = di.fused_final_shade(
                     assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
@@ -418,9 +448,11 @@ def dominant_motion(sp: SPM.StablePlanes, height: int, width: int):
 
 def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
                        den_states, taa_state, *, width: int, height: int,
-                       use_den: bool, use_taa: bool, method: str = "relax"):
+                       use_den: bool, use_taa: bool, method: str = "relax",
+                       den=None):
     """Stage 2: per plane demodulate -> denoise (ReLAX, or ReBLUR with the
-    channel's hit distance) -> remodulate -> merge with the stable
+    channel's hit distance; `den`'s `denoise` where given: the mesh's
+    ReLAX) -> remodulate -> merge with the stable
     radiance -> TAA (Sample::Denoise, Sample.cpp:2398-2440, and
     PostProcess's final merge). Returns (colour, denoiser states, TAA
     state, per-plane (diffuse, specular) outputs)."""
@@ -429,7 +461,7 @@ def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
     eps = 1e-3
     color = sp.stable_radiance.reshape(shp + (3,))
     new_den, plane_diff, plane_spec = [], [], []
-    den = DENOISERS[method]
+    den = den or DENOISERS[method]
     with _range(f"realtime:{method}"):
         for p in range(P):
             diff_est = sp.diff_est[:, p].reshape(shp + (3,))
@@ -487,7 +519,13 @@ class RealtimeRenderer(Renderer):
     `self.assets` between frames; every stage of `render_frame` reads the
     assets it is given, so nothing of the old pose is cached, and the
     temporal histories carry across the pose change, as in the reference
-    (rtxpt_tpu/models/realtime.py:638-861)."""
+    (rtxpt_tpu/models/realtime.py:638-861).
+
+    mesh: a parallel/meshutils.Mesh; the renderer works on the mesh's
+    device. With more than one rank every rank renders its rows and
+    render_frame returns the whole frame on every rank; the stage-1
+    feedback and the denoiser histories hold the rank's rows (`last_*`
+    too), the TAA and TAAU histories the whole frame."""
 
     def __init__(self, host_scene, camera, cfg: Optional[C.PTConfig] = None,
                  mesh=None, **kw):
@@ -497,13 +535,22 @@ class RealtimeRenderer(Renderer):
         cfg = cfg or realtime_config(use_restir_di=True, use_restir_gi=True,
                                      denoiser_enabled=True,
                                      use_stable_planes=True)
-        if mesh is not None:
-            raise NotImplementedError("multi-device realtime frames are "
-                                      "not ported yet")
         if cfg.denoiser_method not in DENOISERS:
             raise ValueError(f"denoiser_method {cfg.denoiser_method!r} is "
                              f"not one of {sorted(DENOISERS)}")
+        if mesh is not None:
+            # the reference's sharded post runs ReLAX whatever the method
+            # (rtxpt_tpu/parallel/meshutils.py:222); refuse, not switch
+            if mesh.size > 1 and cfg.denoiser_method != "relax":
+                raise ValueError(f"denoiser_method {cfg.denoiser_method!r}"
+                                 " with a mesh of more than one rank: the "
+                                 "sharded post runs ReLAX only")
+            kw.setdefault("device", mesh.device)
+            if torch.device(kw["device"]).type != mesh.device.type:
+                raise ValueError(f"device {kw['device']} is not the mesh's "
+                                 f"{mesh.device}")
         super().__init__(host_scene, camera, cfg, **kw)
+        self.mesh = mesh
         self.frame_index = 0
         self.prev_cam = self.camera
         self.prev_reservoir = None
@@ -520,6 +567,13 @@ class RealtimeRenderer(Renderer):
         self.last_stable_planes = None
         self.last_plane_radiance = None   # (committed diff, spec) (N,P,4)
         self.last_plane_denoised = None   # (P,H,W,3) diff / spec stacks
+
+    def _shard_stage1(self, height: int) -> bool:
+        """Stage 1 runs on each rank's rows when they divide evenly;
+        otherwise every rank runs the whole stage 1 and only the post
+        shards (the reference's rule)."""
+        return (self.mesh is not None and self.mesh.size > 1
+                and height % self.mesh.size == 0)
 
     def render_frame(self, width: int, height: int,
                      camera: Optional[CameraData] = None,
@@ -539,46 +593,86 @@ class RealtimeRenderer(Renderer):
         px, py = self._pixel_grid(width, height)
         consts = C.default_constants(sample_base_index=self.frame_index)
         has_prev = self.prev_reservoir is not None
-        n = width * height
+        sharded = self._shard_stage1(height)
+        if sharded:
+            rows = height // self.mesh.size
+            own = slice(self.mesh.rank * rows * width,
+                        (self.mesh.rank + 1) * rows * width)
+            px, py = px[own], py[own]
+        n = px.shape[0]
         z = lambda *s: torch.zeros((n,) + s, dtype=torch.float32,
                                    device=self.device)
         prev_n = self.prev_gb_normal if has_prev else z(3)
         prev_z = self.prev_gb_z if has_prev else z()
         use_den = self.cfg.denoiser_enabled if denoise is None else denoise
         taa = taa and display_size is None
+        # the post runs on each rank's rows where stage 1 did or the
+        # denoiser needs it (the reference's rule); else as one device
+        post_sharded = self.mesh is not None and self.mesh.size > 1 and (
+            sharded or use_den)
         method = self.cfg.denoiser_method
-        if self.cfg.use_stable_planes:
-            (sp, cdiff, cspec, smot, r_fb, gi_fb, gb_normal, gb_z) = \
-                _pt_frame_stable(
-                    self.assets, cam, self.prev_cam, self.prev_reservoir,
-                    self.prev_gi, prev_n, prev_z, px, py, consts,
-                    cfg=self.cfg, width=width, height=height,
-                    has_prev=has_prev)
+        frame = dict(width=width, height=height, has_prev=has_prev)
+        stage1_args = (self.assets, cam, self.prev_cam, self.prev_reservoir,
+                       self.prev_gi, prev_n, prev_z, px, py, consts)
+        kind = "stable" if self.cfg.use_stable_planes else "psr"
+        if sharded:
+            out = meshutils.pt_frame_sharded(self.mesh, kind, self.cfg,
+                                             *stage1_args, **frame)
+        else:
+            out = (_pt_frame_stable if kind == "stable" else _pt_frame)(
+                *stage1_args, cfg=self.cfg, **frame)
+        post = dict(use_den=use_den, method=method,
+                    use_taa=taa and not post_sharded)
+        if post_sharded:
+            # ReLAX on the rank's rows; TAA on the gathered frame below
+            post["den"] = meshutils.ShardedReLAX(self.mesh, height)
+        if kind == "stable":
+            (sp, cdiff, cspec, smot, r_fb, gi_fb, gb_normal, gb_z) = out
             if self.den_states is None:
                 self.den_states = [(None, None)] * \
                     self.cfg.stable_plane_count
+            self.last_plane_radiance = (cdiff, cspec)
+            self.last_stable_planes = sp
+            if post_sharded and not sharded:
+                # stage 1 ran on the whole frame: the post takes the
+                # rank's rows
+                flat = lambda a: meshutils.shard_rows(self.mesh, a.reshape(
+                    (height, width) + a.shape[1:])).reshape(
+                        (-1,) + a.shape[1:])
+                sp = type(sp)(*map(flat, sp))
+                cdiff, cspec, smot = flat(cdiff), flat(cspec), flat(smot)
+            rows = sp.dominant.shape[0] // width
             (color, self.den_states, self.taa_state,
              self.last_plane_denoised) = _post_frame_stable(
                 sp, cdiff, cspec, smot, self.den_states, self.taa_state,
-                width=width, height=height, use_den=use_den, use_taa=taa,
-                method=method)
-            self.last_plane_radiance = (cdiff, cspec)
-            self.last_stable_planes = sp
-            motion = dominant_motion(sp, height, width) \
-                if display_size is not None else None
+                width=width, height=rows, **post)
+            motion = dominant_motion(sp, rows, width) \
+                if post_sharded or display_size is not None else None
         else:
-            out = _pt_frame(self.assets, cam, self.prev_cam,
-                            self.prev_reservoir, self.prev_gi, prev_n,
-                            prev_z, px, py, consts, cfg=self.cfg,
-                            width=width, height=height, has_prev=has_prev)
-            color, self.den_diff, self.den_spec, self.taa_state = \
-                _post_frame(out, self.den_diff, self.den_spec,
-                            self.taa_state, use_den=use_den, use_taa=taa,
-                            method=method)
             self.last_outputs = out
             r_fb, gi_fb = out.reservoir, out.gi_reservoir
-            gb_normal, gb_z, motion = out.gb_normal, out.gb_view_z, \
-                out.motion
+            gb_normal, gb_z = out.gb_normal, out.gb_view_z
+            if post_sharded and not sharded:
+                out = out._replace(**{
+                    f: meshutils.shard_rows(self.mesh, getattr(out, f))
+                    for f in out._fields
+                    if f not in ("reservoir", "gi_reservoir", "gb_normal",
+                                 "gb_view_z")})
+            color, self.den_diff, self.den_spec, self.taa_state = \
+                _post_frame(out, self.den_diff, self.den_spec,
+                            self.taa_state, **post)
+            motion = out.motion
+        if post_sharded:
+            # what cannot be split by rows runs on the gathered frame
+            color, motion = self._gather_frame(
+                color, motion if taa or display_size is not None else None,
+                height)
+            if taa:
+                # the reference's sharded post resolves TAA without the
+                # denoiser's clamp relax (rtxpt_tpu/models/realtime.py:710)
+                with _range("realtime:taa"):
+                    color, self.taa_state = taa_mod.resolve(
+                        self.taa_state, color, motion)
         self.prev_cam = cam
         self.prev_reservoir = r_fb
         self.prev_gi = gi_fb
@@ -590,3 +684,12 @@ class RealtimeRenderer(Renderer):
                 color, self.taau_state = taau.resolve(
                     self.taau_state, color, motion, display_size, jitter=jit)
         return color
+
+    def _gather_frame(self, color, motion, height: int):
+        """The whole frame's colour, and motion where `motion` is given,
+        from every rank's rows: one gather."""
+        if motion is None:
+            return meshutils.gather_rows(self.mesh, color, height), None
+        both = meshutils.gather_rows(self.mesh, torch.cat([color, motion],
+                                                          -1), height)
+        return both[..., :3], both[..., 3:]

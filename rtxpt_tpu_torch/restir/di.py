@@ -143,23 +143,26 @@ def _geometry_similar(gb: GBuffer, n_other, z_other):
     return gb.valid & nrm_ok & z_ok
 
 
-def _reprojected(gb: GBuffer, px, py, width: int, height: int):
-    """(flat index of the previous frame's pixel, in-bounds mask)."""
+def _reprojected(gb: GBuffer, px, py, width: int, height: int,
+                 prev_y0: int, prev_rows: int):
+    """(flat index of the previous frame's pixel in the window of the
+    previous frame's buffers, in-bounds mask)."""
     prev_x = px.to(torch.float32) + gb.motion[..., 0]
     prev_y = py.to(torch.float32) + gb.motion[..., 1]
     in_bounds = (prev_x >= -0.5) & (prev_x < width - 0.5) & \
         (prev_y >= -0.5) & (prev_y < height - 0.5)
     flat = window_flat(torch.round(prev_x).to(torch.int64),
-                       torch.round(prev_y).to(torch.int64), width, 0, height,
-                       height)
+                       torch.round(prev_y).to(torch.int64), width, prev_y0,
+                       prev_rows, height)
     return flat, in_bounds
 
 
-def _tap_flat(px, py, u2, radius: float, width: int, height: int):
+def _tap_flat(px, py, u2, radius: float, width: int, height: int, y0: int,
+              rows: int):
     off = mu.sample_disk_concentric(u2) * radius
     return window_flat(px + torch.round(off[..., 0]).to(torch.int64),
                        py + torch.round(off[..., 1]).to(torch.int64),
-                       width, 0, height, height)
+                       width, y0, rows, height)
 
 
 def boiling_filter(w, width: int, height: int, strength: float = 8.0):
@@ -179,13 +182,23 @@ def boiling_filter(w, width: int, height: int, strength: float = 8.0):
 
 def temporal_resample(assets, gb: GBuffer, cur: Reservoir, prev: Reservoir,
                       prev_normal, prev_view_z, px, py, width: int,
-                      height: int, sample_index: int) -> Reservoir:
+                      height: int, sample_index: int, y0: int = 0,
+                      rows: int = None, prev_y0: int = 0,
+                      prev_rows: int = None) -> Reservoir:
     """TemporalResampling.hlsl: reproject with the motion vectors, validate
-    the geometry, clamp the history M, merge, boiling filter."""
+    the geometry, clamp the history M, merge, boiling filter.
+
+    y0/rows: the row window of the current buffers (row-sharded stage 1,
+    parallel/meshutils.pt_frame_sharded); prev_y0/prev_rows: the window
+    of the previous frame's buffers, which carry halo rows. The defaults
+    are the whole frame."""
+    rows = height if rows is None else rows
+    prev_rows = height if prev_rows is None else prev_rows
     g = rng.make(px, py, 0, sample_index)
     g = rng.start_effect(g, EFFECT_RESTIR_TEMPORAL)
     g, u = rng.next_1d(g)
-    flat, in_bounds = _reprojected(gb, px, py, width, height)
+    flat, in_bounds = _reprojected(gb, px, py, width, height, prev_y0,
+                                   prev_rows)
     trows = torch.cat([packs.pack_reservoir(prev), prev_normal,
                        prev_view_z[..., None]], -1)[flat]
     pr = packs.unpack_reservoir(trows)
@@ -198,7 +211,7 @@ def temporal_resample(assets, gb: GBuffer, cur: Reservoir, prev: Reservoir,
                                        pr.light, pr.uv)
     out = merge(cur, pr, p_hat, u)
     boiling = boiling_filter(out.contribution_weight() * out.target, width,
-                             height)
+                             rows)
     return out._replace(light=torch.where(boiling, LIGHT_INVALID, out.light),
                         w_sum=torch.where(boiling, 0.0, out.w_sum),
                         target=torch.where(boiling, 0.0, out.target))
@@ -206,7 +219,8 @@ def temporal_resample(assets, gb: GBuffer, cur: Reservoir, prev: Reservoir,
 
 def spatial_resample(assets, gb: GBuffer, cur: Reservoir, px, py,
                      width: int, height: int, sample_index: int,
-                     taps: int = 2, radius: float = 20.0) -> Reservoir:
+                     taps: int = 2, radius: float = 20.0, y0: int = 0,
+                     rows: int = None) -> Reservoir:
     """SpatialResampling.hlsl with RTXDI's pairwise MIS: each neighbour
     stream i is paired with the canonical (centre) stream c,
 
@@ -215,7 +229,11 @@ def spatial_resample(assets, gb: GBuffer, cur: Reservoir, px, py,
 
     (a rejected neighbour cedes its 1/k share to the canonical stream).
     Generalized RIS gives W = w_sum / p_hat(y); w_sum is stored times M so
-    that contribution_weight(), which divides by M, still holds."""
+    that contribution_weight(), which divides by M, still holds.
+
+    y0/rows: the row window of the current buffers; the taps clamp to its
+    rows (the default window is the whole frame)."""
+    rows = height if rows is None else rows
     n = px.shape[0]
     g = rng.make(px, py, 0, sample_index)
     g = rng.start_effect(g, EFFECT_RESTIR_SPATIAL)
@@ -233,7 +251,8 @@ def spatial_resample(assets, gb: GBuffer, cur: Reservoir, px, py,
     for _ in range(taps):
         g, u2 = rng.next_2d(g)
         g, u = rng.next_1d(g)
-        trows = rows_all[_tap_flat(px, py, u2, radius, width, height)]
+        trows = rows_all[_tap_flat(px, py, u2, radius, width, height, y0,
+                                   rows)]
         nb = packs.unpack_reservoir(trows[..., :8])
         sim = _geometry_similar(gb, trows[..., 8 + 3:8 + 6],
                                 trows[..., 8 + 9]) & \

@@ -116,13 +116,18 @@ def _similar(gb: GBuffer, n_other, z_other):
 
 def temporal_resample(gb: GBuffer, cur: GIReservoir, prev: GIReservoir,
                       prev_normal, prev_z, px, py, width: int, height: int,
-                      frame: int) -> GIReservoir:
+                      frame: int, y0: int = 0, rows: int = None,
+                      prev_y0: int = 0, prev_rows: int = None
+                      ) -> GIReservoir:
     """GITemporalResampling.hlsl: reprojection, geometry test, history
-    clamp, merge (same-point reconnection: Jacobian 1), boiling filter."""
+    clamp, merge (same-point reconnection: Jacobian 1), boiling filter.
+    Row windows as in di.temporal_resample."""
+    rows = height if rows is None else rows
+    prev_rows = height if prev_rows is None else prev_rows
     g = rng.make(px, py, 0, frame)
     g = rng.start_effect(g, EFFECT_RESTIR_GI_TEMPORAL)
     g, u = rng.next_1d(g)
-    flat, in_b = _reprojected(gb, px, py, width, height)
+    flat, in_b = _reprojected(gb, px, py, width, height, prev_y0, prev_rows)
     trows = torch.cat([packs.pack_gi_reservoir(prev), prev_normal,
                        prev_z[..., None]], -1)[flat]
     pr = packs.unpack_gi_reservoir(trows[..., :14])
@@ -133,7 +138,7 @@ def temporal_resample(gb: GBuffer, cur: GIReservoir, prev: GIReservoir,
                                   pr.radiance, pr.valid)
     r = _merge(cur, pr, p_hat, torch.ones_like(p_hat), u)
     boiling = boiling_filter(r.contribution_weight() * r.target, width,
-                             height)
+                             rows)
     return r._replace(valid=r.valid & ~boiling,
                       w_sum=torch.where(boiling, 0.0, r.w_sum),
                       target=torch.where(boiling, 0.0, r.target))
@@ -141,9 +146,12 @@ def temporal_resample(gb: GBuffer, cur: GIReservoir, prev: GIReservoir,
 
 def spatial_resample(gb: GBuffer, cur: GIReservoir, px, py, width: int,
                      height: int, frame: int, taps: int = 2,
-                     radius: float = 16.0) -> GIReservoir:
+                     radius: float = 16.0, y0: int = 0,
+                     rows: int = None) -> GIReservoir:
     """GISpatialResampling.hlsl: merge neighbours that pass the geometry
-    test, each weighted by its reconnection Jacobian (clamped to 10)."""
+    test, each weighted by its reconnection Jacobian (clamped to 10). The
+    taps clamp to the row window y0/rows (default: the whole frame)."""
+    rows = height if rows is None else rows
     g = rng.make(px, py, 0, frame)
     g = rng.start_effect(g, EFFECT_RESTIR_GI_SPATIAL)
     r = cur
@@ -153,7 +161,8 @@ def spatial_resample(gb: GBuffer, cur: GIReservoir, px, py, width: int,
     for _ in range(taps):
         g, u2 = rng.next_2d(g)
         g, u = rng.next_1d(g)
-        trows = rows_all[_tap_flat(px, py, u2, radius, width, height)]
+        trows = rows_all[_tap_flat(px, py, u2, radius, width, height, y0,
+                                   rows)]
         nb = packs.unpack_gi_reservoir(trows[..., :14])
         sim = _similar(gb, trows[..., 17:20], trows[..., 20])
         nb = nb._replace(m=torch.where(sim, nb.m, 0.0), valid=nb.valid & sim)

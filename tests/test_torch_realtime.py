@@ -31,6 +31,7 @@ from rtxpt_tpu_torch import interop
 from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
 from rtxpt_tpu_torch.models.renderer import realtime_config
 from rtxpt_tpu_torch.ops import cuda_lib
+from rtxpt_tpu_torch.parallel import meshutils
 from rtxpt_tpu_torch.scene import envmap as TEM
 from rtxpt_tpu_torch.scene import procedural as TP
 
@@ -136,13 +137,16 @@ def test_realtime_frames_match_reference(reference, tables,
 
 @pytest.mark.parametrize("what", ["mesh"])
 def test_unported_options_raise(what):
-    """The part of the realtime mode that waits for a later slice (a
-    multi-device mesh) refuses to run instead of rendering something
-    else."""
+    """What a multi-device mesh does not carry (ReBLUR on more than one
+    rank: the reference's sharded post runs ReLAX whatever the method)
+    refuses to run instead of rendering something else."""
     host, cam = TP.build_programmer_art().finish(), TP.default_camera(8, 6)
     env = TEM.bake_procedural_sky(height=16)
     kw = dict(use_restir_di=True, use_restir_gi=True, denoiser_enabled=True,
-              use_stable_planes=True, max_bounces=1)
-    with pytest.raises(NotImplementedError):
-        RealtimeRenderer(host, cam, realtime_config(**kw), mesh=object(),
+              use_stable_planes=True, max_bounces=1,
+              denoiser_method="reblur")
+    mesh = meshutils.Mesh(group=None, rank=0, size=2,
+                          device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="ReLAX only"):
+        RealtimeRenderer(host, cam, realtime_config(**kw), mesh=mesh,
                          env_radiance=env, device="cpu")

@@ -360,3 +360,110 @@ def test_fused_final_shade(world, di_chain, gi_chain):
                                 _to_port(gi_chain["spatial"], True))
     for a, b in zip(got, gi_chain["fused"]):
         _close(a, b)
+
+
+# ---- row windows (the row-sharded stage 1, parallel/meshutils.py): the
+# current buffers hold rows Y0..Y0+ROWS-1 of the frame, the previous
+# frame's rows PREV_Y0..PREV_Y0+PREV_ROWS-1 (a halo of 2 rows)
+Y0, ROWS, PREV_Y0, PREV_ROWS = 4, 4, 2, 8
+WINDOWED = ["di_temporal", "di_spatial", "gi_temporal", "gi_spatial"]
+
+
+def _rows_of(tree, y0, rows):
+    """Rows y0..y0+rows-1 of every per-pixel array of a NamedTuple tree,
+    reference (jax) or port (torch)."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rows_of(x, y0, rows) for x in tree))
+    return tree[y0 * W:(y0 + rows) * W]
+
+
+def _window_calls(world, di_chain, gi_chain, stage):
+    """(the reference's call, the port's call) of `stage` on the window's
+    rows, each taking the window keywords."""
+    j, cur = world, lambda t: _rows_of(t, Y0, ROWS)
+    prev = lambda t: _rows_of(t, PREV_Y0, PREV_ROWS)
+    jgb, tgb = cur(j.jgb), cur(j.tgb)
+    jpx, jpy, px, py = cur(j.jpx), cur(j.jpy), cur(j.px), cur(j.py)
+    if stage == "di_temporal":
+        return (lambda **k: JDI.temporal_resample(
+                    j.ja, jgb, cur(di_chain["cand"]), prev(di_chain["prev"]),
+                    prev(j.jgb), jpx, jpy, W, H, FRAME, **k),
+                lambda **k: TDI.temporal_resample(
+                    j.ta, tgb, _to_port(cur(di_chain["cand"])),
+                    _to_port(prev(di_chain["prev"])), prev(j.tgb.normal),
+                    prev(j.tgb.view_z), px, py, W, H, FRAME, **k))
+    if stage == "di_spatial":
+        return (lambda **k: JDI.spatial_resample(
+                    j.ja, jgb, cur(di_chain["temporal"]), jpx, jpy, W, H,
+                    FRAME, **k),
+                lambda **k: TDI.spatial_resample(
+                    j.ta, tgb, _to_port(cur(di_chain["temporal"])), px, py,
+                    W, H, FRAME, **k))
+    if stage == "gi_temporal":
+        return (lambda **k: JGI.temporal_resample(
+                    jgb, cur(gi_chain["init"]), prev(gi_chain["prev"]),
+                    prev(j.jgb.normal), prev(j.jgb.view_z), jpx, jpy, W, H,
+                    FRAME, **k),
+                lambda **k: TGI.temporal_resample(
+                    tgb, _to_port(cur(gi_chain["init"]), True),
+                    _to_port(prev(gi_chain["prev"]), True),
+                    prev(j.tgb.normal), prev(j.tgb.view_z), px, py, W, H,
+                    FRAME, **k))
+    return (lambda **k: JGI.spatial_resample(
+                jgb, cur(gi_chain["temporal"]), jpx, jpy, W, H, FRAME, **k),
+            lambda **k: TGI.spatial_resample(
+                tgb, _to_port(cur(gi_chain["temporal"]), True), px, py, W,
+                H, FRAME, **k))
+
+
+@pytest.mark.parametrize("stage", WINDOWED)
+def test_row_window_matches_reference(world, di_chain, gi_chain, stage):
+    """A stage on a window's rows, with y0/rows (and prev_y0/prev_rows),
+    against the reference's on the same rows: the taps and the
+    reprojection clamp to the window, the boiling filter's blocks start at
+    its first row."""
+    ref_fn, port_fn = _window_calls(world, di_chain, gi_chain, stage)
+    kw = dict(y0=Y0, rows=ROWS)
+    if stage.endswith("temporal"):
+        kw.update(prev_y0=PREV_Y0, prev_rows=PREV_ROWS)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("RTXPT_DENSE_INTERPRET", "1")
+        ref = ref_fn(**kw)
+    got = port_fn(**kw)
+    assert got.m.shape[0] == ROWS * W
+    (_same_gi if stage.startswith("gi") else _same_reservoir)(got, ref)
+    # the window changes the result: the whole-frame clamp reads rows
+    # outside the window's buffers
+    assert not all(torch.equal(a, b) for a, b in zip(
+        got, port_fn(y0=0, rows=ROWS, prev_y0=0, prev_rows=PREV_ROWS)
+        if stage.endswith("temporal") else port_fn(y0=0, rows=ROWS)))
+
+
+@pytest.mark.parametrize("stage", WINDOWED)
+def test_whole_frame_window_is_default(world, di_chain, gi_chain, stage):
+    """The window keywords set to the whole frame leave a call bit-equal to
+    the call without them."""
+    j = world
+    if stage == "di_temporal":
+        call = lambda **k: TDI.temporal_resample(
+            j.ta, j.tgb, _to_port(di_chain["cand"]),
+            _to_port(di_chain["prev"]), j.tgb.normal, j.tgb.view_z, j.px,
+            j.py, W, H, FRAME, **k)
+    elif stage == "di_spatial":
+        call = lambda **k: TDI.spatial_resample(
+            j.ta, j.tgb, _to_port(di_chain["temporal"]), j.px, j.py, W, H,
+            FRAME, **k)
+    elif stage == "gi_temporal":
+        call = lambda **k: TGI.temporal_resample(
+            j.tgb, _to_port(gi_chain["init"], True),
+            _to_port(gi_chain["prev"], True), j.tgb.normal, j.tgb.view_z,
+            j.px, j.py, W, H, FRAME, **k)
+    else:
+        call = lambda **k: TGI.spatial_resample(
+            j.tgb, _to_port(gi_chain["temporal"], True), j.px, j.py, W, H,
+            FRAME, **k)
+    kw = dict(y0=0, rows=H)
+    if stage.endswith("temporal"):
+        kw.update(prev_y0=0, prev_rows=H)
+    for a, b in zip(call(**kw), call()):
+        assert torch.equal(a, b)
