@@ -214,16 +214,46 @@ its seconds):
      reach of a seam, the frame's edge and (from the second frame) the
      rows whose boiling-filter block differs on their rank. A rank that
      fails or runs past 480 s fails the phase;
-  15. the labs: every micro-kernel of the traversal-ingredient lab (K8,
+  15. tools (the debug views, debug print, debug lines, delta tree,
+     viewer and profiler of rtxpt_tpu_torch/utils/ and app/viewer.py): on
+     the 1920x1080 city (two-level), the first debug view's camera trace
+     and surface fetch (K2 on its tables and on the first ReSTIR view's
+     light and environment rows, K3 on its blend) against their plain
+     versions, as in 5.; then every surface view (the OMM views
+     among them), the ReSTIR DI stage views, ReGIRIndirectOutput and
+     inspect_pixel with the counters set to 0 just before (path
+     "debug_views": `bvh8_trace_2l` once per trace call, the surface fetch
+     once per load_surface call, K2 launched, no K4; the slowest view's
+     ms and all views' together printed), and every pipeline view on
+     phase 7's stable planes and phase 8's PSR-lite outputs at 1080p (no
+     extra frames). On programmer-art at 64x48, the card against the CPU:
+     every view (PSNR > 40 dB against [0, 1]; the hashed views equal where
+     the G-buffer prims agree; the ReSTIR stage views off the lanes whose
+     reservoir picked another sample, at most 2%; the pipeline views on
+     the card's frames copied to the CPU), explore_pixel on the glass
+     pixel of tests/test_deltatree.py (the same nodes; ms a node printed),
+     print_path within 1e-4, mat_pack bit-equal after set_material, a
+     render after update_environment (PSNR > 40 dB). The web viewer
+     (ViewerApp(device="cuda") at 640x360 on 127.0.0.1, a free port): a
+     reference frame (the dense trace once per trace call, the surface
+     fetch once per load_surface call, K4 once per bounce), a material
+     edit, realtime frames and a debug-view frame, each request's ms
+     printed. The CLI's --debug-* flags with --device cuda (the tables
+     equal the library's). One realtime frame inside profiling.trace: the
+     Chrome trace names the dense trace, surface-fetch and shade kernels;
+  16. the labs: every micro-kernel of the traversal-ingredient lab (K8,
      tools_torch/kernel_lab.py) against its plain version at 16
      iterations, and its microseconds per iteration at 2,000; each mode of
      the dense-trace lab (K9, tools_torch/profile_mt_kernel.py) on the
      bench camera rays, the "gate" mode's visit counts equal to its plain
      version and the others' winners against the plain K1;
-  16. print a JSON line describing the kernels (each kernel's numbers on
-     every path that checks it under `by_path`; at the top level, those
-     of the first main path that runs it, else of the first path that
-     checks it, named in `measured_on`), then the result line.
+  17. print the seconds of the two-level checks' plain compositions
+     (each run once: its result is compared, its CUDA-event time is the
+     path's plain_ms), then a JSON line describing the kernels (each
+     kernel's numbers on every path that checks it under `by_path`; at
+     the top level, those of the first main path that runs it, else of
+     the first path that checks it, named in `measured_on`), then the
+     result line.
 
 Each kernel's `bound_ms` is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its float operations over
@@ -316,6 +346,9 @@ SKINNED_DENSE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                       "shade_nee")
 INSTANCED_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
                   "shade_nee")
+# the debug views on the city (phase 15): the G-buffer's two-level traces
+# and surface fetches, and the ReSTIR views' light and environment rows
+DEBUG_VIEWS_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
 # a kernel that runs once per trace call: (the module whose trace_closest
 # and trace_anyhit make those calls, the kernels its path no longer runs)
 ONE_LAUNCH = {"bvh8_trace_2l": ("rtxpt_tpu_torch.ops.bvh2l",
@@ -336,7 +369,7 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_skinned": RT_SKINNED_PATH,
          "skinned_dense": SKINNED_DENSE_PATH,
          "instanced_city": INSTANCED_PATH,
-         "realtime_sharded": RT_CITY_PATH}
+         "realtime_sharded": RT_CITY_PATH, "debug_views": DEBUG_VIEWS_PATH}
 # the bench workload's configuration and size (width, height, spp), the
 # city's size, and the reference configurations other than the default
 # that phase 6 renders the bench under
@@ -1026,7 +1059,7 @@ def check_surface_kernels(cap, label, lanes=None, fill=False,
     blend, the parent's calls; raises where a kernel disagrees."""
     shade = "shade_nee_fill" if fill else "shade_nee"
     require(cap.calls["gather_surface"]
-            and (cap.calls[shade] or not shade_pass),
+            and (not shade_pass or cap.calls[shade]),
             f"{label}: no surface fetch or {shade} launch captured")
     args = cap.calls["gather_surface"][0][0]
     k2, k3 = surface_inputs(args)
@@ -1483,8 +1516,10 @@ def check_two_level(traces, label) -> dict:
         tag = f"bvh8_trace_2l {label} {what}"
         stats = {}
         got = T8.trace_bvh8_2l(*args, **kw)
-        ref = bvh2l.trace_two_level_plain(*args, **kw, stats=stats)
-        torch.cuda.synchronize()
+        # the plain composition runs once: its result is compared and its
+        # CUDA-event time is plain_ms
+        ref, pms = timed_call(lambda: bvh2l.trace_two_level_plain(
+            *args, **kw, stats=stats))
         lanes, err = int(act.sum()), 0.0
         if kw["any_hit"]:
             agree = int((got == ref)[act].sum())
@@ -1502,8 +1537,6 @@ def check_two_level(traces, label) -> dict:
                         f"{tag}: t/u/v outside rtol 1e-5 / atol 1e-6")
         frac = agree / max(lanes, 1)
         ms = time_ms(lambda: T8.trace_bvh8_2l(*args, **kw), 20)
-        pms = time_ms(lambda: bvh2l.trace_two_level_plain(*args, **kw), 1,
-                      warmup=False)
         trace = bvh2l.trace_anyhit if kw["any_hit"] else bvh2l.trace_closest
         c_ms = call_ms(lambda: trace(tl, o, d, tmax, act))
         m_ms = PB.run_modes(args, kw)
@@ -2098,9 +2131,10 @@ def realtime_frames(r, w, h, label, card, path, warmups=2,
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
 
 
-def realtime(results: dict, card: str, host_city) -> dict:
+def realtime(results: dict, card: str, host_city, kept: dict) -> dict:
     """The realtime phase (7.); returns the launch counts of its timed
-    frames by path."""
+    frames by path, and keeps the 1080p city's last stable-planes frame
+    for phase 15's views in kept["stable"]."""
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
     from rtxpt_tpu_torch.scene import procedural
     launches = {}
@@ -2119,6 +2153,7 @@ def realtime(results: dict, card: str, host_city) -> dict:
     # the captured frame was the no-history warm-up
     launches["realtime_city"] = realtime_frames(r, w, h, "city", card,
                                                 RT_CITY_PATH, warmups=1)
+    kept["stable"] = keep_stable(r)
     del r
     torch.cuda.empty_cache()
 
@@ -2205,9 +2240,12 @@ def estimator_oracle(host, stable: bool):
             f"ref-vs-realtime oracle ({what}) failed")
 
 
-def realtime_pipelines(results: dict, card: str, host_city) -> dict:
+def realtime_pipelines(results: dict, card: str, host_city,
+                       kept: dict) -> dict:
     """The realtime pipelines phase (8.): PSR-lite, TAAU and ReBLUR on
-    the card; returns the launch counts of its timed frames by path."""
+    the card; returns the launch counts of its timed frames by path, and
+    keeps the 1080p PSR-lite city's last frame outputs for phase 15's
+    views in kept["psr"]."""
     from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
     from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
                                                  reference_config)
@@ -2233,6 +2271,7 @@ def realtime_pipelines(results: dict, card: str, host_city) -> dict:
     torch.cuda.empty_cache()
     launches["realtime_city_psr"] = realtime_frames(
         r, w, h, "city PSR-lite", card, RT_CITY_PSR_PATH, warmups=1)
+    kept["psr"] = dict(frame_outputs=r.last_outputs)
     del r
     torch.cuda.empty_cache()
 
@@ -3559,6 +3598,533 @@ def multi_device(results: dict, card: str, host_city) -> dict:
                                  for name in KERNELS}}
 
 
+# ---- phase 15: the tools and UI -------------------------------------------
+
+# the views that shade a reservoir on the re-traced G-buffer, and those
+# that read a realtime frame's outputs alone
+RESTIR_VIEWS = ("ReSTIRDIInitialOutput", "ReSTIRDITemporalOutput",
+                "ReSTIRDISpatialOutput", "ReGIRIndirectOutput")
+FRAME_OUTPUT_VIEWS = ("DenoiserDiffRadiance", "DenoiserSpecRadiance",
+                      "ReSTIRDIOutput", "ReSTIRGIOutput",
+                      "ReSTIRDIFinalContribution", "SecondarySurfacePosition",
+                      "SecondarySurfaceRadiance")
+HASHED_VIEWS = ("MaterialID", "FirstHitShaderPermutation")
+VIEWER_SIZE = (640, 360)
+# the glass pixel of tests/test_deltatree.py at 160x120 (its probe order)
+GLASS_PROBE = [(x, y) for y in (73, 71, 75) for x in (88, 86, 90, 84, 92)]
+
+
+def view_groups():
+    """(surface views, stable-plane views) of debugviews.VIEWS: the views
+    that re-trace the G-buffer and read nothing else (the OMM views among
+    them), and the views of a stable-planes frame."""
+    from rtxpt_tpu_torch.utils import debugviews as DV
+    stable = [v for v in DV.VIEWS
+              if v.startswith("StablePlane") or v == "StableRadiance"]
+    other = set(stable) | set(RESTIR_VIEWS) | set(FRAME_OUTPUT_VIEWS) \
+        | {"NaNSanitizer"}
+    return [v for v in DV.VIEWS if v not in other], stable
+
+
+def keep_stable(r) -> dict:
+    """The debug views' inputs from a stable-planes RealtimeRenderer's
+    last frame."""
+    return dict(stable_planes=r.last_stable_planes,
+                plane_radiance=r.last_plane_radiance,
+                plane_denoised=r.last_plane_denoised,
+                den_states=r.den_states)
+
+
+def view_psnr(a, b) -> float:
+    """PSNR of two views against their range [0, 1] (inf where equal)."""
+    mse = float(np.mean((np.asarray(a, np.float64)
+                         - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0.0 else float(-10.0 * np.log10(mse))
+
+
+def timed_view(view, *args, **kw):
+    """(the view as a tensor, its host-clock ms ending in a synchronize)."""
+    from rtxpt_tpu_torch.utils import debugviews as DV
+    t0 = time.perf_counter()
+    img = DV.render_debug_view(view, *args, **kw)
+    torch.cuda.synchronize()
+    return img, (time.perf_counter() - t0) * 1e3
+
+
+def city_debug_views(results: dict, card: str, host_city, kept: dict):
+    """Every surface view (the OMM views among them), the ReSTIR DI stage
+    views, ReGIRIndirectOutput and inspect_pixel on the 1920x1080 city
+    (the two-level tier), then the pipeline views of phase 7's stable
+    planes and phase 8's PSR-lite frame outputs; the first view's camera
+    trace and surface fetch are held against their plain versions.
+    Returns the launch counts of path "debug_views"."""
+    from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
+    from rtxpt_tpu_torch.ops import bvh2l, cuda_lib
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import debugviews as DV
+    w, h = 1920, 1080
+    r = Renderer(host_city, procedural.city_camera(w, h), reference_config(),
+                 env_radiance=EM.bake_procedural_sky(height=64),
+                 device="cuda")
+    require(isinstance(r.accel, bvh2l.BVH8TwoLevel),
+            "debug views: the city is not on the two-level tier")
+    cam = r._camera(w, h, (0.0, 0.0))
+    surface, stable = view_groups()
+
+    # the first view's camera trace and surface fetch against their plain
+    # versions, and K2 on the tables of the surface fetch and of the first
+    # ReSTIR view (the light and environment rows)
+    with Capture({"trace_bvh8_2l": 1, "gather_rows": 16,
+                  "gather_surface": 1}) as cap:
+        DV.render_debug_view(surface[0], r.assets, cam, w, h)
+        DV.render_debug_view(RESTIR_VIEWS[0], r.assets, cam, w, h)
+        torch.cuda.synchronize()
+    require(not cap.calls["trace_bvh8_2l"][0][1]["any_hit"],
+            "debug views: the first trace is not the camera's")
+    results["debug_views"].update(check_two_level(
+        [("camera", cap.calls["trace_bvh8_2l"][0], True)], "debug_views"))
+    results["debug_views"].update(check_surface_kernels(
+        cap, "debug_views", shade_pass=False))
+    del cap
+
+    # the path: every view that re-traces the G-buffer and inspect_pixel,
+    # with the counters set to 0 just before
+    fo = kept["psr"]["frame_outputs"]
+    ms = {}
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    with TraceCalls(ONE_LAUNCH["bvh8_trace_2l"][0]) as tc, \
+            SurfaceCalls() as sc:
+        for view in surface + list(RESTIR_VIEWS):
+            img, ms[view] = timed_view(
+                view, r.assets, cam, w, h, frame_outputs=fo
+                if view == "ReSTIRDITemporalOutput" else None)
+            require(img.shape == (h, w, 3) and bool(torch.isfinite(img).all())
+                    and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                    f"debug view {view}: bad image")
+        t0 = time.perf_counter()
+        pick = DV.inspect_pixel(r.assets, cam, w, h, w // 2, h // 2)
+        inspect_ms = (time.perf_counter() - t0) * 1e3
+    counts = cuda_lib.launch_counts()
+    n_gbuffer = len(surface) + len(RESTIR_VIEWS) + 1
+    slowest = max(ms, key=ms.get)
+    print(f"debug views city {w}x{h}: {len(ms)} views re-tracing the "
+          f"G-buffer in {sum(ms.values()):.1f} ms (slowest {slowest} "
+          f"{ms[slowest]:.1f} ms; FirstHitShadingNormal "
+          f"{ms['FirstHitShadingNormal']:.1f} ms), inspect_pixel "
+          f"{inspect_ms:.1f} ms (prim {pick['prim']}, t {pick['t']:.4f}) on "
+          f"{card}; {n_gbuffer} trace_gbuffer calls, {tc.n} two-level trace "
+          f"calls (3 a G-buffer: the camera and 2 PSR segments, and "
+          f"ReSTIR's visibility traces), {sc.n} load_surface calls; "
+          f"launches {counts}", flush=True)
+    require(pick["valid"], "inspect_pixel: the centre pixel missed")
+    for name in DEBUG_VIEWS_PATH:
+        require(counts[KERNELS[name][0]] > 0,
+                f"{name} was not launched on the debug views path")
+    require_one_launch_per_trace(counts, tc.n, "debug views")
+    require_one_surface_fetch(counts, sc.n, "debug views")
+    require(counts["shade_nee"] == counts["shade_nee_fill"] == 0,
+            "debug views: K4 launched")
+    del r
+
+    # the pipeline views at 1080p on the inputs phases 7 and 8 kept
+    pms = {}
+    for views, kw in ((stable, kept["stable"]),
+                      (FRAME_OUTPUT_VIEWS, dict(frame_outputs=fo))):
+        for view in views:
+            img, pms[view] = timed_view(view, None, None, w, h, **kw)
+            require(img.shape == (h, w, 3) and bool(torch.isfinite(img).all()),
+                    f"debug view {view}: bad image")
+    slowest = max(pms, key=pms.get)
+    print(f"debug views city {w}x{h}: {len(pms)} pipeline views (stable "
+          f"planes of phase 7, PSR-lite outputs of phase 8) in "
+          f"{sum(pms.values()):.1f} ms (slowest {slowest} "
+          f"{pms[slowest]:.1f} ms)", flush=True)
+    return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}
+
+
+def shaded_reservoir(view, assets, gb, px, py, w, h, fo):
+    """The reservoir a ReSTIR DI stage view shades, recomputed on the
+    devices of `assets` (render_debug_view's, with the frame outputs
+    `fo`)."""
+    from rtxpt_tpu_torch.restir import di
+    if view == "ReSTIRDITemporalOutput":
+        return fo.reservoir
+    if view == "ReSTIRDIInitialOutput":
+        return di.generate_candidates(assets, gb, px, py, 0)
+    return di.spatial_resample(assets, gb, fo.reservoir, px, py, w, h, 0)
+
+
+def tools_gpu_vs_cpu():
+    """Programmer-art at 64x48 on the card against the CPU: every view
+    (PSNR > 40 dB against [0, 1]; the hashed views equal where the
+    G-buffer prims agree; the ReSTIR stage views off the lanes whose
+    reservoir picked another sample, at most 2%, as
+    tests/test_torch_debugviews.py holds them; the pipeline views on the
+    card's realtime frames copied to the CPU), explore_pixel on the glass
+    pixel (the same nodes), print_path within 1e-4, mat_pack after
+    set_material bit-equal, and a render after update_environment."""
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import (Renderer, realtime_config,
+                                                 reference_config)
+    from rtxpt_tpu_torch.pt import gbuffer as GB
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import debugprint as DP
+    from rtxpt_tpu_torch.utils import debugviews as DV
+    from rtxpt_tpu_torch.utils import deltatree as DT
+    from rtxpt_tpu_torch.utils import image as IM
+    host = procedural.build_programmer_art().finish()
+    w, h = 64, 48
+    devs = ("cuda", "cpu")
+    env = EM.bake_procedural_sky(height=32)
+    rs = {d: Renderer(host, procedural.default_camera(w, h),
+                      reference_config(), env_radiance=env, device=d)
+          for d in devs}
+    cams = {d: rs[d]._camera(w, h, (0.0, 0.0)) for d in devs}
+    grid = {d: rs[d]._pixel_grid(w, h) for d in devs}
+    gbs = {d: GB.trace_gbuffer(rs[d].assets, cams[d], cams[d], *grid[d])
+           for d in devs}
+    same_prim = (gbs["cuda"].prim.cpu() == gbs["cpu"].prim).numpy()
+    # the pipeline views' inputs: the card's realtime frames, copied
+    st = RealtimeRenderer(host, procedural.default_camera(w, h),
+                          env_radiance=env, device="cuda")
+    ps = RealtimeRenderer(host, procedural.default_camera(w, h),
+                          realtime_config(use_restir_di=True,
+                                          use_restir_gi=True,
+                                          denoiser_enabled=True,
+                                          use_stable_planes=False),
+                          env_radiance=env, device="cuda")
+    for _ in range(2):
+        color = st.render_frame(w, h)
+        ps.render_frame(w, h)
+    color = color.reshape(-1, 3).clone()
+    color[::97] = float("nan")
+    kw = {"cuda": dict(keep_stable(st), frame_outputs=ps.last_outputs,
+                       color=color)}
+    kw["cpu"] = to_cpu(kw["cuda"])
+    low, flips = [], {}
+    for view in DV.VIEWS:
+        imgs = [DV.render_debug_view(view, rs[d].assets, cams[d], w, h,
+                                     **kw[d]).cpu().numpy() for d in devs]
+        keep = np.ones(w * h, bool)
+        if view in HASHED_VIEWS:
+            keep = same_prim
+        elif view in RESTIR_VIEWS[:3]:
+            res = [shaded_reservoir(view, rs[d].assets, gbs[d], *grid[d], w,
+                                    h, kw[d]["frame_outputs"]) for d in devs]
+            keep = (res[0].light.cpu() == res[1].light).numpy() & np.isclose(
+                res[0].uv.cpu().numpy(), res[1].uv.numpy(), rtol=1e-4,
+                atol=1e-5).all(-1)
+            flips[view] = int((~keep).sum())
+            require(flips[view] <= 0.02 * w * h,
+                    f"{view} GPU vs CPU: {flips[view]} reservoirs flipped")
+        a, b = (x.reshape(-1, 3)[keep] for x in imgs)
+        if view in HASHED_VIEWS:
+            require(np.array_equal(a, b),
+                    f"{view} GPU vs CPU: not equal where the prims agree")
+        else:
+            db = view_psnr(a, b)
+            low.append((db, view))
+            require(db > PSNR_MIN, f"{view} GPU vs CPU: PSNR {db:.2f} dB")
+    low.sort()
+    print(f"debug views GPU vs CPU (plain) {w}x{h}: {len(DV.VIEWS)} views, "
+          f"prims agree on {same_prim.mean():.4%} of pixels, lowest PSNR "
+          + ", ".join(f"{v} {db:.2f} dB" for db, v in low[:3])
+          + f"; reservoirs flipped {flips}", flush=True)
+
+    # the delta tree on the glass pixel, and the print slots
+    tw, th = 160, 120
+    tr = {d: Renderer(host, procedural.default_camera(tw, th),
+                      reference_config(), env_radiance=env, device=d)
+          for d in devs}
+    tcam = {d: tr[d]._camera(tw, th, (0.0, 0.0)) for d in devs}
+    pixel = next((p for p in GLASS_PROBE
+                  if any(len(n.lobes) >= 2 for n in DT.explore_pixel(
+                      tr["cpu"].assets, tcam["cpu"], *p,
+                      max_vertex_depth=3).nodes)), None)
+    require(pixel is not None, "no forking delta tree on the glass row")
+    trees = {}
+    for d in devs:
+        t0 = time.perf_counter()
+        trees[d] = DT.explore_pixel(tr[d].assets, tcam[d], *pixel)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            tree_ms = (time.perf_counter() - t0) * 1e3
+    g, c = trees["cuda"], trees["cpu"]
+    require([(n.vertex_index, n.branch_id, n.material_id, n.is_miss,
+              n.plane_slot, n.on_stable_path, n.is_dominant, len(n.lobes))
+             for n in g.nodes]
+            == [(n.vertex_index, n.branch_id, n.material_id, n.is_miss,
+                 n.plane_slot, n.on_stable_path, n.is_dominant, len(n.lobes))
+                for n in c.nodes]
+            and g.plane_branch_ids == c.plane_branch_ids
+            and g.dominant_plane == c.dominant_plane,
+            f"delta tree GPU vs CPU at {pixel}: the nodes differ")
+    t_err = max(float(np.abs(n.throughput - m.throughput).max())
+                for n, m in zip(g.nodes, c.nodes))
+    slots = {}
+    for d in devs:
+        t0 = time.perf_counter()
+        slots[d] = DP.print_path(tr[d].assets, tcam[d], *pixel)
+        if d == "cuda":
+            torch.cuda.synchronize()
+            print_ms = (time.perf_counter() - t0) * 1e3
+    require([s["label"] for s in slots["cuda"]]
+            == [s["label"] for s in slots["cpu"]]
+            and all(np.allclose(a["value"], b["value"], rtol=0, atol=1e-4)
+                    for a, b in zip(slots["cuda"], slots["cpu"])),
+            f"print_path GPU vs CPU at {pixel}: the slots differ")
+    print(f"delta tree at {pixel} ({tw}x{th}): {len(g.nodes)} nodes, the "
+          f"same on the card and the CPU (throughput max |diff| "
+          f"{t_err:.3g}); {tree_ms:.1f} ms on the card, "
+          f"{tree_ms / len(g.nodes):.2f} ms a node; print_path "
+          f"{len(slots['cuda'])} slots in {print_ms:.1f} ms", flush=True)
+
+    # live edits: the same edits on both devices, then a render after a
+    # new environment
+    panel = int(np.argmax(np.asarray(host["materials"]["emissive"]).max(-1)))
+    for d in devs:
+        rs[d].set_material(0, base_color=(0.9, 0.1, 0.1), roughness=0.3)
+        rs[d].set_material(2, metalness=0.8)
+        rs[d].set_material(panel, emissive=(4.0, 3.0, 2.0))
+    require(torch.equal(rs["cuda"].scene.mat_pack.cpu(),
+                        rs["cpu"].scene.mat_pack),
+            "set_material GPU vs CPU: mat_pack differs")
+    sky = EM.bake_procedural_sky(height=32, sun_dir=(-0.5, 0.2, -0.8),
+                                 sky_scale=0.2)
+    imgs = []
+    for d in devs:
+        rs[d].update_environment(sky)
+        imgs.append(rs[d].tonemapped(rs[d].render(w, h, 2)).cpu().numpy())
+    m = IM.compare(imgs[0], imgs[1])
+    print(f"live edits GPU vs CPU (plain) {w}x{h} 2spp: mat_pack bit-equal "
+          f"after 3 set_material calls, the render after update_environment "
+          f"PSNR {m['psnr']:.2f} dB", flush=True)
+    require(np.isfinite(imgs[0]).all() and m["psnr"] > PSNR_MIN,
+            f"update_environment GPU vs CPU: {m}")
+
+
+def to_cpu(tree):
+    """A copy of a nest of tensors, tuples, lists and dicts on the CPU."""
+    if torch.is_tensor(tree):
+        return tree.cpu()
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_cpu(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree
+
+
+def viewer_request(port, method, path, body=None):
+    """(status, body bytes, headers, ms) of one HTTP request."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path,
+                     body=json.dumps(body) if body is not None else None)
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, data, dict(resp.getheaders()), \
+            (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def viewer_on_card(card: str):
+    """The web viewer on the card: ViewerApp(device="cuda") at 640x360 on
+    127.0.0.1, a free port; one reference frame (its launches counted:
+    the dense trace once per trace call, the surface fetch once per
+    load_surface call, K4 once per bounce), one realtime frame, one
+    debug-view frame and one material edit, each request's ms printed."""
+    from rtxpt_tpu_torch.app.viewer import ViewerApp, serve
+    from rtxpt_tpu_torch.ops import cuda_lib
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    w, h = VIEWER_SIZE
+    t0 = time.perf_counter()
+    app = ViewerApp(procedural.build_programmer_art().finish(),
+                    procedural.default_camera(w, h), w, h,
+                    env=EM.bake_procedural_sky(height=64),
+                    realtime_overrides=dict(mode="reference"),
+                    device="cuda")
+    srv, th = serve(app, 0)
+    port = srv.server_address[1]
+    build_s = time.perf_counter() - t0
+    out = {}
+    try:
+        def frame(what, body):
+            status, png, hdrs, ms = viewer_request(port, "POST",
+                                                   "/api/frame", body)
+            require(status == 200 and png[:4] == b"\x89PNG",
+                    f"viewer {what}: status {status}")
+            out[what] = (ms, app.frame_ms, hdrs.get("X-Stats", ""))
+
+        status, state, _, ms = viewer_request(port, "GET", "/api/state")
+        require(status == 200 and len(json.loads(state)["materials"]) > 0,
+                "viewer /api/state")
+        out["state"] = (ms, 0.0, "")
+        frame("reference warm-up", {"keys": ["w"]})
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        with TraceCalls(ONE_LAUNCH["mt_dense_fused"][0]) as tc, \
+                SurfaceCalls() as sc, ShadeCalls() as shc:
+            frame("reference", {"keys": []})
+        counts = cuda_lib.launch_counts()
+        require(app._renderer.sample_index == 2,
+                "viewer: the still frame did not accumulate")
+        require_one_launch_per_trace(counts, tc.n, "viewer reference frame",
+                                     "mt_dense_fused")
+        require_one_surface_fetch(counts, sc.n, "viewer reference frame")
+        require_one_shade_per_bounce(counts, shc.n, "viewer reference frame")
+        ref_counts = counts
+        status, _, _, ms = viewer_request(port, "POST", "/api/material",
+                                          {"index": 0,
+                                           "base_color": [0.9, 0.2, 0.1],
+                                           "roughness": 0.4})
+        require(status == 200 and float(app._renderer.scene.mat_pack[0, 0])
+                == np.float32(0.9), "viewer /api/material")
+        out["material edit"] = (ms, 0.0, "")
+        frame("reference after the edit", {"keys": []})
+        require(app._renderer.sample_index == 1,
+                "viewer: the material edit did not restart accumulation")
+        status, _, _, ms = viewer_request(port, "POST", "/api/config",
+                                          {"mode": "realtime"})
+        require(status == 200, "viewer /api/config")
+        out["switch to realtime"] = (ms, 0.0, "")
+        frame("realtime warm-up", {"keys": []})
+        frame("realtime warm-up 2", {"keys": []})
+        frame("realtime", {"keys": ["d"], "dx": 2.0})
+        viewer_request(port, "POST", "/api/config",
+                       {"debug_view": "FirstHitShadingNormal"})
+        frame("debug view", {"keys": []})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+    require(not th.is_alive(), "viewer: the server thread did not stop")
+    print(f"viewer {w}x{h} on {card} (built in {build_s:.2f} s): "
+          + "; ".join(f"{what} {ms:.1f} ms" + (f" (frame {fms:.1f} ms)"
+                                                if fms else "")
+                      for what, (ms, fms, _) in out.items())
+          + f"; the reference frame's launches {ref_counts} over {tc.n} "
+          f"trace calls, {sc.n} load_surface calls, {shc.n} bounces",
+          flush=True)
+
+
+def profiler_trace(card: str):
+    """One realtime frame (programmer-art 640x360, stable planes with
+    ReSTIR DI + GI, ReLAX and TAA, 2 bounces: the trace holds an event for
+    every tensor op and kernel, about 80 MB on the CPU already) inside
+    profiling.trace: the written Chrome trace must name the frame's
+    trace, surface-fetch and shade kernels and its BUILD stage."""
+    import tempfile
+    from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+    from rtxpt_tpu_torch.models.renderer import realtime_config
+    from rtxpt_tpu_torch.scene import procedural
+    from rtxpt_tpu_torch.utils import profiling
+    w, h = VIEWER_SIZE
+    r = RealtimeRenderer(procedural.build_programmer_art().finish(),
+                         procedural.default_camera(w, h),
+                         realtime_config(use_restir_di=True,
+                                         use_restir_gi=True,
+                                         denoiser_enabled=True,
+                                         use_stable_planes=True,
+                                         max_bounces=2,
+                                         max_diffuse_bounces=1),
+                         device="cuda")
+    r.render_frame(w, h)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as folder:
+        t0 = time.perf_counter()
+        with profiling.trace(folder) as prof:
+            r.render_frame(w, h)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(prof.trace_path) as f:
+            text = f.read()
+        size = len(text)
+    names = ("mt_dense_fused_kernel", "gather_surface_kernel",
+             "shade_nee_kernel", "realtime:build")
+    found = {n: text.count(n) for n in names}
+    print(f"profiling.trace of one realtime frame {w}x{h} on {card}: "
+          f"{wall:.2f} s with the trace written, {size / 1e6:.1f} MB; "
+          f"occurrences {found}", flush=True)
+    require(all(found.values()), f"profiler trace: missing names {found}")
+
+
+def cli_debug_flags():
+    """The CLI's debug flags with --device cuda (programmer-art 64x48):
+    --debug-view saves a PNG; --debug-print-pixel, --debug-delta-tree and
+    --debug-lines-pixel print what the library prints for the CLI's
+    camera and change the saved image."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from rtxpt_tpu_torch.app import cli
+    from rtxpt_tpu_torch.models.renderer import Renderer
+    from rtxpt_tpu_torch.scene import envmap as EM, procedural
+    from rtxpt_tpu_torch.utils import debugprint as DP
+    from rtxpt_tpu_torch.utils import deltatree as DT
+    from rtxpt_tpu_torch.utils import image as IM
+    w, h, pix = 64, 48, (32, 24)
+    size = ["--width", str(w), "--height", str(h), "--device", "cuda",
+            "--quiet"]
+    flags = ["--spp", "1", "--max-bounces", "4"]
+    with tempfile.TemporaryDirectory() as folder:
+        out = {k: os.path.join(folder, f"{k}.png")
+               for k in ("view", "plain", "tools")}
+        require(cli.main(size + ["--debug-view", "FirstHitShadingNormal",
+                                 "--output", out["view"]]) == 0,
+                "cli --debug-view")
+        require(cli.main(size + flags + ["--output", out["plain"]]) == 0,
+                "cli render")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            require(cli.main(size + flags + [
+                "--output", out["tools"],
+                "--debug-print-pixel", "%d,%d" % pix,
+                "--debug-delta-tree", "%d,%d" % pix,
+                "--debug-lines-pixel", "%d,%d" % pix]) == 0,
+                "cli debug flags")
+        view = IM.load_png(out["view"])
+        plain, lined = IM.load_png(out["plain"]), IM.load_png(out["tools"])
+    r = Renderer(procedural.build_programmer_art().finish(),
+                 procedural.default_camera(w, h),
+                 env_radiance=EM.bake_procedural_sky(), device="cuda")
+    cam = r.camera._replace(viewport=torch.tensor(
+        [w, h], dtype=torch.float32, device="cuda"))
+    want = DP.format_slots(DP.print_path(r.assets, cam, *pix)) + "\n" + \
+        DT.format_tree(DT.explore_pixel(r.assets, cam, *pix)) + "\n"
+    drawn = int((plain != lined).any(-1).sum())
+    print(f"CLI --device cuda {w}x{h}: --debug-view PNG {view.shape}, "
+          f"mean {view.mean():.2f}; the print and delta-tree tables "
+          f"({len(want.splitlines())} lines) equal the library's; "
+          f"--debug-lines-pixel changed {drawn} pixels", flush=True)
+    require(view.shape == (h, w, 3) and view.std() > 0,
+            "cli --debug-view: a flat image")
+    require(text.getvalue() == want,
+            f"cli debug tables differ from the library's:\n"
+            f"{text.getvalue()}\n{want}")
+    require(drawn > 0, "cli --debug-lines-pixel drew nothing")
+
+
+def tools(results: dict, card: str, host_city, kept: dict) -> dict:
+    """Phase 15: the tools and UI on the card; returns the launch counts
+    of path "debug_views"."""
+    launches = {"debug_views": city_debug_views(results, card, host_city,
+                                                kept)}
+    kept.clear()                     # the 1080p frames' outputs
+    torch.cuda.empty_cache()
+    tools_gpu_vs_cpu()
+    cli_debug_flags()
+    viewer_on_card(card)
+    profiler_trace(card)
+    return launches
+
+
 def gather_instances(report: str):
     """Print the registers, shared memory and spills of every kernel
     instance of csrc/gather.cu from ptxas's report; none may spill."""
@@ -3625,6 +4191,7 @@ def main() -> int:
     results = {p: {} for p in PATHS}
     results["labs"] = {}
     launches = {}
+    kept = {}                        # phase 7 and 8 frames for phase 15
     phase("kernels: dense trace, K1-K4, K7", check_kernels, results)
     phase("goldens", check_goldens)
     launches["bench"], bench_hdr = phase("bench", bench, card)
@@ -3636,9 +4203,10 @@ def main() -> int:
                                         host_city, geometry_s)
     launches.update(phase("reference configurations", reference_configs,
                           results, card, host_city, bench_hdr, city_mean))
-    launches.update(phase("realtime", realtime, results, card, host_city))
+    launches.update(phase("realtime", realtime, results, card, host_city,
+                          kept))
     launches.update(phase("realtime pipelines", realtime_pipelines, results,
-                          card, host_city))
+                          card, host_city, kept))
     launches["foliage_dense"] = phase("foliage dense", foliage_dense,
                                       results, card)
     launches.update(phase("city foliage", city_foliage, results, card))
@@ -3648,7 +4216,15 @@ def main() -> int:
                                        results, card)
     launches.update(phase("multi-device", multi_device, results, card,
                           host_city))
+    launches.update(phase("tools", tools, results, card, host_city, kept))
     lab_kernels = phase("labs K8, K9", labs, results)
+    # each two-level check runs its plain composition once, its result
+    # compared and its CUDA-event time its plain_ms
+    plain = [r["bvh8_trace_2l"]["plain_ms"] for r in results.values()
+             if "bvh8_trace_2l" in r]
+    print(f"the two-level checks' plain compositions: {len(plain)} paths, "
+          f"{sum(plain) / 1e3:.1f} s of timed traces, one run each",
+          flush=True)
     for p, names in PATHS.items():
         missing = [n for n in names if n not in results[p]]
         require(not missing, f"{p}: {missing} not checked at this path's "

@@ -22,7 +22,12 @@ offline photo-mode denoiser on a reference-mode render. A glTF scene's
 animations: `--animate-time T` poses its skins and animated nodes at T
 seconds before a reference render; `--animate` (realtime) advances them
 before each frame, frame i at i / `--animate-fps`; `--animation-index`
-picks the file's animation.
+picks the file's animation. The debug tools (reference mode):
+`--debug-view NAME` saves a debug channel (utils/debugviews.py VIEWS)
+in place of the render; after the render, `--debug-print-pixel X,Y`
+prints the pixel's DebugPrint slots, `--debug-delta-tree X,Y` its delta
+tree, and `--debug-lines-pixel X,Y` draws its bounce chain over the
+saved image.
 """
 from __future__ import annotations
 
@@ -91,6 +96,22 @@ def build_arg_parser():
                    "frame at --animate-fps")
     p.add_argument("--animate-fps", type=float, default=60.0)
     p.add_argument("--animation-index", type=int, default=0)
+    p.add_argument("--debug-view", default=None,
+                   help="reference mode: render a debug channel instead of "
+                   "the beauty pass (ShaderDebug DebugViewType); see "
+                   "rtxpt_tpu_torch.utils.debugviews.VIEWS")
+    p.add_argument("--debug-print-pixel", default=None, metavar="X,Y",
+                   help="print the DebugPrint slot table of pixel X,Y "
+                   "after the render (ShaderDebug.hlsli Print + feedback "
+                   "readback)")
+    p.add_argument("--debug-delta-tree", default=None, metavar="X,Y",
+                   help="explore pixel X,Y's delta tree after the render "
+                   "and print the branch and plane report "
+                   "(DeltaTreeVizExplorePixel, Sample.hlsl:332-357)")
+    p.add_argument("--debug-lines-pixel", default=None, metavar="X,Y",
+                   help="overlay the traced bounce chain of pixel X,Y as "
+                   "debug lines on the output (the pick-pixel DebugLines "
+                   "visualization)")
     return p
 
 
@@ -179,9 +200,38 @@ def _run_realtime(args, host, cam, env, frames: int, settings: dict,
     return 0
 
 
+def _pixel_arg(text: str):
+    x, y = (int(v) for v in text.split(","))
+    return x, y
+
+
+def _debug_tools(args, r, cam, srgb):
+    """The post-render debug flags on renderer `r` and camera `cam`: print
+    the DebugPrint slots and the delta tree, and overlay the debug lines
+    on the tonemapped image `srgb`, which is returned."""
+    if args.debug_print_pixel:
+        from ..utils import debugprint as DP
+        print(DP.format_slots(DP.print_path(
+            r.assets, cam, *_pixel_arg(args.debug_print_pixel))))
+    if args.debug_delta_tree:
+        from ..utils import deltatree as DT
+        print(DT.format_tree(DT.explore_pixel(
+            r.assets, cam, *_pixel_arg(args.debug_delta_tree))))
+    if args.debug_lines_pixel:
+        from ..utils import debuglines as DL
+        dx, dy = _pixel_arg(args.debug_lines_pixel)
+        srgb = DL.rasterize_overlay(
+            srgb, DL.lines_for_path(r.assets, cam, dx, dy), cam)
+        if not args.quiet:
+            print(f"debug lines: pixel ({dx},{dy}) path overlay")
+    return srgb
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     import dataclasses
+
+    import torch
 
     from ..config import apply_scene_settings
     from ..models.renderer import Renderer, reference_config
@@ -217,6 +267,17 @@ def main(argv=None) -> int:
     if args.animate_time is not None and anim_info is not None:
         # pose skinned and rigid node animations (Scene::Refresh) at T
         r.animate(anim_info, args.animate_time, args.animation_index)
+    # the debug tools see the output size as the camera's viewport
+    cam_dbg = r.camera._replace(viewport=torch.tensor(
+        [args.width, args.height], dtype=torch.float32, device=r.device))
+    if args.debug_view:
+        from ..utils import debugviews as DV
+        img = DV.render_debug_view(args.debug_view, r.assets, cam_dbg,
+                                   args.width, args.height)
+        IM.save_png(args.output, img.cpu().numpy())
+        if not args.quiet:
+            print(f"wrote debug view {args.debug_view} -> {args.output}")
+        return 0
     if args.checkpoint:
         r.load_checkpoint(args.checkpoint)
 
@@ -247,6 +308,7 @@ def main(argv=None) -> int:
         print(f"rendered {args.width}x{args.height} @ {spp}spp on "
               f"{args.device} in {total:.2f}s "
               f"({paths / max(total, 1e-9) / 1e6:.2f} Mpaths/s)")
+    srgb = _debug_tools(args, r, cam_dbg, srgb)
     IM.save_png(args.output, srgb.cpu().numpy())
     if args.dump_npy:
         IM.save_npy(args.dump_npy, hdr.cpu().numpy())

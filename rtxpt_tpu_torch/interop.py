@@ -4,15 +4,15 @@ package's.
 The parity tests run both packages on identical tables: the reference
 builds its SceneArrays packs, DenseMT planes, BVH8, two-level BVH8 or
 instanced TLAS tables, EnvMap and LightTable, and these functions turn
-their fields (as numpy arrays) into the port's device tables. The realtime converters do
-the same for the state one frame hands the next (stable planes, the
-G-buffer, ReSTIR reservoirs, ReLAX and ReBLUR histories, the TAA and TAAU
-histories); the reference's uint32 branch ids and nested-dielectric
-stacks become the port's int64. Of the BVHs only the f32
-tables are carried; the reference's bf16 planes serve its TPU kernel.
-The port's own host build is checked against the same tables
-separately. Nothing here imports the reference package: every
-input is read with ``numpy.asarray``.
+their fields (as numpy arrays) into the port's device tables. The
+realtime converters do the same for the state one frame hands the next
+(stable planes, the G-buffer, a PSR-lite frame's outputs, ReSTIR
+reservoirs, ReLAX and ReBLUR histories, the TAA and TAAU histories);
+the reference's uint32 branch ids and nested-dielectric stacks become the
+port's int64. Of the BVHs only the f32 tables are carried; the
+reference's bf16 planes serve its TPU kernel. The port's own host build
+is checked against the same tables separately. Nothing here imports the
+reference package: every input is read with ``numpy.asarray``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 
 from .denoise.reblur import ReblurState
 from .denoise.relax import DenoiserState
+from .models.realtime import FrameOutputs
 from .ops.bvh import BVH8
 from .ops.bvh2l import BVH8TwoLevel
 from .ops.instanced import InstancedTL
@@ -260,3 +261,13 @@ def stable_planes_from_reference(sp, device="cuda") -> StablePlanes:
     return _fields(sp, StablePlanes, dict(
         branch_id=i64, vertex_index=i64, prim=torch.int32, interior=i64,
         dominant=i64), device)
+
+
+def frame_outputs_from_reference(fo, device="cuda"):
+    """The port's FrameOutputs from the reference's (a PSR-lite frame's
+    outputs); the reference's `color` field, always zeros there, has no
+    counterpart."""
+    return _fields(fo, FrameOutputs, {}, device,
+                   reservoir=reservoir_from_reference(fo.reservoir, device),
+                   gi_reservoir=gi_reservoir_from_reference(fo.gi_reservoir,
+                                                            device))

@@ -62,9 +62,10 @@ from ..restir import di, gi
 from ..restir.reservoir import Reservoir
 from ..scene import envmap as EM
 from ..scene.camera import CameraData
+from ..utils import profiling
 from .renderer import Renderer, r2_jitter, realtime_config
 
-_range = torch.profiler.record_function
+_range = profiling.named_scope
 DENOISERS = {"relax": relax, "reblur": reblur}
 
 

@@ -44,6 +44,7 @@ from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene import omm as OMM
 from ..scene import textures as TX
+from ..scene import types as ST
 from ..scene.build import to_device
 from ..scene.camera import CameraData
 
@@ -141,20 +142,25 @@ class Renderer:
         self.env = EM.make_envmap(env_radiance, intensity=env_intensity,
                                   enabled=self.cfg.use_env_lights,
                                   device=self.device)
+        # the analytic lights stay for the light-table rebuild of an
+        # emissive edit (set_material)
+        self.analytic_lights = analytic_lights
         self.lights = (LI.build_light_table(host_scene, analytic_lights,
                                             device=self.device)
                        if self.cfg.use_emissive_lights else None)
-        self.accel = build_trace_structure(
-            host_scene, self.device, OMM.bake_opacity_masks(host_scene))
+        tri_omm = OMM.bake_opacity_masks(host_scene)
+        self.accel = build_trace_structure(host_scene, self.device, tri_omm)
         self.scene = to_device(host_scene, self.device, TX.build_texture_stack(
             host_scene.get("texture_images"),
             srgb=host_scene.get("texture_srgb"), device=self.device))
         self.assets = integrator.RenderAssets(
             scene=self.scene, env=self.env, lights=self.lights,
-            accel=self.accel)
+            accel=self.accel,
+            tri_omm=torch.as_tensor(tri_omm, device=self.device))
         # accumulation state (resumable: buffer + index are the checkpoint)
         self.accum = None
         self.sample_index = 0
+        self.posed = False            # animate() has moved the triangles
 
     def _pixel_grid(self, width: int, height: int):
         yy, xx = np.mgrid[0:height, 0:width]
@@ -275,9 +281,67 @@ class Renderer:
             animation_index)
         self.lights = LI.refresh_pack(self.lights, self.scene.positions,
                                       self.scene.indices)
+        self.posed = True
         self.assets = dataclasses.replace(self.assets, scene=self.scene,
                                           accel=self.accel,
                                           lights=self.lights)
+
+    def update_environment(self, env_radiance, intensity: float = 1.0):
+        """Swap in a new environment (EnvMapBaker::Update, Sample.cpp:
+        1495-1521): the importance pyramid and alias tables are rebuilt
+        from the equirect radiance `env_radiance` on the renderer's device;
+        an animated sun is `bake_procedural_sky(sun_dir=...)` fed here each
+        frame. No other scene state is touched."""
+        self.env = EM.make_envmap(env_radiance, intensity=intensity,
+                                  enabled=self.cfg.use_env_lights,
+                                  device=self.device)
+        self.assets = dataclasses.replace(self.assets, env=self.env)
+
+    def set_material(self, index: int, base_color=None, roughness=None,
+                     metalness=None, emissive=None):
+        """Live material edit (the SampleUI material editor,
+        RTXPT/SampleUI.cpp:1254,1382): the material's row of `mat_pack`,
+        which the surface fetch reads, is written in place on the device,
+        so the table stays one contiguous (M, 46) tensor and nothing is
+        rebuilt. An emissive edit also writes the host materials and
+        rebuilds the light table with the scene's analytic lights (the
+        reference's PrepareLightsPass runs every frame); on a posed scene
+        the rebuilt rows take the posed triangles. Accumulation and the
+        realtime histories are not reset."""
+        mp = self.scene.mat_pack
+        for col, val, k in ((ST.MP_BASE, base_color, 3),
+                            (ST.MP_ROUGH, roughness, 1),
+                            (ST.MP_METAL, metalness, 1),
+                            (ST.MP_EMISSIVE, emissive, 3)):
+            if val is not None:
+                mp[index, col:col + k] = torch.as_tensor(
+                    np.asarray(val, np.float32).reshape(k), device=mp.device)
+        if emissive is not None and self.cfg.use_emissive_lights:
+            mats = self.host_scene["materials"]
+            mats["emissive"] = np.array(mats["emissive"])
+            mats["emissive"][index] = np.asarray(emissive, np.float32)
+            self.lights = LI.build_light_table(
+                self.host_scene, self.analytic_lights, device=self.device)
+            if self.posed:
+                self.lights = LI.refresh_pack(
+                    self.lights, self.scene.positions, self.scene.indices)
+            self.assets = dataclasses.replace(self.assets,
+                                              lights=self.lights)
+
+    def material_info(self):
+        """The editable material list of the UI: index, name, base
+        colour, roughness, metalness and emission of every material, read
+        from `mat_pack` in one copy to the host."""
+        mp = self.scene.mat_pack.cpu().numpy()
+        names = self.host_scene.get("material_names") or \
+            [f"material {i}" for i in range(mp.shape[0])]
+        return [dict(index=i, name=str(names[i]),
+                     base_color=mp[i, ST.MP_BASE:ST.MP_BASE + 3].tolist(),
+                     roughness=float(mp[i, ST.MP_ROUGH]),
+                     metalness=float(mp[i, ST.MP_METAL]),
+                     emissive=mp[i, ST.MP_EMISSIVE:ST.MP_EMISSIVE + 3]
+                     .tolist())
+                for i in range(mp.shape[0])]
 
     def tonemapped(self, hdr, exposure: float = 1.0,
                    auto_expose: bool = True):

@@ -76,6 +76,9 @@ class RenderAssets:
     accel: object   # ops.mt_dense.DenseMT / ops.bvh.BVH8 / ops.bvh2l.BVH8TwoLevel
     env_presampled: Optional[EM.PresampledEnv] = None   # per sample
     regir: Optional[object] = None   # restir.regir.ReGIRGrid, per sample
+    # (T,) i32 opacity masks by triangle (scene/omm.py; 0xFFFF: none), read
+    # by the OMM debug views; animation does not change them
+    tri_omm: Optional[torch.Tensor] = None
 
 
 class PathState(NamedTuple):

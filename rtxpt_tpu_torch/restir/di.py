@@ -11,7 +11,7 @@ RTXDI's pairwise MIS. Visibility rays go through pt/visibility.py.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -112,15 +112,20 @@ def presample_lights(assets, sample_index: int, tiles: int = 32,
 
 
 def generate_candidates(assets, gb: GBuffer, px, py, sample_index: int,
-                        ris: RISTiles, num_local: int = 4,
+                        ris: Optional[RISTiles] = None, num_local: int = 4,
                         num_env: int = 4) -> Reservoir:
     """GenerateInitialSamples.hlsl: RIS over num_local + num_env
-    candidates drawn from one random tile of the pre-sampled pool."""
+    candidates drawn from one random tile of the pre-sampled pool; with no
+    pool (`ris` None, as the ReSTIRDIInitialOutput debug view calls it),
+    power-sampled local lights and environment importance samples drawn
+    per pixel."""
     n = px.shape[0]
     g = rng.make(px, py, 0, sample_index)
     g = rng.start_effect(g, EFFECT_RESTIR_INITIAL)
     r = Reservoir.empty(n, px.device)
     sp = packs.pack_surface(gb)
+    if ris is None:
+        return _direct_candidates(assets, sp, g, r, num_local, num_env)
     g, u_tile = rng.next_1d(g, allow_ld=False)
     tile = torch.clamp((u_tile * ris.tiles).to(torch.int64),
                        max=ris.tiles - 1) * ris.size
@@ -133,6 +138,37 @@ def generate_candidates(assets, gb: GBuffer, px, py, sample_index: int,
         uv = row[..., 1:3]
         p_hat = packs.surface_target_cheap(assets, sp, light, uv)
         r = update(r, light, uv, p_hat * row[..., 3], p_hat, u2[..., 1])
+    return r
+
+
+def _direct_candidates(assets, sp, g, r: Reservoir, num_local: int,
+                       num_env: int) -> Reservoir:
+    """generate_candidates without the pre-sampled pool
+    (rtxpt_tpu/restir/di.py:200-239): each local candidate picks a light by
+    power and a point uniform over its area (the selection pdf alone for
+    delta lights), each environment candidate an importance sample."""
+    lt = assets.lights
+    for _ in range(num_local if lt is not None else 0):
+        g, u3 = rng.next_3d(g)
+        g, u_sel = rng.next_1d(g)
+        light = LI.pick_light(lt, u3[..., 0])
+        row = LI.fetch_rows(lt, light)
+        src_pdf = row[..., LI.LP_POWER] / max(lt.total_power, 1e-20) \
+            * row[..., LI.LP_INV_AREA]
+        uv = u3[..., 1:3]
+        p_hat = packs.surface_target_cheap(assets, sp, light, uv)
+        w = torch.where(src_pdf > 0, p_hat / torch.clamp(src_pdf, min=1e-20),
+                        0.0)
+        r = update(r, light, uv, w, p_hat, u_sel)
+    for _ in range(num_env):
+        g, u2 = rng.next_2d(g)
+        g, u_sel = rng.next_1d(g)
+        d, pdf, _ = EM.sample_importance(assets.env, u2)
+        light = torch.full_like(r.light, LIGHT_ENV)
+        uv = mu.encode_oct(d)
+        p_hat = packs.surface_target_cheap(assets, sp, light, uv)
+        w = torch.where(pdf > 0, p_hat / torch.clamp(pdf, min=1e-20), 0.0)
+        r = update(r, light, uv, w, p_hat, u_sel)
     return r
 
 
