@@ -4046,7 +4046,7 @@ def profiler_trace(card: str):
             text = f.read()
         size = len(text)
     names = ("mt_dense_fused_kernel", "gather_surface_kernel",
-             "shade_nee_kernel", "realtime:build")
+             "shade_nee_kernel", "rtxpt:realtime/build")
     found = {n: text.count(n) for n in names}
     print(f"profiling.trace of one realtime frame {w}x{h} on {card}: "
           f"{wall:.2f} s with the trace written, {size / 1e6:.1f} MB; "

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 M32 = 0xFFFFFFFF
 
 # SampleGeneratorEffectSeed (reference: Sampling.hlsli:16-24)
@@ -42,8 +44,9 @@ def u32(x, device=None) -> torch.Tensor:
     values."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & M32
-    return torch.as_tensor(np.asarray(x, np.int64) & M32,
-                           dtype=torch.int64, device=device)
+    with profiling.span("sync"):
+        return torch.as_tensor(np.asarray(x, np.int64) & M32,
+                               dtype=torch.int64, device=device)
 
 
 def mul32(a, b):
@@ -207,7 +210,11 @@ def start_effect(g: SampleGenerator, effect_seed: int, low_discrepancy=False,
     active = (mul32(g.sample_index, sub_count) + sub_index) & M32
     eff_ld = hash32_combine(g.base, effect_seed)
     eff_nold = hash32_combine(eff_ld, active)
-    ld = torch.as_tensor(low_discrepancy, device=g.base.device)
+    if isinstance(low_discrepancy, torch.Tensor):
+        ld = low_discrepancy.to(g.base.device)
+    else:
+        with profiling.span("sync"):
+            ld = torch.as_tensor(low_discrepancy, device=g.base.device)
     ld = ld.expand(g.base.shape)
     return SampleGenerator(
         base=g.base,

@@ -47,6 +47,7 @@ from ..scene import textures as TX
 from ..scene import types as ST
 from ..scene.build import to_device
 from ..scene.camera import CameraData
+from ..utils import profiling
 
 REGEN_CHUNK = 8
 BVH8_MAX_TRIS = 45_000    # above this the two-level BVH8 takes over
@@ -137,26 +138,32 @@ class Renderer:
             self.cfg = dataclasses.replace(self.cfg, exact_alpha_test=False)
         self.camera = camera.to(self.device)
         self.host_scene = host_scene
-        if env_radiance is None:
-            env_radiance = EM.bake_procedural_sky()
-        self.env = EM.make_envmap(env_radiance, intensity=env_intensity,
-                                  enabled=self.cfg.use_env_lights,
-                                  device=self.device)
+        dev = self.device
+        with profiling.span("build/env", sync_on=dev):
+            if env_radiance is None:
+                env_radiance = EM.bake_procedural_sky()
+            self.env = EM.make_envmap(env_radiance, intensity=env_intensity,
+                                      enabled=self.cfg.use_env_lights,
+                                      device=dev)
         # the analytic lights stay for the light-table rebuild of an
         # emissive edit (set_material)
         self.analytic_lights = analytic_lights
-        self.lights = (LI.build_light_table(host_scene, analytic_lights,
-                                            device=self.device)
-                       if self.cfg.use_emissive_lights else None)
-        tri_omm = OMM.bake_opacity_masks(host_scene)
-        self.accel = build_trace_structure(host_scene, self.device, tri_omm)
-        self.scene = to_device(host_scene, self.device, TX.build_texture_stack(
-            host_scene.get("texture_images"),
-            srgb=host_scene.get("texture_srgb"), device=self.device))
+        with profiling.span("build/lights", sync_on=dev):
+            self.lights = (LI.build_light_table(host_scene, analytic_lights,
+                                                device=dev)
+                           if self.cfg.use_emissive_lights else None)
+        with profiling.span("build/omm", sync_on=dev):
+            tri_omm = OMM.bake_opacity_masks(host_scene)
+        with profiling.span("build/accel", sync_on=dev):
+            self.accel = build_trace_structure(host_scene, dev, tri_omm)
+        with profiling.span("build/tables", sync_on=dev):
+            self.scene = to_device(host_scene, dev, TX.build_texture_stack(
+                host_scene.get("texture_images"),
+                srgb=host_scene.get("texture_srgb"), device=dev))
+            tri_omm = torch.as_tensor(tri_omm, device=dev)
         self.assets = integrator.RenderAssets(
             scene=self.scene, env=self.env, lights=self.lights,
-            accel=self.accel,
-            tri_omm=torch.as_tensor(tri_omm, device=self.device))
+            accel=self.accel, tri_omm=tri_omm)
         # accumulation state (resumable: buffer + index are the checkpoint)
         self.accum = None
         self.sample_index = 0
@@ -164,16 +171,20 @@ class Renderer:
 
     def _pixel_grid(self, width: int, height: int):
         yy, xx = np.mgrid[0:height, 0:width]
-        t = lambda a: torch.as_tensor(a.reshape(-1).astype(np.int64),
-                                      device=self.device)
-        return t(xx), t(yy)
+        return self._to_device(xx.reshape(-1).astype(np.int64)), \
+            self._to_device(yy.reshape(-1).astype(np.int64))
+
+    def _to_device(self, values, dtype=None):
+        """Host values as a tensor on the renderer's device: a host sync
+        where that is a CUDA device."""
+        with profiling.span("sync"):
+            return torch.as_tensor(values, dtype=dtype, device=self.device)
 
     def _camera(self, width: int, height: int, jitter):
+        f32 = torch.float32
         return self.camera._replace(
-            jitter=torch.tensor(jitter, dtype=torch.float32,
-                                device=self.device),
-            viewport=torch.tensor([width, height], dtype=torch.float32,
-                                  device=self.device))
+            jitter=self._to_device(jitter, f32),
+            viewport=self._to_device([width, height], f32))
 
     def sample_assets(self, sample_index: int) -> integrator.RenderAssets:
         """The assets of one accumulation sample: with ReGIR local sampling
@@ -196,9 +207,10 @@ class Renderer:
     def render_sample(self, width: int, height: int, sample_index: int,
                       jitter_aa: bool = True):
         """One sample per pixel at the given accumulation index."""
-        px, py = self._pixel_grid(width, height)
-        cam = self._camera(width, height, r2_jitter(sample_index)
-                           if jitter_aa else (0.0, 0.0))
+        with profiling.span("entry"):
+            px, py = self._pixel_grid(width, height)
+            cam = self._camera(width, height, r2_jitter(sample_index)
+                               if jitter_aa else (0.0, 0.0))
         radiance = integrator.render_wavefront(
             self.sample_assets(sample_index), cam, px, py,
             C.default_constants(sample_base_index=sample_index),
@@ -207,7 +219,13 @@ class Renderer:
 
     def render(self, width: int, height: int, spp: int,
                jitter_aa: bool = True, progress=None):
-        """Reference-mode accumulation of `spp` samples -> HDR (H,W,3)."""
+        """Reference-mode accumulation of `spp` samples -> HDR (H,W,3), in
+        one `render` span (the recorder's call)."""
+        with profiling.span("render"):
+            return self._render(width, height, spp, jitter_aa, progress)
+
+    def _render(self, width: int, height: int, spp: int, jitter_aa: bool,
+                progress):
         if self.accum is None:
             self.accum = torch.zeros((height, width, 3), dtype=torch.float32,
                                      device=self.device)
@@ -226,9 +244,10 @@ class Renderer:
         while remaining > 0:
             if can_regen and remaining >= 2:
                 k = min(remaining, REGEN_CHUNK)
-                px, py = self._pixel_grid(width, height)
-                cam = self._camera(width, height,
-                                   r2_jitter(self.sample_index))
+                with profiling.span("entry"):
+                    px, py = self._pixel_grid(width, height)
+                    cam = self._camera(width, height,
+                                       r2_jitter(self.sample_index))
                 total = integrator.render_wavefront(
                     self.assets, cam, px, py,
                     C.default_constants(sample_base_index=self.sample_index),

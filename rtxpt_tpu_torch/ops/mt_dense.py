@@ -41,6 +41,7 @@ import torch
 from . import cuda_lib
 from ..scene.omm import mask_bit_index
 from .intersect import Hit, safe_inv
+from ..utils import profiling
 
 CLUSTER = 64            # triangles per cluster (csrc/mt_dense.cu kCluster)
 MAX_TRIS = 8192         # beyond this the reference switches to BVH paths
@@ -569,8 +570,11 @@ def _prepare(dmt: DenseMT, origins, dirs, t_max, active):
     n = origins.shape[0]
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=origins.device)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=origins.device).expand(n).contiguous()
+    if not isinstance(t_max, torch.Tensor):
+        with profiling.span("sync"):
+            t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                    device=origins.device)
+    t_max = t_max.to(origins.device, torch.float32).expand(n).contiguous()
     o_c = (origins - dmt.center[None, :]).contiguous()
     return o_c, dirs.contiguous(), t_max, active.contiguous()
 

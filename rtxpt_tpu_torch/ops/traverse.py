@@ -19,6 +19,7 @@ import torch
 
 from . import bvh2l, instanced, mt_dense
 from . import traverse_bvh8 as T8
+from ..utils import profiling
 from .bvh import BVH8
 from .intersect import Hit
 
@@ -32,31 +33,35 @@ def _trace_bvh8(accel: BVH8, origins, dirs, t_max, active, any_hit):
 def trace_closest(accel, origins, dirs, t_max=1e30, active=None) -> Hit:
     """Closest-hit trace (Bridge::traceScatterRay equivalent); prim is the
     original scene triangle index."""
-    if isinstance(accel, mt_dense.DenseMT):
-        return mt_dense.trace_closest(accel, origins, dirs, t_max, active)
-    if isinstance(accel, bvh2l.BVH8TwoLevel):
-        return bvh2l.trace_closest(accel, origins, dirs, t_max, active)
-    if isinstance(accel, instanced.InstancedTL):
-        return instanced.trace_closest(accel, origins, dirs, t_max=t_max,
-                                       active=active)
-    if isinstance(accel, BVH8):
-        t, slot, uv = _trace_bvh8(accel, origins, dirs, t_max, active, False)
-        prim = torch.where(slot >= 0,
-                           accel.leaf_tris[torch.clamp(slot, min=0)], -1)
-        return Hit(t, prim, uv)
-    raise TypeError(f"no trace path for {type(accel).__name__}")
+    with profiling.span("trace_closest"):
+        if isinstance(accel, mt_dense.DenseMT):
+            return mt_dense.trace_closest(accel, origins, dirs, t_max, active)
+        if isinstance(accel, bvh2l.BVH8TwoLevel):
+            return bvh2l.trace_closest(accel, origins, dirs, t_max, active)
+        if isinstance(accel, instanced.InstancedTL):
+            return instanced.trace_closest(accel, origins, dirs, t_max=t_max,
+                                           active=active)
+        if isinstance(accel, BVH8):
+            t, slot, uv = _trace_bvh8(accel, origins, dirs, t_max, active,
+                                      False)
+            prim = torch.where(slot >= 0,
+                               accel.leaf_tris[torch.clamp(slot, min=0)], -1)
+            return Hit(t, prim, uv)
+        raise TypeError(f"no trace path for {type(accel).__name__}")
 
 
 def trace_anyhit(accel, origins, dirs, t_max=1e30, active=None):
     """Visibility trace (Bridge::traceVisibilityRay equivalent): True where
     occluded; inactive rays report unoccluded."""
-    if isinstance(accel, mt_dense.DenseMT):
-        return mt_dense.trace_anyhit(accel, origins, dirs, t_max, active)
-    if isinstance(accel, bvh2l.BVH8TwoLevel):
-        return bvh2l.trace_anyhit(accel, origins, dirs, t_max, active)
-    if isinstance(accel, instanced.InstancedTL):
-        return instanced.trace_anyhit(accel, origins, dirs, t_max=t_max,
-                                      active=active)
-    if isinstance(accel, BVH8):
-        return _trace_bvh8(accel, origins, dirs, t_max, active, True)[1] >= 0
-    raise TypeError(f"no trace path for {type(accel).__name__}")
+    with profiling.span("trace_anyhit"):
+        if isinstance(accel, mt_dense.DenseMT):
+            return mt_dense.trace_anyhit(accel, origins, dirs, t_max, active)
+        if isinstance(accel, bvh2l.BVH8TwoLevel):
+            return bvh2l.trace_anyhit(accel, origins, dirs, t_max, active)
+        if isinstance(accel, instanced.InstancedTL):
+            return instanced.trace_anyhit(accel, origins, dirs, t_max=t_max,
+                                          active=active)
+        if isinstance(accel, BVH8):
+            return _trace_bvh8(accel, origins, dirs, t_max, active,
+                               True)[1] >= 0
+        raise TypeError(f"no trace path for {type(accel).__name__}")

@@ -33,6 +33,7 @@ import torch
 from . import cuda_lib
 from .bvh import LEAF_MAX, STACK_DEPTH
 from .intersect import Hit, moller_trumbore, ray_aabb, safe_inv
+from ..utils import profiling
 
 MAX_ITERS = 500_000    # pops per walk, as in the reference's `_trace8`
 # csrc/bvh8_trace.cu kMaxSubtrees: a block's K boxes and its 128 stacks of
@@ -187,8 +188,11 @@ def prepare_rays(origins, dirs, t_max, active):
     n = origins.shape[0]
     if active is None:
         active = torch.ones((n,), dtype=torch.bool, device=origins.device)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=origins.device).expand(n).contiguous()
+    if not isinstance(t_max, torch.Tensor):
+        with profiling.span("sync"):
+            t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                    device=origins.device)
+    t_max = t_max.to(origins.device, torch.float32).expand(n).contiguous()
     return origins.contiguous(), dirs.contiguous(), t_max, active.contiguous()
 
 

@@ -52,6 +52,7 @@ from ..scene import envmap as EM
 from ..scene import lights as LI
 from ..scene.camera import CameraData, compute_rays
 from ..scene.types import SceneArrays
+from ..utils import profiling
 from . import bsdf as B
 from . import nested
 from . import shade_kernel as SK
@@ -701,7 +702,8 @@ def render_wavefront(assets: RenderAssets, cam: CameraData, px, py,
                      sub_sample_index: int = 0, spp: int = 1):
     """Trace sample(s) for every pixel in (px, py); returns radiance
     (N,3) — the per-pixel SUM over `spp` samples when spp > 1."""
-    path0 = init_paths(cam, px, py, cfg, consts, sub_sample_index)
+    with profiling.span("entry"):
+        path0 = init_paths(cam, px, py, cfg, consts, sub_sample_index)
     return render_paths(assets, cam, path0, consts, cfg=cfg,
                         sub_sample_index=sub_sample_index, spp=spp)
 
@@ -711,7 +713,8 @@ def render_wavefront_counted(assets: RenderAssets, cam: CameraData, px,
                              sub_sample_index: int = 0, spp: int = 1):
     """render_wavefront + ray statistics: (radiance, rays) with rays =
     [closest-hit rays, visibility rays] actually cast."""
-    path0 = init_paths(cam, px, py, cfg, consts, sub_sample_index)
+    with profiling.span("entry"):
+        path0 = init_paths(cam, px, py, cfg, consts, sub_sample_index)
     return render_paths(assets, cam, path0, consts, cfg=cfg,
                         sub_sample_index=sub_sample_index, spp=spp,
                         return_ray_stats=True)
@@ -753,12 +756,6 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
     max_iters = spp * (cfg.max_bounces + 2) + K_MAX_REJECTED_HITS + 2 \
         if regen else cfg.max_bounces + K_MAX_REJECTED_HITS + 2
     sample_base = (consts.sample_base_index + sub_sample_index) & rng.M32
-    consts4 = torch.stack([
-        torch.tensor(consts.firefly_filter_threshold, dtype=torch.float32),
-        torch.tensor(consts.noisy_radiance_attenuation, dtype=torch.float32),
-        torch.tensor(consts.nee_min_radiance_threshold, dtype=torch.float32),
-        cam.pixel_cone_spread_angle.detach().to("cpu", torch.float32),
-    ]).to(dev)
     emissive_mis0 = 1.0 if cfg.use_emissive_lights else 0.0
     env_mis0 = 1.0 if cfg.use_env_lights else 0.0
     cam0 = cam._replace(jitter=torch.zeros_like(cam.jitter))
@@ -816,77 +813,82 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
             radiance = path.radiance + env_add
 
         # HandleHit (PathTracer.hlsli:371-525)
-        surf = shading.load_surface(assets.scene, hit.prim, hit.bary,
-                                    path.direction, cone_width=cone_width)
-        sd = surf.sd
-        # volume absorption (Beer-Lambert; PathTracer.hlsli:406-415); an
-        # injected base hit's chain absorption was applied by BUILD
-        in_medium = ~nested.is_empty(path.interior)
-        top_mat = torch.clamp(nested.top_material(path.interior),
-                              max=mat_iors.shape[0] - 1)
-        absorb_t = torch.zeros_like(hit.t) if hit_override is not None \
-            else hit.t
-        transmittance = torch.exp(-vol_abs[top_mat] * absorb_t[..., None])
-        thp = torch.where((is_hit & in_medium)[..., None],
-                          path.thp * transmittance, path.thp)
+        with profiling.span("surface"):
+            surf = shading.load_surface(assets.scene, hit.prim, hit.bary,
+                                        path.direction, cone_width=cone_width)
+            sd = surf.sd
+            # volume absorption (Beer-Lambert; PathTracer.hlsli:406-415); an
+            # injected base hit's chain absorption was applied by BUILD
+            in_medium = ~nested.is_empty(path.interior)
+            top_mat = torch.clamp(nested.top_material(path.interior),
+                                  max=mat_iors.shape[0] - 1)
+            absorb_t = torch.zeros_like(hit.t) if hit_override is not None \
+                else hit.t
+            transmittance = torch.exp(-vol_abs[top_mat] * absorb_t[..., None])
+            thp = torch.where((is_hit & in_medium)[..., None],
+                              path.thp * transmittance, path.thp)
 
-        # alpha test (Sample.hlsl:408-413): MASK below the cutoff and
-        # stochastic BLEND transparency are rejected hits
-        alpha_reject = is_hit & (surf.alpha_mode == 1) & \
-            (sd.opacity < surf.alpha_cutoff)
-        blend_base = sample_base if not regen else \
-            (sample_base + s_arr.to(torch.int64)) & rng.M32
-        u_blend = rng.hash32_to_float(rng.hash32_combine(
-            rng.hash32_combine(rng.hash32(rng.u32(hit.prim)),
-                               ((path.px << 16) & rng.M32) | path.py),
-            (rng.u32(vertex_index) + rng.mul32(blend_base, 0x9E37))
-            & rng.M32))
-        alpha_reject = alpha_reject | (
-            is_hit & (surf.alpha_mode == 2) & (u_blend >= sd.opacity))
-        # glTF single-sided: backface hits pass through (culled)
-        alpha_reject = alpha_reject | (
-            is_hit & ~sd.front_facing & ~surf.double_sided)
+            # alpha test (Sample.hlsl:408-413): MASK below the cutoff and
+            # stochastic BLEND transparency are rejected hits
+            alpha_reject = is_hit & (surf.alpha_mode == 1) & \
+                (sd.opacity < surf.alpha_cutoff)
+            blend_base = sample_base if not regen else \
+                (sample_base + s_arr.to(torch.int64)) & rng.M32
+            u_blend = rng.hash32_to_float(rng.hash32_combine(
+                rng.hash32_combine(rng.hash32(rng.u32(hit.prim)),
+                                   ((path.px << 16) & rng.M32) | path.py),
+                (rng.u32(vertex_index) + rng.mul32(blend_base, 0x9E37))
+                & rng.M32))
+            alpha_reject = alpha_reject | (
+                is_hit & (surf.alpha_mode == 2) & (u_blend >= sd.opacity))
+            # glTF single-sided: backface hits pass through (culled)
+            alpha_reject = alpha_reject | (
+                is_hit & ~sd.front_facing & ~surf.double_sided)
 
-        # nested dielectrics: reject false hits
-        # (PathTracerNestedDielectrics.hlsli:48-91)
-        true_int = nested.is_true_intersection(path.interior,
-                                               sd.nested_priority)
-        reject = is_hit & (~true_int | alpha_reject)
-        can_reject = reject & (path.rejected_hits < K_MAX_REJECTED_HITS)
-        kill_reject = reject & ~can_reject
-        interior = torch.where(
-            (can_reject & ~alpha_reject)[..., None],
-            nested.handle_intersection(path.interior, sd.material_id,
-                                       sd.nested_priority, sd.front_facing),
-            path.interior)
-        origin = torch.where(
-            can_reject[..., None],
-            sd.compute_new_ray_origin(torch.zeros_like(can_reject)),
-            path.origin)
-        vertex_index = vertex_index - can_reject.to(torch.int32)
-        rejected_hits = path.rejected_hits + can_reject.to(torch.int32)
-        shade = is_hit & true_int & ~alpha_reject
+            # nested dielectrics: reject false hits
+            # (PathTracerNestedDielectrics.hlsli:48-91)
+            true_int = nested.is_true_intersection(path.interior,
+                                                   sd.nested_priority)
+            reject = is_hit & (~true_int | alpha_reject)
+            can_reject = reject & (path.rejected_hits < K_MAX_REJECTED_HITS)
+            kill_reject = reject & ~can_reject
+            interior = torch.where(
+                (can_reject & ~alpha_reject)[..., None],
+                nested.handle_intersection(path.interior, sd.material_id,
+                                           sd.nested_priority,
+                                           sd.front_facing),
+                path.interior)
+            origin = torch.where(
+                can_reject[..., None],
+                sd.compute_new_ray_origin(torch.zeros_like(can_reject)),
+                path.origin)
+            vertex_index = vertex_index - can_reject.to(torch.int32)
+            rejected_hits = path.rejected_hits + can_reject.to(torch.int32)
+            shade = is_hit & true_int & ~alpha_reject
 
-        # first true hit (the secondary surface ReSTIR GI reuses); in FILL
-        # the first hit after scattering off the dominant plane's base
-        first_pos, first_nrm, first_found = c.first
-        cap = shade & ~first_found
-        if fill:
-            cap = cap & (path.sp_bounces == 1) & path.sp_on_dominant
-        first = (torch.where(cap[..., None], sd.pos, first_pos),
-                 torch.where(cap[..., None],
-                             torch.where(sd.front_facing[..., None],
-                                         sd.face_n, -sd.face_n), first_nrm),
-                 first_found | cap)
+            # first true hit (the secondary surface ReSTIR GI reuses); in FILL
+            # the first hit after scattering off the dominant plane's base
+            first_pos, first_nrm, first_found = c.first
+            cap = shade & ~first_found
+            if fill:
+                cap = cap & (path.sp_bounces == 1) & path.sp_on_dominant
+            first = (torch.where(cap[..., None], sd.pos, first_pos),
+                     torch.where(cap[..., None],
+                                 torch.where(sd.front_facing[..., None],
+                                             sd.face_n, -sd.face_n),
+                                 first_nrm),
+                     first_found | cap)
 
-        outside_ior = nested.compute_outside_ior(
-            path.interior, sd.material_id, sd.front_facing, mat_iors)
-        surf = shading.update_outside_ior(surf, outside_ior)
+            outside_ior = nested.compute_outside_ior(
+                path.interior, sd.material_id, sd.front_facing, mat_iors)
+            surf = shading.update_outside_ior(surf, outside_ior)
 
         step = _shade_step if fused else _chain_shade_step
-        ks = step(assets, cfg, consts4, path, surf, shade, thp, radiance,
-                  origin, interior, vertex_index, s_arr if regen else None,
-                  rays, nee_distant, nee_local, sample_base, fill_ctx)
+        with profiling.span("shade"):
+            ks = step(assets, cfg, consts4, path, surf, shade, thp,
+                      radiance, origin, interior, vertex_index,
+                      s_arr if regen else None, rays, nee_distant,
+                      nee_local, sample_base, fill_ctx)
         active = (path.active & ~is_miss & ~kill_reject) & (
             can_reject | (shade & ks["will_scatter"] & ks["scatter_valid"]))
         sp_fields = {}
@@ -905,46 +907,47 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
         rays = ks["rays"]
 
         if regen:
-            # PATH REGENERATION: a finished sample's lane starts its
-            # pixel's next accumulation sample immediately
-            died = path.active & ~active
-            accum = accum + torch.where(died[..., None], new_path.radiance,
-                                        0.0)
-            s_new = s_arr + died.to(torch.int32)
-            do_regen = died & (s_new < spp)
-            samp = (sample_base + s_new.to(torch.int64)) & rng.M32
-            g0 = rng.make(path.px, path.py, 0, samp)
-            g0, u2aa = rng.next_2d(g0)
-            fidx = samp.to(torch.float32)
-            jx = ((0.5 + _R2_A1 * fidx) % 1.0) - 0.5
-            jy = ((0.5 + _R2_A2 * fidx) % 1.0) - 0.5
-            o0, d0 = compute_rays(cam0, path.px.to(torch.float32) + jx,
-                                  path.py.to(torch.float32) + jy, u2aa)
-            m = do_regen[..., None]
+            with profiling.span("regen"):
+                # PATH REGENERATION: a finished sample's lane starts its
+                # pixel's next accumulation sample immediately
+                died = path.active & ~active
+                accum = accum + torch.where(died[..., None], new_path.radiance,
+                                            0.0)
+                s_new = s_arr + died.to(torch.int32)
+                do_regen = died & (s_new < spp)
+                samp = (sample_base + s_new.to(torch.int64)) & rng.M32
+                g0 = rng.make(path.px, path.py, 0, samp)
+                g0, u2aa = rng.next_2d(g0)
+                fidx = samp.to(torch.float32)
+                jx = ((0.5 + _R2_A1 * fidx) % 1.0) - 0.5
+                jy = ((0.5 + _R2_A2 * fidx) % 1.0) - 0.5
+                o0, d0 = compute_rays(cam0, path.px.to(torch.float32) + jx,
+                                      path.py.to(torch.float32) + jy, u2aa)
+                m = do_regen[..., None]
 
-            def rz(cur, v):
-                return torch.where(do_regen, torch.full_like(cur, v), cur)
+                def rz(cur, v):
+                    return torch.where(do_regen, torch.full_like(cur, v), cur)
 
-            new_path = new_path._replace(
-                origin=torch.where(m, o0, new_path.origin),
-                direction=torch.where(m, d0, new_path.direction),
-                thp=torch.where(m, 1.0, new_path.thp),
-                radiance=torch.where(died[..., None], 0.0,
-                                     new_path.radiance),
-                active=new_path.active | do_regen,
-                vertex_index=rz(new_path.vertex_index, 0),
-                diffuse_bounces=rz(new_path.diffuse_bounces, 0),
-                rejected_hits=rz(new_path.rejected_hits, 0),
-                scene_length=rz(new_path.scene_length, 0.0),
-                firefly_k=rz(new_path.firefly_k, 1.0),
-                cone_width=rz(new_path.cone_width, 0.0),
-                cone_spread=torch.where(do_regen,
-                                        cam.pixel_cone_spread_angle,
-                                        new_path.cone_spread),
-                interior=torch.where(m, 0, new_path.interior),
-                emissive_mis=rz(new_path.emissive_mis, emissive_mis0),
-                env_mis=rz(new_path.env_mis, env_mis0))
-            s_arr = s_new
+                new_path = new_path._replace(
+                    origin=torch.where(m, o0, new_path.origin),
+                    direction=torch.where(m, d0, new_path.direction),
+                    thp=torch.where(m, 1.0, new_path.thp),
+                    radiance=torch.where(died[..., None], 0.0,
+                                         new_path.radiance),
+                    active=new_path.active | do_regen,
+                    vertex_index=rz(new_path.vertex_index, 0),
+                    diffuse_bounces=rz(new_path.diffuse_bounces, 0),
+                    rejected_hits=rz(new_path.rejected_hits, 0),
+                    scene_length=rz(new_path.scene_length, 0.0),
+                    firefly_k=rz(new_path.firefly_k, 1.0),
+                    cone_width=rz(new_path.cone_width, 0.0),
+                    cone_spread=torch.where(do_regen,
+                                            cam.pixel_cone_spread_angle,
+                                            new_path.cone_spread),
+                    interior=torch.where(m, 0, new_path.interior),
+                    emissive_mis=rz(new_path.emissive_mis, emissive_mis0),
+                    env_mis=rz(new_path.env_mis, env_mis0))
+                s_arr = s_new
         lane0 = c.lane0
         if sort != "none":
             perm = torch.argsort(wavefront_sort_key(
@@ -960,15 +963,20 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
     def run(c: _Carry, stop_width=None, k_min: int = 4) -> _Carry:
         """Iterate while any lane is live and the cap is not reached; with
         stop_width, also stop once (after k_min iterations) the live set
-        fits in stop_width lanes. One host sync per iteration."""
+        fits in stop_width lanes. One host sync per iteration, before
+        its `bounce` span."""
         while c.it < max_iters:
-            live = int(c.path.active.sum())
+            with profiling.span("sync"):
+                live = int(c.path.active.sum())
             if live == 0:
                 break
             if stop_width is not None and c.it >= k_min \
                     and live <= stop_width:
                 break
-            c = body(c)
+            with profiling.span("bounce"):
+                profiling.count("bounce.live", live)
+                profiling.count("bounce.width", c.path.active.shape[0])
+                c = body(c)
         return c
 
     def narrow(c: _Carry, width: int):
@@ -987,30 +995,49 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
                             for f, a in zip(full.first, nar.first)),
                       full.lane0)
 
-    # morton-order the wavefront so neighbouring lanes hold spatially
-    # coherent rays; the permutation (and any re-sort) is undone at the end
-    perm0 = torch.argsort(mu.morton2d(path0.px, path0.py), stable=True)
     zf = lambda *shape: torch.zeros((n,) + shape, dtype=torch.float32,
                                     device=dev)
-    carry = _Carry(_map(path0, lambda a: a[perm0]), 0,
-                   torch.zeros((n,), dtype=torch.int32, device=dev),
-                   zf(3), torch.zeros((2,), dtype=torch.float32, device=dev),
-                   (zf(3), zf(3),
-                    torch.zeros((n,), dtype=torch.bool, device=dev)), perm0)
+    with profiling.span("entry"):
+        with profiling.span("sync"):
+            spread = cam.pixel_cone_spread_angle.detach().to("cpu",
+                                                             torch.float32)
+        with profiling.span("sync"):
+            consts4 = torch.stack([
+                torch.tensor(consts.firefly_filter_threshold,
+                             dtype=torch.float32),
+                torch.tensor(consts.noisy_radiance_attenuation,
+                             dtype=torch.float32),
+                torch.tensor(consts.nee_min_radiance_threshold,
+                             dtype=torch.float32),
+                spread]).to(dev)
+        # morton-order the wavefront so neighbouring lanes hold spatially
+        # coherent rays; the permutation (and any re-sort) is undone at the
+        # end
+        perm0 = torch.argsort(mu.morton2d(path0.px, path0.py), stable=True)
+        carry = _Carry(
+            _map(path0, lambda a: a[perm0]), 0,
+            torch.zeros((n,), dtype=torch.int32, device=dev), zf(3),
+            torch.zeros((2,), dtype=torch.float32, device=dev),
+            (zf(3), zf(3), torch.zeros((n,), dtype=torch.bool, device=dev)),
+            perm0)
     if injected_hit is not None:
         # FILL resumes from the BUILD-stored plane-0 base hit without
         # re-tracing the camera -> base chain (firstHitFromBasePlane,
         # Sample.hlsl:67): the first iteration takes the stored hit
-        carry = body(carry, hit_override=type(injected_hit)(
-            *(a[perm0] for a in injected_hit)))
+        with profiling.span("bounce"):
+            carry = body(carry, hit_override=type(injected_hit)(
+                *(a[perm0] for a in injected_hit)))
     compact = (cfg.wavefront_compaction and sort == "none"
                and n >= cfg.wavefront_compaction_min)
     if compact and not regen:
         # tail compaction: continue the last bounces over the survivors
         n_small = max(n // 8, 1024)
         full = run(carry, stop_width=n_small)
-        perm, nar = narrow(full, n_small)
-        carry = merge(full, perm, run(nar))
+        with profiling.span("compact"):
+            perm, nar = narrow(full, n_small)
+        nar = run(nar)
+        with profiling.span("compact"):
+            carry = merge(full, perm, nar)
     elif compact and regen:
         # staged width compaction n -> n/2 -> n/4 -> n/8 of regen waves
         widths = []
@@ -1021,11 +1048,13 @@ def render_paths(assets: RenderAssets, cam: CameraData, path0: PathState,
         saved = []
         for w_next in widths:
             full = run(carry, stop_width=w_next)
-            perm, carry = narrow(full, w_next)
+            with profiling.span("compact"):
+                perm, carry = narrow(full, w_next)
             saved.append((perm, full))
         carry = run(carry)
-        for perm, full in reversed(saved):
-            carry = merge(full, perm, carry)
+        with profiling.span("compact"):
+            for perm, full in reversed(saved):
+                carry = merge(full, perm, carry)
     else:
         carry = run(carry)
 

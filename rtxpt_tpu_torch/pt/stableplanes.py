@@ -23,6 +23,7 @@ from ..core import mathutils as mu
 from ..ops import traverse
 from ..scene import envmap as EM
 from ..scene.camera import CameraData, compute_rays
+from ..utils import profiling
 from . import bsdf as B
 from . import nested
 from . import shading
@@ -394,7 +395,8 @@ def build_stable_planes(assets, cam: CameraData, prev_cam: CameraData,
         """Walk while any lane walks and the depth cap is not reached;
         with stop_width, also stop once the walkers fit in it."""
         while it < max_vertex_depth:
-            live = int(w["walking"].sum())
+            with profiling.span("sync"):
+                live = int(w["walking"].sum())
             if live == 0 or (stop_width is not None and live <= stop_width):
                 break
             w = walk_body(s, w, slot, it)

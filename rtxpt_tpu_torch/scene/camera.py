@@ -11,6 +11,7 @@ import torch
 
 from ..core import mathutils as mu
 from ..core import raycone
+from ..utils import profiling
 
 
 class CameraData(NamedTuple):
@@ -103,6 +104,9 @@ def compute_ray_thinlens(cam: CameraData, pixel_x, pixel_y, u2):
 def compute_rays(cam: CameraData, pixel_x, pixel_y, u2=None):
     """Thin lens when the camera has an aperture, else pinhole
     (Bridge::computeCameraRay, PathTracerBridgeDonut.hlsli:309)."""
-    if u2 is not None and float(cam.aperture_radius) > 0.0:
-        return compute_ray_thinlens(cam, pixel_x, pixel_y, u2)
+    if u2 is not None:
+        with profiling.span("sync"):
+            thin = float(cam.aperture_radius) > 0.0
+        if thin:
+            return compute_ray_thinlens(cam, pixel_x, pixel_y, u2)
     return compute_ray_pinhole(cam, pixel_x, pixel_y)

@@ -237,9 +237,9 @@ def test_profiler_scope_counts():
 def test_trace_writes_chrome_trace(tmp_path):
     log_dir = tmp_path / "trace"
     with TPR.trace(str(log_dir)) as prof:
-        with TPR.named_scope("realtime:probe"):
+        with TPR.span("realtime/probe"):
             torch.ones(64).sum()
     assert os.path.dirname(prof.trace_path) == str(log_dir)
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "realtime:probe" for e in events)
+    assert any(e.get("name") == "rtxpt:realtime/probe" for e in events)

@@ -1,58 +1,63 @@
-"""Device-time breakdown of one render (reference mode) or one frame
-(realtime mode) of the PyTorch port (rtxpt_tpu_torch) on a CUDA GPU. A
-development tool, outside the package; from the repo root:
+"""Device-time breakdown of reference-mode renders or realtime frames of
+the PyTorch port (rtxpt_tpu_torch) on a CUDA GPU, by kernel and by the
+program's own spans (`rtxpt:` ranges, rtxpt_tpu_torch/utils/profiling.py).
+A development tool, outside the package; from the repo root:
 
     python -m tools_torch.profile_render --scene city --width 1920 \\
         --height 1080 --spp 2
 
-Renders once to warm up, once more timed (host clock, ending in a device
-synchronize), then once under torch.profiler, and prints the card, the
-timed wall, and the profiled render's device time and launches grouped by
-kernel: the two-level trace (one launch per trace), K6 (BVH8 probe), K5
-(BVH8 walk of one table), the fused dense trace (one launch per trace),
-K1 walking given worklists, K7 (worklists), K4 (shade), K2/K3 (gathers,
-with the surface fetch: K2 + K3 in one launch) and the PyTorch kernels of
-the tensor code around them, with the device's busy share of the profiled
-wall; then the device time of the kernels that ran inside the closest-hit
-and any-hit trace calls (the trace kernels and the PyTorch code around
-them) beside the device span of those calls, and the PyTorch kernels that
-take the most device time.
-Bench config: 6 bounces, 4 diffuse, NEE 1+1; `--set key=value`
-(repeatable) overrides one of its PTConfig fields, e.g. `--set
-shade_megakernel=False` or `--set nee_local_type=2` for a reference
-configuration off the default.
+Builds the renderer with recording on (the build spans), renders once to
+warm up, then `--calls` times each with recording off and on, in the
+order off, on, on, off, ... (host clock, each ending in a device
+synchronize; the first off and on images compared bit for bit), once each
+under `torch.cuda.set_sync_debug_mode("warn")` with recording off and on
+(the synchronizing calls counted by source line, and whether each lies
+inside a `sync` span), and once each under torch.profiler without and
+with recording (the profiler's stretch with and without the program's
+ranges). Prints the card; the walls; the device time and launches of the
+recorded profiled render grouped by kernel: the two-level trace, K6, K5,
+the fused dense trace, K1, K7, K4, K2/K3 and the PyTorch kernels of the
+tensor code, with the device's busy share; the span table: a row per
+span name with its calls per render call, host self ms per untraced
+recorded call, and the device ms and kernels of the profiled render that
+start inside its device span (the innermost); the bounce loop's lane
+occupancy (sum of `bounce.live` over `bounce.width`), the host share
+inside `sync` spans, `build/accel` seconds and the device ms of the
+surface fetch and shade step (kernels starting inside `surface` and
+`shade`, less those inside the traces); the longest idle gaps of the
+profiled render, named by the innermost program span and the longest
+host op at their start; and the PyTorch kernels that take the most device
+time.
 
-`--mode realtime` profiles one frame of the default realtime pipeline
-(3 stable planes, ReSTIR DI + GI, ReLAX, TAA; 30 bounces / 3 diffuse,
-NEE 2+2) after two warm-up frames (no history, then history), and adds a
-split of that frame by stage (the "realtime:<stage>" profiler ranges of
-`models/realtime.py`: build, restir_di, fill, restir_gi, relax, taa; on
-PSR-lite gbuffer and paths in place of build and fill; reblur, taau):
-each stage's host wall and the device time of the kernels inside its
-span. There `--set` overrides a field of that pipeline's PTConfig (e.g.
-`--set use_stable_planes=False` for PSR-lite, `--set
-denoiser_method='reblur'`), and `--display WxH` upscales the frame with
-TAAU to that display size.
-
-The trace calls are timed by wrapping the port's `ops.traverse` functions
-in profiler ranges for the length of the run.
+Reference mode: bench config, 6 bounces, 4 diffuse, NEE 1+1; `--set
+key=value` (repeatable) overrides one of its PTConfig fields, e.g. `--set
+shade_megakernel=False`, or `--set max_bounces=30 --set
+max_diffuse_bounces=6 --set nee_distant_samples=2 --set
+nee_local_samples=2` for the published reference configuration.
+`--mode realtime` profiles frames of the default realtime pipeline (3
+stable planes, ReSTIR DI + GI, ReLAX, TAA; 30 bounces / 3 diffuse, NEE
+2+2), each after the last (the warm-up renders two: no history, then
+history); its stages are the spans `realtime/<stage>`. There `--set`
+overrides a field of that pipeline's PTConfig (e.g. `--set
+use_stable_planes=False` for PSR-lite, `--set denoiser_method='reblur'`),
+and `--display WxH` upscales each frame with TAAU to that display size.
 """
 from __future__ import annotations
 
 import argparse
 import ast
 import bisect
+import collections
+import contextlib
+import heapq
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
-RANGES = ("trace_closest", "trace_anyhit")
-STAGES = ("realtime:build", "realtime:gbuffer", "realtime:restir_di",
-          "realtime:fill", "realtime:paths", "realtime:restir_gi",
-          "realtime:relax", "realtime:reblur", "realtime:taa",
-          "realtime:taau")
 GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K6 probe (bvh8_trace_sub)", ("bvh8_kernel<false, true>",
                                          "bvh8_kernel<true, true>")),
@@ -64,6 +69,7 @@ GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K4 shade", ("shade_nee_kernel",)),
           ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel",
                              "gather_surface_kernel")))
+HOST_MIN_NS = 20_000     # shorter host ops cannot name an idle gap
 
 
 def _group(name: str) -> str:
@@ -71,6 +77,109 @@ def _group(name: str) -> str:
         if any(k in name for k in keys):
             return label
     return "PyTorch tensor code"
+
+
+def _is_copy(name: str) -> bool:
+    return name.startswith(("Memcpy", "Memset"))
+
+
+def _innermost(ops, spans):
+    """For each (start, end, name) of `ops`, sorted by start, the name of
+    the latest-starting span of `spans` (start, end, name) that holds its
+    start, or None."""
+    spans = sorted(spans)
+    heap, out, j = [], [], 0
+    for s, _, _ in ops:
+        while j < len(spans) and spans[j][0] <= s:
+            heapq.heappush(heap, (-spans[j][0], spans[j][1], spans[j][2]))
+            j += 1
+        while heap and heap[0][1] <= s:
+            heapq.heappop(heap)
+        out.append(heap[0][2] if heap else None)
+    return out
+
+
+def _inside(t, merged, starts) -> bool:
+    i = bisect.bisect_right(starts, t) - 1
+    return i >= 0 and t < merged[i][1]
+
+
+def _merged(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out, [s for s, _ in out]
+
+
+def _reduce(prof, prefix: str):
+    """(device ops, device spans, host ranges, host ops) of a finished
+    torch.profiler run from its raw events, in ns: each a list of (start,
+    end, name); the spans and ranges are the program's (`prefix`)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ops, spans, ranges, host = [], [], [], []
+    for e in prof.profiler.kineto_results.events():
+        name, iv = e.name(), (e.start_ns(), e.end_ns())
+        if e.device_type() == cuda:
+            (spans if name.startswith(prefix) else ops).append(
+                iv + (name,))
+        elif name.startswith(prefix):
+            ranges.append(iv + (name[len(prefix):],))
+        elif iv[1] - iv[0] >= HOST_MIN_NS:
+            host.append(iv + (name,))
+    for v in (ops, spans, ranges, host):
+        v.sort()
+    return ops, spans, ranges, host
+
+
+def _recording(profiling, rec):
+    """Recording into `rec` for the block, or nothing where it is None."""
+    return contextlib.nullcontext() if rec is None else profiling.record(rec)
+
+
+def _sync_sites(render, profiling, recording: bool):
+    """One render under set_sync_debug_mode("warn"): (Counter of the
+    synchronizing calls by source line, how many lay outside a `sync`
+    span, the `sync` spans recorded)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sites, outside = collections.Counter(), [0]
+    rec = profiling.FrameProfiler() if recording else None
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        sites[f"{os.path.relpath(filename, root)}:{lineno}"] += 1
+        if rec is not None and not (rec.stack
+                                    and rec.stack[-1].name == "sync"):
+            outside[0] += 1
+
+    with warnings.catch_warnings(), _recording(profiling, rec):
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            render(sync=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites, outside[0], rec.counts.get("sync", 0) if rec else 0
+
+
+def _span_cost(profiling, n: int = 200_000):
+    """Host seconds of an empty loop iteration, and of one with an empty
+    span and a counter in it, off and recording (no profiler active)."""
+    def loop(body: bool):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            if body:
+                with profiling.span("probe"):
+                    profiling.count("probe", 1)
+        return (time.perf_counter() - t0) / n
+
+    bare, off = loop(False), loop(True)
+    with profiling.record():
+        on = loop(True)
+    return bare, off, on
 
 
 def main(argv=None) -> int:
@@ -83,6 +192,8 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=2)
     p.add_argument("--mode", default="reference",
                    choices=["reference", "realtime"])
+    p.add_argument("--calls", type=int, default=3,
+                   help="timed renders with recording off, and as many on")
     p.add_argument("--set", action="append", default=[],
                    metavar="KEY=VALUE",
                    help="override a PTConfig field of the bench config "
@@ -102,6 +213,7 @@ def main(argv=None) -> int:
     from rtxpt_tpu_torch.app.cli import load_scene
     from rtxpt_tpu_torch.models.renderer import Renderer, reference_config
     from rtxpt_tpu_torch.scene import envmap as EM
+    from rtxpt_tpu_torch.utils import profiling
     args.diffuse_only = False
     host, cam, extra = load_scene(args)
     env = extra.get("env_radiance")
@@ -110,113 +222,189 @@ def main(argv=None) -> int:
     scene_kw = dict(analytic_lights=extra.get("analytic_lights"),
                     env_intensity=extra.get("env_intensity", 1.0))
     w, h, spp = args.width, args.height, args.spp
+    with profiling.record() as build:
+        if args.mode == "realtime":
+            from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
+            from rtxpt_tpu_torch.models.renderer import realtime_config
+            cfg = realtime_config(**{**dict(
+                use_restir_di=True, use_restir_gi=True,
+                denoiser_enabled=True, use_stable_planes=True),
+                **overrides})
+            r = RealtimeRenderer(host, cam, cfg, env_radiance=env,
+                                 device="cuda", **scene_kw)
+        else:
+            cfg = reference_config(**{**dict(
+                max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
+                nee_local_samples=1), **overrides})
+            r = Renderer(host, cam, cfg, env_radiance=env, device="cuda",
+                         **scene_kw)
     if args.mode == "realtime":
-        from rtxpt_tpu_torch.models.realtime import RealtimeRenderer
-        from rtxpt_tpu_torch.models.renderer import realtime_config
-        cfg = realtime_config(**{**dict(
-            use_restir_di=True, use_restir_gi=True, denoiser_enabled=True,
-            use_stable_planes=True), **overrides})
-        r = RealtimeRenderer(host, cam, cfg, env_radiance=env, device="cuda",
-                             **scene_kw)
         spp = 1
         frame_kw = {}
         if args.display:
             frame_kw["display_size"] = tuple(
                 int(v) for v in args.display.split("x"))
 
-        def render():
-            r.render_frame(w, h, **frame_kw)
-            torch.cuda.synchronize()
+        def render(sync=True):
+            out = r.render_frame(w, h, **frame_kw)
+            if sync:
+                torch.cuda.synchronize()
+            return out
 
         render()                             # the no-history variant
     else:
-        cfg = reference_config(**{**dict(
-            max_bounces=6, max_diffuse_bounces=4, nee_distant_samples=1,
-            nee_local_samples=1), **overrides})
-        r = Renderer(host, cam, cfg, env_radiance=env, device="cuda",
-                     **scene_kw)
-
-        def render():
+        def render(sync=True):
             r.reset_accumulation()
-            r.render(w, h, spp)
-            torch.cuda.synchronize()
-
-    from rtxpt_tpu_torch.ops import traverse
-    for fname in RANGES:
-        def ranged(*a, _fn=getattr(traverse, fname), _name=fname, **kw):
-            with torch.profiler.record_function(_name):
-                return _fn(*a, **kw)
-        setattr(traverse, fname, ranged)
+            out = r.render(w, h, spp)
+            if sync:
+                torch.cuda.synchronize()
+            return out
 
     render()                                         # warm-up
-    t0 = time.perf_counter()
-    render()
-    wall = time.perf_counter() - t0
+    walls = {False: [], True: []}
+    images = {}
+    rec = profiling.FrameProfiler()
+    for i in range(2 * args.calls):
+        on = i % 4 in (1, 2)
+        with _recording(profiling, rec if on else None):
+            t0 = time.perf_counter()
+            img = render()
+            walls[on].append(time.perf_counter() - t0)
+        if on not in images:
+            images[on] = img.clone()
+    # a realtime frame follows the last one: only renders compare
+    same = (torch.equal(images[False], images[True])
+            if args.mode == "reference" else "n/a")
+    sites_off, _, _ = _sync_sites(render, profiling, False)
+    sites_on, outside, sync_spans = _sync_sites(render, profiling, True)
+    sites_off2, _, _ = _sync_sites(render, profiling, False)
+    bare, off_s, on_s = _span_cost(profiling)
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        render()
-        prof_wall = time.perf_counter() - t0
-    kernels, spans, stage_dev, stage_host = [], [], [], {}
-    for e in prof.events():
-        tr = e.time_range
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            if e.name in STAGES:
-                stage_host[e.name] = stage_host.get(e.name, 0.0) \
-                    + tr.end - tr.start
-            continue
-        # the ranges appear on the device timeline as annotations
-        if e.name in STAGES:
-            stage_dev.append((tr.start, tr.end, e.name))
-            continue
-        (spans if e.name in RANGES else kernels).append(
-            (tr.start, tr.end, e.name))
-    spans.sort()
-    starts = [sp[0] for sp in spans]
-    dev_us, count, by_name = {}, {}, {}
-    inside = {name: 0.0 for name in RANGES}
-    span_us = {name: 0.0 for name in RANGES}
-    for start, end, name in spans:
-        span_us[name] += end - start
-    for start, end, name in kernels:
-        g = _group(name)
-        dev_us[g] = dev_us.get(g, 0.0) + (end - start)
-        count[g] = count.get(g, 0) + 1
-        if g == "PyTorch tensor code":
-            by_name[name] = by_name.get(name, 0.0) + (end - start)
-        i = bisect.bisect_right(starts, start) - 1
-        if i >= 0 and start < spans[i][1]:
-            inside[spans[i][2]] += end - start
+    prof_walls = {}
+    for on in (False, True):
+        with torch.profiler.profile(activities=acts) as prof, \
+                _recording(profiling, rec if on else None):
+            t0 = time.perf_counter()
+            render()
+            prof_walls[on] = time.perf_counter() - t0
+    ops, spans, ranges, host_ops = _reduce(prof, profiling.PREFIX)
+    del prof
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    total = sum(dev_us.values())
+    mean = lambda v: sum(v) / max(len(v), 1)
     what = "realtime frame" if args.mode == "realtime" else f"{spp}spp"
     if overrides:
         what += f" {overrides}"
     if args.display:
         what += f" -> TAAU {args.display}"
-    print(f"{card}; {args.scene} {w}x{h} {what}: wall {wall * 1e3:.1f} ms "
-          f"({w * h * spp / wall / 1e6:.3f} Mpaths/s); profiled wall "
-          f"{prof_wall * 1e3:.1f} ms, device busy {total / 1e3:.1f} ms "
-          f"({total / 1e3 / (prof_wall * 1e3):.1%})")
+    wall = mean(walls[False])
+    print(f"{card}; {args.scene} {w}x{h} {what}: untraced wall recording "
+          f"off {[round(v, 4) for v in walls[False]]} s (mean "
+          f"{wall * 1e3:.1f} ms, {w * h * spp / wall / 1e6:.3f} Mpaths/s), "
+          f"recording on {[round(v, 4) for v in walls[True]]} s (mean "
+          f"{mean(walls[True]) * 1e3:.1f} ms, "
+          f"{mean(walls[True]) / wall - 1:+.2%}); images bit-identical: "
+          f"{same}")
+    print(f"  profiled render: {prof_walls[False] * 1e3:.1f} ms without the "
+          f"program's ranges ({prof_walls[False] / wall:.2f}x), "
+          f"{prof_walls[True] * 1e3:.1f} ms with them "
+          f"({prof_walls[True] / wall:.2f}x)")
+    print(f"  synchronizing calls a render: {sum(sites_off.values())} "
+          f"recording off, {sum(sites_on.values())} on, "
+          f"{sum(sites_off2.values())} off again; {sync_spans} `sync` "
+          f"spans, {outside} calls outside one; by line: "
+          f"{dict(sites_off.most_common())}; off minus on "
+          f"{dict(sites_off - sites_on)}, on minus off "
+          f"{dict(sites_on - sites_off)}")
+
+    kernels = [o for o in ops if not _is_copy(o[2])]
+    dev_us, count, by_name = {}, {}, {}
+    for s, e, name in kernels:
+        g = _group(name)
+        dev_us[g] = dev_us.get(g, 0.0) + (e - s) / 1e3
+        count[g] = count.get(g, 0) + 1
+        if g == "PyTorch tensor code":
+            by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
+    busy, _ = _merged((s, e) for s, e, _ in ops)
+    busy_ms = sum(e - s for s, e in busy) / 1e6
+    total = sum(dev_us.values())
+    print(f"  device busy {busy_ms:.1f} ms: {busy_ms / (wall * 1e3):.1%} of "
+          f"an untraced render, {busy_ms / (prof_walls[True] * 1e3):.1%} of "
+          f"the profiled one; kernels {total / 1e3:.1f} ms, "
+          f"{len(kernels)} launches, {len(ops) - len(kernels)} copies and "
+          f"sets")
     for g in sorted(dev_us, key=dev_us.get, reverse=True):
-        print(f"  {g}: {dev_us[g] / 1e3:.1f} ms device "
+        print(f"    {g}: {dev_us[g] / 1e3:.1f} ms device "
               f"({dev_us[g] / max(total, 1e-9):.1%}), {count[g]} launches")
-    for name in RANGES:
-        print(f"  kernels inside {name}: {inside[name] / 1e3:.1f} ms device "
-              f"(device span of the calls {span_us[name] / 1e3:.1f} ms)")
-    if args.mode == "realtime":
-        print("  by stage (host wall of the range; device time of the "
-              "kernels that start inside its device span):")
-        for name in (n for n in STAGES if n in stage_host):
-            dev = sum(end - start for start, end, _ in kernels
-                      if any(s0 <= start < s1 for s0, s1, n in stage_dev
-                             if n == name))
-            print(f"    {name[9:]}: host {stage_host.get(name, 0.0) / 1e3:.1f}"
-                  f" ms, device {dev / 1e3:.1f} ms")
+
+    plain = [c for c in rec.calls if not c.profiled]
+    owner = _innermost(ops, spans)
+    span_ms = collections.defaultdict(float)
+    span_kernels = collections.Counter()
+    for (s, e, name), o in zip(ops, owner):
+        key = o[len(profiling.PREFIX):] if o else "(none)"
+        span_ms[key] += (e - s) / 1e6
+        span_kernels[key] += not _is_copy(name)
+    names = sorted({n for c in plain for n in c.spans} | set(span_ms),
+                   key=lambda n: -span_ms.get(n, 0.0))
+    print(f"  by span ({len(plain)} untraced recorded calls, mean wall "
+          f"{mean([c.wall for c in plain]) * 1e3:.1f} ms; device: the "
+          f"profiled render, each kernel in its innermost span):")
+    print("    span              per call  host self ms   device ms  kernels")
+    for n in names:
+        cnt = mean([c.spans.get(n, (0, 0, 0))[0] for c in plain])
+        slf = mean([c.spans.get(n, (0, 0, 0))[2] for c in plain])
+        print(f"    {n:<18}{cnt:9.1f}{slf * 1e3:14.2f}"
+              f"{span_ms.get(n, 0.0):12.2f}{span_kernels.get(n, 0):9d}")
+    per_call = mean([sum(v[0] for v in c.spans.values()) for c in plain])
+    counts = mean([c.spans.get("bounce", (0,))[0] * 2 for c in plain])
+    print(f"  a span and a counter cost {(off_s - bare) * 1e6:.3f} us off, "
+          f"{(on_s - bare) * 1e6:.3f} us recording (loop of 200,000); "
+          f"{per_call:.0f} spans and {counts:.0f} counters a call, at "
+          f"most: off {(off_s - bare) * per_call * 1e3:.3f} ms "
+          f"({(off_s - bare) * per_call / wall:.4%} of an untraced call), "
+          f"on {(on_s - bare) * per_call * 1e3:.3f} ms "
+          f"({(on_s - bare) * per_call / wall:.4%})")
+    live = sum(c.counters.get("bounce.live", 0) for c in plain)
+    width = sum(c.counters.get("bounce.width", 0) for c in plain)
+    sync_s = sum(c.spans.get("sync", (0, 0, 0))[1] for c in plain)
+    by = lambda *ns: [(s, e) for s, e, n in spans
+                      if n[len(profiling.PREFIX):] in ns]
+    shade_iv, shade_st = _merged(by("surface", "shade"))
+    trace_iv, trace_st = _merged(by("trace_closest", "trace_anyhit"))
+    shade_ms = sum(e - s for s, e, _ in ops
+                   if _inside(s, shade_iv, shade_st)
+                   and not _inside(s, trace_iv, trace_st)) / 1e6
+    walls_s = max(sum(c.wall for c in plain), 1e-9)
+    print(f"  lane occupancy {live / max(width, 1):.4%} ({live} of {width} "
+          f"lanes over the calls); sync share {sync_s / walls_s:.4%} of "
+          f"the untraced calls' wall; build/accel "
+          f"{build.totals.get('build/accel', 0.0):.4f} s (build spans "
+          f"{ {k: round(v, 4) for k, v in build.totals.items()} }); "
+          f"surface + shade device {shade_ms:.2f} ms")
+
+    gaps = []
+    for c0, c1 in ((s, e) for s, e, n in ranges if n == profiling.CALL):
+        t = c0
+        for s, e in busy:
+            if e <= c0 or s >= c1:
+                continue
+            if s > t:
+                gaps.append((t, s))
+            t = max(t, e)
+        if t < c1:
+            gaps.append((t, c1))
+    gaps = sorted(gaps, key=lambda g: g[0] - g[1])[:10]
+    print("  longest idle gaps of the profiled render (span/host op):")
+    for g0, g1 in gaps:
+        inner = _innermost([(g0, g0, None)], ranges)[0] or "-"
+        op = max((iv for iv in host_ops if iv[0] <= g0 < iv[1]),
+                 key=lambda iv: iv[1] - iv[0], default=(0, 0, "python"))[2]
+        print(f"    {(g1 - g0) / 1e6:8.3f} ms  {profiling.PREFIX}{inner}/{op}")
     print("  largest PyTorch kernels:")
     for name in sorted(by_name, key=by_name.get, reverse=True)[:10]:
         print(f"    {by_name[name] / 1e3:.1f} ms  {name[:110]}")
