@@ -24,7 +24,12 @@ its seconds):
      replaced, K2, K3, K2, K2, timed beside it; K3 on the surface fetch's
      blend); K7's worklist keys must be bit-equal on every captured dense
      trace; the active lanes, tiles and visits per tile and the fused
-     kernel's lab modes are printed;
+     kernel's lab modes are printed; the sample generator's kernels
+     (csrc/rng.cu: make, start_effect, next_*) on every generator call of
+     the first bounce of the art cell's render (800x600, 8 spp, NEE 2+2:
+     init_paths, the shade step, the regeneration), bit-equal to the
+     plain version, kernel ms against plain ms, each call's bytes and
+     their time at 3.35 TB/s;
   3. render 64x48 2spp and 160x120 8spp with reference_config() and hold
      them against the goldens in assets/ (PSNR > 40 dB, SMAPE < 0.02, the
      cross-platform gate); hold the 64x48 GPU render against the port's
@@ -33,7 +38,8 @@ its seconds):
      8 spp as one regenerating wavefront) with every launch counter set to
      0 just before, and require the fused dense trace once per dense trace
      call, K1 and K7 not at all, the surface fetch once per load_surface
-     call, K3 not at all, K4 once per bounce and K2 to have launched; then
+     call, K3 not at all, K4 once per bounce, the sample generator's three
+     kernels at least once per bounce and K2 to have launched; then
      render
      it once more unsorted and once with wavefront_sort="raystream", print
      both walls and the fused kernel's visits per tile (its lab mode
@@ -48,11 +54,14 @@ its seconds):
      nearest subtree and K5 on the largest subtree's table with the rays
      that overlap its box, and time them (and the two-level kernel's lab
      modes, tools_torch/profile_bvh8.py); the surface fetch, K2-K4 on the
-     gathers and the shade pass of that bounce, as in 2.; render it at
+     gathers and the shade pass of that bounce, as in 2., and the sample
+     generator's kernels on the generator calls of the first bounce of a
+     1920x1080 2-spp render; render it at
      1920x1080, bench config, 2 spp as one regenerating chunk, after a
      warm-up render, with the counters set to 0 just before, and require
      K2 to have launched, K4 once per bounce, the surface fetch once per
-     load_surface call and K3 not at all, `bvh8_trace_2l` once per
+     load_surface call and K3 not at all, the sample generator's kernels
+     at least once per bounce, `bvh8_trace_2l` once per
      two-level trace call, and K5 and K6 not at all; hold a 64x36 GPU
      render against the port's CPU render (PSNR > 40 dB);
   6. reference configurations (the configurations of reference mode
@@ -314,7 +323,16 @@ KERNELS = {
                       "rtxpt_tpu/ops/traverse_pallas.py:279"),
     "tile_keys": ("tile_keys", "rtxpt_tpu_torch/csrc/mt_dense.cu",
                   "rtxpt_tpu/ops/mt_dense.py:490"),
+    # the sample generator: no TPU kernel (XLA fuses the reference's hashes)
+    "rng_make": ("rng_make", "rtxpt_tpu_torch/csrc/rng.cu", None),
+    "rng_start_effect": ("rng_start_effect", "rtxpt_tpu_torch/csrc/rng.cu",
+                         None),
+    "rng_next": ("rng_next", "rtxpt_tpu_torch/csrc/rng.cu", None),
 }
+# the sample generator's wrappers (core/rng.py) by launch counter
+RNG_CALLS = {"make": "rng_make", "start_effect": "rng_start_effect",
+             "next_1d": "rng_next", "next_2d": "rng_next",
+             "next_3d": "rng_next"}
 # the kernels each main path must launch
 BENCH_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
               "shade_nee")
@@ -507,7 +525,8 @@ class Capture:
                "shade_nee": "rtxpt_tpu_torch.pt.shade_kernel",
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8",
-               "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8"}
+               "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
+               **dict.fromkeys(RNG_CALLS, "rtxpt_tpu_torch.core.rng")}
     # (module, function, which calls count: None for all): the realtime
     # frame's stages, as models/realtime.py calls them, and the visibility
     # traces that cast at least one ray
@@ -789,6 +808,8 @@ def check_kernels(results: dict):
         r.render_sample(w, h, 0)
         torch.cuda.synchronize()
     check_shade(*cap.calls["shade_nee"][0], "reference_config()")
+    # the sample generator on the art cell's calls: 800x600, 8 spp, NEE 2+2
+    results["bench"].update(check_rng(r, w, h, 8, "bench"))
 
 
 def dense_agreement(accel, args, kw, got, ref, what) -> float:
@@ -1050,6 +1071,97 @@ def check_surface(args, label) -> dict:
                 instance=inst)
 
 
+def rng_bytes(name, args, kw, out) -> int:
+    """Bytes a sample-generator call reads and writes once: its per-lane
+    operands (a broadcast one counted once) and the fields and samples it
+    writes."""
+    def read(xs):
+        return sum(x.numel() * x.element_size() if x.stride().count(0) == 0
+                   else x.element_size() for x in xs if torch.is_tensor(x))
+    if name == "make":
+        ld = args[4] if len(args) > 4 else kw.get("low_discrepancy")
+        return read(list(args[:4]) + [ld]) + sum(f.numel() * 8 for f in out)
+    g = args[0]
+    if name == "start_effect":
+        ld = args[2] if len(args) > 2 else kw.get("low_discrepancy")
+        return read((g.base, g.sample_index, ld)) + 3 * g.base.numel() * 8
+    allow_ld = args[1] if len(args) > 1 else kw.get("allow_ld", True)
+    fields = (g.effect, g.hq) + ((g.dimension, g.active) if allow_ld else ())
+    g2, u = out
+    return read(fields) + g2.effect.numel() * 8 * (2 if allow_ld else 1) + \
+        u.numel() * u.element_size()
+
+
+def rng_first_bounce(cfg) -> dict:
+    """The generator calls of init_paths, the first bounce's shade step
+    (K4's path, RR, the MIP-descent distant sampler) and its regeneration,
+    by wrapper."""
+    from rtxpt_tpu_torch.config import NEE_DISTANT_MIP_DESCENT
+    require(cfg.nee_distant_type == NEE_DISTANT_MIP_DESCENT
+            and cfg.enable_russian_roulette and cfg.nee_enabled,
+            "rng_first_bounce: not the reference configuration's draws")
+    return {"make": 3, "start_effect": 3, "next_1d": 1,
+            "next_2d": 2 + cfg.nee_distant_samples,
+            "next_3d": 1 + cfg.nee_local_samples}
+
+
+def check_rng(r, w, h, spp, label) -> dict:
+    """The sample generator's kernels on the generator calls of the first
+    bounce of r.render(w, h, spp) (init_paths, the shade step, the
+    regeneration): each call's outputs bit-equal to the plain version's on
+    the captured state; kernel device time (device_ms, CUDA events beside
+    it) against the plain version's (CUDA events: its host copies keep it
+    out of a CUDA graph), and the bound: the call's bytes at 3.35 TB/s ->
+    {launch counter: summed result}."""
+    from rtxpt_tpu_torch.core import rng as T
+    limits = rng_first_bounce(r.cfg)
+    with Capture(limits) as cap:
+        r.render(w, h, spp)
+        torch.cuda.synchronize()
+    r.reset_accumulation()
+    out = {}
+    for name, calls in cap.calls.items():
+        require(len(calls) == limits[name],
+                f"{label}: {len(calls)} {name} calls captured, expected "
+                f"{limits[name]}")
+        for i, (args, kw) in enumerate(calls):
+            kern = lambda: getattr(T, name)(*args, **kw)
+            plain = lambda: getattr(T, name + "_plain")(*args, **kw)
+            got, ref = kern(), plain()
+            if name.startswith("next"):
+                require(torch.equal(got[1], ref[1]), f"rng {name} {label} "
+                        f"call {i}: samples differ from the plain version")
+                got, ref = got[0], ref[0]
+            require(all(torch.equal(a, b.expand(a.shape))
+                        for a, b in zip(got, ref)),
+                    f"rng {name} {label} call {i}: state differs from the "
+                    "plain version")
+            nbytes = rng_bytes(name, args, kw, kern())
+            ms, paced = device_ms(kern), time_ms(kern, 20)
+            pms = time_ms(plain, 20)
+            b_ms, b_by = bound(nbytes, 0)
+            lanes = got.base.numel()
+            print(f"rng {name} {label} call {i} ({lanes} lanes): bit-equal "
+                  f"to the plain version; kernel {ms:.4f} ms (CUDA events "
+                  f"{paced:.4f}), plain {pms:.4f} ms (CUDA events), "
+                  f"{nbytes / 1e6:.2f} MB, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+            acc = out.setdefault(RNG_CALLS[name], dict(
+                max_abs_err=0.0, ms=0.0, paced_ms=0.0, plain_ms=0.0,
+                library_ms=None, bound_ms=0.0, bound_by="bytes", calls=0,
+                bytes=0))
+            for key, v in (("ms", ms), ("paced_ms", paced), ("plain_ms", pms),
+                           ("bound_ms", b_ms), ("calls", 1),
+                           ("bytes", nbytes)):
+                acc[key] += v
+    for name, acc in out.items():
+        print(f"rng {label} {name}: {acc['calls']} calls, kernel "
+              f"{acc['ms']:.4f} ms (CUDA events {acc['paced_ms']:.4f}), "
+              f"plain {acc['plain_ms']:.4f} ms, bound {acc['bound_ms']:.4f} "
+              f"ms ({acc['bytes'] / 1e6:.1f} MB)", flush=True)
+    return out
+
+
 def check_surface_kernels(cap, label, lanes=None, fill=False,
                           shade_pass=True) -> dict:
     """The surface fetch, K2, K3 and K4 (fill: K4 FILL; shade_pass=False:
@@ -1276,6 +1388,7 @@ def bench(card: str):
     require_one_launch_per_trace(counts, tc.n, "bench", "mt_dense_fused")
     require_one_surface_fetch(counts, sc.n, "bench")
     require_one_shade_per_bounce(counts, shc.n, "bench")
+    require_rng(counts, shc.n, "bench")
     require(shc.n_chain == 0, "bench: a bounce took the chain")
     return {name: counts.get(KERNELS[name][0], 0) for name in KERNELS}, out
 
@@ -1679,6 +1792,15 @@ def require_one_shade_per_bounce(counts, n_bounces, what, fill=False):
             f"launches for {n_bounces} bounces")
 
 
+def require_rng(counts, n_bounces, what):
+    """The sample generator's kernels: at least one make, start_effect and
+    next_* launch per bounce (the shade step's)."""
+    got = [counts[k] for k in ("rng_make", "rng_start_effect", "rng_next")]
+    require(min(got) >= n_bounces > 0,
+            f"{what}: rng make, start_effect, next launches {got} for "
+            f"{n_bounces} bounces")
+
+
 def require_chain(counts, shc, what):
     """Every bounce through the chain of tensor ops: no K4 or K4 FILL
     launch, and no bounce of the fused pass."""
@@ -1758,6 +1880,7 @@ def city(results: dict, card: str, host, geometry_s: float):
         "city"))
     results["city"].update(check_surface_kernels(cap, "city"))
     del cap, traces                  # the captured inputs
+    results["city"].update(check_rng(r, w, h, spp, "city"))
 
     # the main path: 1920x1080, 2 spp as one regenerating chunk
     r.render(w, h, spp)                      # warm-up
@@ -1774,6 +1897,7 @@ def city(results: dict, card: str, host, geometry_s: float):
     require_one_launch_per_trace(counts, tc.n, "city render")
     require_one_surface_fetch(counts, sc.n, "city render")
     require_one_shade_per_bounce(counts, shc.n, "city render")
+    require_rng(counts, shc.n, "city render")
     require(shc.n_chain == 0, "city render: a bounce took the chain")
 
     # the port on the card against the port's plain versions on the CPU

@@ -1,15 +1,21 @@
 """Stateless counter-based sample generators (counterpart of
 rtxpt_tpu/core/rng.py), bit-exact with the reference.
 
-Every value is a uint32 of the reference carried in an int64 tensor and
-masked with 0xFFFFFFFF after each operation that can leave 32 bits:
-PyTorch's CPU build has no ``>>``, ``<<`` or ``+`` on uint32, and int64
-works the same on every device. Products of two 32-bit values are split
-into 16-bit halves so no intermediate leaves int64's positive range.
+`make`, `start_effect` and `next_uint` / `next_1d` / `next_2d` / `next_3d`
+decide by their tensors' device (`cuda_lib.on_cuda`): CUDA tensors launch
+one kernel a call (``csrc/rng.cu``: native uint32 arithmetic, the Sobol'
+point only on lanes in a low-discrepancy dimension, scalar operands as
+kernel arguments), CPU tensors take the plain version (the ``*_plain``
+functions), which the tests hold against the reference.
 
-Sobol' points are computed as a GF(2) matrix product: the bits of the
-index times the direction-number bit matrix, with the parities taken from
-a float32 matmul of 0/1 values (exact: every sum is at most 32).
+In the plain version every value is a uint32 of the reference carried in
+an int64 tensor and masked with 0xFFFFFFFF after each operation that can
+leave 32 bits: PyTorch's CPU build has no ``>>``, ``<<`` or ``+`` on
+uint32. Products of two 32-bit values are split into 16-bit halves so no
+intermediate leaves int64's positive range. Sobol' points are computed as
+a GF(2) matrix product: the bits of the index times the direction-number
+bit matrix, with the parities taken from a float32 matmul of 0/1 values
+(exact: every sum is at most 32).
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import cuda_lib
 from ..utils import profiling
 
 M32 = 0xFFFFFFFF
@@ -179,8 +186,8 @@ class SampleGenerator(NamedTuple):
     hq: torch.Tensor
 
 
-def make(pixel_x, pixel_y, vertex_index, sample_index,
-         low_discrepancy=False, hq=False) -> SampleGenerator:
+def make_plain(pixel_x, pixel_y, vertex_index, sample_index,
+               low_discrepancy=False, hq=False) -> SampleGenerator:
     """Seed a generator from (pixel, path vertex, sample index)
     (StatelessSampleGenerators.hlsli:85-93)."""
     dev = pixel_x.device if isinstance(pixel_x, torch.Tensor) else None
@@ -199,11 +206,12 @@ def make(pixel_x, pixel_y, vertex_index, sample_index,
         dimension=torch.full_like(base, _NON_LD),
         active=torch.zeros_like(base),
         hq=torch.full_like(base, 1 if hq else 0))
-    return start_effect(g, EFFECT_BASE, low_discrepancy)
+    return start_effect_plain(g, EFFECT_BASE, low_discrepancy)
 
 
-def start_effect(g: SampleGenerator, effect_seed: int, low_discrepancy=False,
-                 sub_index: int = 0, sub_count: int = 1) -> SampleGenerator:
+def start_effect_plain(g: SampleGenerator, effect_seed: int,
+                       low_discrepancy=False, sub_index: int = 0,
+                       sub_count: int = 1) -> SampleGenerator:
     """Rebase onto a decorrelated per-effect stream
     (StatelessSampleGenerators.hlsli:102-116). `low_discrepancy` may be a
     per-lane bool tensor."""
@@ -226,7 +234,7 @@ def start_effect(g: SampleGenerator, effect_seed: int, low_discrepancy=False,
         hq=g.hq)
 
 
-def next_uint(g: SampleGenerator, allow_ld: bool = True):
+def next_uint_plain(g: SampleGenerator, allow_ld: bool = True):
     """Advance and return a full-range uint32 sample
     (StatelessSampleGenerators.hlsli:122-159). allow_ld=False is the
     fast path for streams started without low discrepancy."""
@@ -258,19 +266,162 @@ def next_uint(g: SampleGenerator, allow_ld: bool = True):
     return g2, out
 
 
-def next_1d(g: SampleGenerator, allow_ld: bool = True):
-    g, u = next_uint(g, allow_ld)
+def next_1d_plain(g: SampleGenerator, allow_ld: bool = True):
+    g, u = next_uint_plain(g, allow_ld)
     return g, hash32_to_float(u)
 
 
-def next_2d(g: SampleGenerator, allow_ld: bool = True):
-    g, x = next_1d(g, allow_ld)
-    g, y = next_1d(g, allow_ld)
+def next_2d_plain(g: SampleGenerator, allow_ld: bool = True):
+    g, x = next_1d_plain(g, allow_ld)
+    g, y = next_1d_plain(g, allow_ld)
     return g, torch.stack([x, y], dim=-1)
 
 
-def next_3d(g: SampleGenerator, allow_ld: bool = True):
-    g, x = next_1d(g, allow_ld)
-    g, y = next_1d(g, allow_ld)
-    g, z = next_1d(g, allow_ld)
+def next_3d_plain(g: SampleGenerator, allow_ld: bool = True):
+    g, x = next_1d_plain(g, allow_ld)
+    g, y = next_1d_plain(g, allow_ld)
+    g, z = next_1d_plain(g, allow_ld)
     return g, torch.stack([x, y, z], dim=-1)
+
+
+# ---- the kernels (csrc/rng.cu) on CUDA tensors ----------------------------
+
+# an operand's mode in csrc/rng.cu: a scalar argument, or a tensor of int32,
+# int64 or uint8/bool per lane; _BROADCAST: every lane reads element 0
+_SCALAR, _I32, _I64, _U8, _BROADCAST = 0, 1, 2, 3, 4
+_MODES = {torch.int32: _I32, torch.int64: _I64, torch.bool: _U8,
+          torch.uint8: _U8}
+
+
+def _operand(x, shape, device):
+    """(pointer, mode, scalar value) of a kernel operand broadcast to
+    `shape`, and the tensor that holds its values (None for a scalar).
+    Scalars stay on the host as kernel arguments; an array is copied to
+    the device, as the plain version copies it."""
+    if isinstance(x, (int, np.integer, np.bool_)):
+        return (None, _SCALAR, int(x) & M32), None
+    if not isinstance(x, torch.Tensor):
+        x = u32(x, device)
+    if x.dtype not in _MODES:
+        x = x.to(torch.int64)
+    if x.shape == shape and x.is_contiguous():
+        return (x.data_ptr(), _MODES[x.dtype], 0), x
+    x = x.expand(shape)
+    if all(s == 0 for s in x.stride()):
+        return (x.data_ptr(), _MODES[x.dtype] | _BROADCAST, 0), x
+    x = x.contiguous()
+    return (x.data_ptr(), _MODES[x.dtype], 0), x
+
+
+def _fields(n_fields, shape, device):
+    """n_fields int64 state fields of `shape` in one allocation."""
+    return torch.empty((n_fields, *shape), dtype=torch.int64,
+                       device=device).unbind(0)
+
+
+@cuda_lib.counted("rng_make")
+def make(pixel_x, pixel_y, vertex_index, sample_index,
+         low_discrepancy=False, hq=False) -> SampleGenerator:
+    """Seed a generator from (pixel, path vertex, sample index)
+    (StatelessSampleGenerators.hlsli:85-93) and start its EFFECT_BASE
+    stream; on CUDA tensors one launch, scalar indices and flags passed as
+    kernel arguments."""
+    args = (pixel_x, pixel_y, vertex_index, sample_index, low_discrepancy)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if not tensors or not cuda_lib.on_cuda(*tensors):
+        return make_plain(*args[:4], low_discrepancy, hq)
+    dev = tensors[0].device
+    shapes = {a.shape for a in args[:4] if isinstance(a, torch.Tensor)}
+    shape = shapes.pop() if len(shapes) == 1 else \
+        torch.broadcast_shapes(*shapes)
+    ops = [_operand(a, shape, dev) for a in args]
+    out = _fields(6, shape, dev)
+    n = shape.numel()
+    if n:
+        cuda_lib.bump("rng_make")
+        cuda_lib.launch("rtxpt_rng_make", *(v for op, _ in ops for v in op),
+                        1 if hq else 0, *(f.data_ptr() for f in out), n)
+    return SampleGenerator(*out)
+
+
+@cuda_lib.counted("rng_start_effect")
+def start_effect(g: SampleGenerator, effect_seed: int, low_discrepancy=False,
+                 sub_index: int = 0, sub_count: int = 1) -> SampleGenerator:
+    """Rebase onto a decorrelated per-effect stream
+    (StatelessSampleGenerators.hlsli:102-116). `low_discrepancy` may be a
+    per-lane bool tensor; on CUDA tensors one launch, a host flag passed as
+    a kernel argument."""
+    tensors = [g.base, g.sample_index]
+    if isinstance(low_discrepancy, torch.Tensor):
+        tensors.append(low_discrepancy)
+    if not cuda_lib.on_cuda(*tensors):
+        return start_effect_plain(g, effect_seed, low_discrepancy, sub_index,
+                                  sub_count)
+    shape, dev = g.base.shape, g.base.device
+    ops = [_operand(a, shape, dev)
+           for a in (g.base, g.sample_index, low_discrepancy)]
+    effect, dimension, active = _fields(3, shape, dev)
+    n = shape.numel()
+    if n:
+        cuda_lib.bump("rng_start_effect")
+        cuda_lib.launch("rtxpt_rng_start_effect", *ops[0][0][:2],
+                        *ops[1][0][:2], *ops[2][0], effect_seed & M32,
+                        sub_index & M32, sub_count & M32, effect.data_ptr(),
+                        dimension.data_ptr(), active.data_ptr(), n)
+    return g._replace(effect=effect, dimension=dimension, active=active)
+
+
+@cuda_lib.counted("rng_next")
+def _next(g: SampleGenerator, k: int, allow_ld: bool, uint_out: bool):
+    """k draws in one launch on CUDA tensors: (advanced generator, the
+    (..., k) float32 samples, or next_uint's int64 values for uint_out)."""
+    shape, dev = g.effect.shape, g.effect.device
+    ops = [_operand(a, shape, dev)
+           for a in (g.effect, g.dimension, g.active, g.hq)]
+    fields = _fields(2 if allow_ld else 1, shape, dev)
+    samples = torch.empty(shape if uint_out else (*shape, k),
+                          dtype=torch.int64 if uint_out else torch.float32,
+                          device=dev)
+    n = shape.numel()
+    if n:
+        cuda_lib.bump("rng_next")
+        cuda_lib.launch("rtxpt_rng_next",
+                        *(v for op, _ in ops for v in op[:2]), k,
+                        int(allow_ld), int(uint_out), fields[0].data_ptr(),
+                        fields[-1].data_ptr() if allow_ld else None,
+                        samples.data_ptr(), n)
+    g = g._replace(effect=fields[0],
+                   dimension=fields[1] if allow_ld else g.dimension)
+    return g, samples
+
+
+def _on_cuda(g: SampleGenerator) -> bool:
+    return cuda_lib.on_cuda(g.effect, g.dimension, g.active, g.hq)
+
+
+def next_uint(g: SampleGenerator, allow_ld: bool = True):
+    """Advance and return a full-range uint32 sample
+    (StatelessSampleGenerators.hlsli:122-159). allow_ld=False is the
+    fast path for streams started without low discrepancy."""
+    if not _on_cuda(g):
+        return next_uint_plain(g, allow_ld)
+    return _next(g, 1, allow_ld, True)
+
+
+def next_1d(g: SampleGenerator, allow_ld: bool = True):
+    if not _on_cuda(g):
+        return next_1d_plain(g, allow_ld)
+    g, u = _next(g, 1, allow_ld, False)
+    return g, u[..., 0]
+
+
+def next_2d(g: SampleGenerator, allow_ld: bool = True):
+    if not _on_cuda(g):
+        return next_2d_plain(g, allow_ld)
+    return _next(g, 2, allow_ld, False)
+
+
+def next_3d(g: SampleGenerator, allow_ld: bool = True):
+    if not _on_cuda(g):
+        return next_3d_plain(g, allow_ld)
+    return _next(g, 3, allow_ld, False)

@@ -31,12 +31,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("gather.cu", "mt_dense.cu", "shade_kernel.cu", "bvh8_trace.cu")
+SOURCES = ("gather.cu", "mt_dense.cu", "shade_kernel.cu", "bvh8_trace.cu",
+           "rng.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # C signatures: every entry point returns the cudaError_t of its launch
 SIGNATURES = {
     "rtxpt_gather_rows": (P, I, I, P, P, I, I, P),
@@ -57,6 +58,11 @@ SIGNATURES = {
                             P, P, I, I, P),
     "rtxpt_bvh8_trace_2l_variant": (P, I, I, I, I, P, P, P, I, P, P, P, P, P,
                                     P, P, P, P, I, I, I, P),
+    # csrc/rng.cu: each operand (pointer, mode[, scalar value])
+    "rtxpt_rng_make": (P, I, U, P, I, U, P, I, U, P, I, U, P, I, U, U, P, P,
+                       P, P, P, P, I, P),
+    "rtxpt_rng_start_effect": (P, I, P, I, P, I, U, U, U, U, P, P, P, I, P),
+    "rtxpt_rng_next": (P, I, P, I, P, I, P, I, I, I, I, P, P, P, I, P),
 }
 
 _lib = None

@@ -16,8 +16,8 @@ inside a `sync` span), and once each under torch.profiler without and
 with recording (the profiler's stretch with and without the program's
 ranges). Prints the card; the walls; the device time and launches of the
 recorded profiled render grouped by kernel: the two-level trace, K6, K5,
-the fused dense trace, K1, K7, K4, K2/K3 and the PyTorch kernels of the
-tensor code, with the device's busy share; the span table: a row per
+the fused dense trace, K1, K7, K4, K2/K3, the sample generator and the
+PyTorch kernels of the tensor code, with the device's busy share; the span table: a row per
 span name with its calls per render call, host self ms per untraced
 recorded call, and the device ms and kernels of the profiled render that
 start inside its device span (the innermost); the bounce loop's lane
@@ -68,7 +68,9 @@ GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K7 worklists (tile_keys)", ("tile_keys_kernel",)),
           ("K4 shade", ("shade_nee_kernel",)),
           ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel",
-                             "gather_surface_kernel")))
+                             "gather_surface_kernel")),
+          ("sample generator (rng_make, rng_start_effect, rng_next)",
+           ("rng_make_kernel", "rng_start_effect_kernel", "rng_next_kernel")))
 HOST_MIN_NS = 20_000     # shorter host ops cannot name an idle gap
 
 
