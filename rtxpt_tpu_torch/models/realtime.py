@@ -310,7 +310,9 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
     GI -> the per-plane radiance channels. Returns (planes, committed
     diffuse (N,P,4), committed specular (N,P,4), specular motion (N,P,2),
     DI feedback reservoir, GI feedback reservoir, G-buffer normal and
-    view depth). y0/rows/prev_rows: the row window, as in _pt_frame."""
+    view depth, (DI, GI) initial reservoirs: the candidates and the
+    path-traced secondary sample before temporal reuse). y0/rows/
+    prev_rows: the row window, as in _pt_frame."""
     rows = height if rows is None else rows
     prev_rows = rows if prev_rows is None else prev_rows
     win = dict(y0=y0, rows=rows)
@@ -335,6 +337,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
         with profiling.span("realtime/restir_di"):
             ris = di.presample_lights(assets, frame)
             r = di.generate_candidates(assets, gb, px, py, frame, ris)
+            r_initial = r
             if has_prev and prev_res is not None:
                 r = di.temporal_resample(assets, gb, r, prev_res,
                                          prev_gb_normal, prev_gb_z, px, py,
@@ -344,11 +347,13 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             r_feedback = r
             r = di.spatial_resample(assets, gb, r, px, py, width, height,
                                     frame, **win)
+            profiling.count_device("restir_di.valid",
+                                   lambda: (r.light != di.LIGHT_INVALID).sum())
             if not cfg.use_restir_gi:
                 di_d, di_s = di.final_shade(
                     assets, gb, r, exact_alpha=cfg.exact_alpha_test)
     else:
-        r_feedback = Reservoir.empty(n, dev)
+        r_feedback = r_initial = Reservoir.empty(n, dev)
 
     # ---- FILL from the plane-0 base (firstHitFromBasePlane)
     with profiling.span("realtime/fill"):
@@ -394,6 +399,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             gr = gi.make_initial(gb, sec_pos, sec_nrm,
                                  fill["gi_valid"] & sec_found, lo,
                                  fill["gi_pdf"])
+            gr_initial = gr
             if has_prev and prev_gi is not None:
                 gr = gi.temporal_resample(gb, gr, prev_gi, prev_gb_normal,
                                           prev_gb_z, px, py, width, height,
@@ -401,6 +407,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
             gi_feedback = gr
             gr = gi.spatial_resample(gb, gr, px, py, width, height, frame,
                                      **win)
+            profiling.count_device("restir_gi.valid", lambda: gr.valid.sum())
             if cfg.use_restir_di:
                 di_d, di_s, gi_d, gi_s = di.fused_final_shade(
                     assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
@@ -408,7 +415,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
                 gi_d, gi_s = gi.final_shade(
                     assets, gb, gr, exact_alpha=cfg.exact_alpha_test)
     else:
-        gi_feedback = gi.GIReservoir.empty(n, dev)
+        gi_feedback = gr_initial = gi.GIReservoir.empty(n, dev)
 
     # fold the ReSTIR DI + GI radiance at the dominant base (weighted by
     # the plane throughput, like the committed channels) into the
@@ -436,7 +443,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
     spec_motion = sp.motion + (prev_xy_virt - cur_xy - sp.motion) \
         * w_virt[..., None]
     return (sp, committed_diff, committed_spec, spec_motion, r_feedback,
-            gi_feedback, gb.normal, gb.view_z)
+            gi_feedback, gb.normal, gb.view_z, (r_initial, gr_initial))
 
 
 def dominant_motion(sp: SPM.StablePlanes, height: int, width: int):
@@ -568,6 +575,8 @@ class RealtimeRenderer(Renderer):
         self.last_stable_planes = None
         self.last_plane_radiance = None   # (committed diff, spec) (N,P,4)
         self.last_plane_denoised = None   # (P,H,W,3) diff / spec stacks
+        self.last_restir_initial = None   # (DI, GI) reservoirs before
+        #                                   temporal reuse
 
     def _shard_stage1(self, height: int) -> bool:
         """Stage 1 runs on each rank's rows when they divide evenly;
@@ -634,7 +643,8 @@ class RealtimeRenderer(Renderer):
             # ReLAX on the rank's rows; TAA on the gathered frame below
             post["den"] = meshutils.ShardedReLAX(self.mesh, height)
         if kind == "stable":
-            (sp, cdiff, cspec, smot, r_fb, gi_fb, gb_normal, gb_z) = out
+            (sp, cdiff, cspec, smot, r_fb, gi_fb, gb_normal, gb_z,
+             self.last_restir_initial) = out
             if self.den_states is None:
                 self.den_states = [(None, None)] * \
                     self.cfg.stable_plane_count

@@ -427,4 +427,6 @@ def build_stable_planes(assets, cam: CameraData, prev_cam: CameraData,
     score = mu.luminance(s["sp_diff_est"] + s["sp_spec_est"])
     score = torch.where(s["sp_branch_id"] != INVALID_BRANCH, score, -1.0)
     s["sp_dominant"] = torch.argmax(score, dim=1)
+    profiling.count_device("stableplanes.stored", lambda: (
+        s["sp_branch_id"] != INVALID_BRANCH).sum())
     return StablePlanes(**{f: s["sp_" + f] for f in _SP_FIELDS})

@@ -36,7 +36,11 @@ regeneration), `compact` (narrowing and merging the wavefront),
 synchronisation on the reference path: a device value read, or a host
 value copied to the device), `realtime/<stage>`. Counters: `bounce.live`
 (live lanes of a bounce, as the loop's sync read them) and `bounce.width`
-(the wavefront's lanes).
+(the wavefront's lanes), in a realtime frame those of FILL;
+`stableplanes.stored` (planes BUILD stored), `restir_di.valid` and
+`restir_gi.valid` (stable-planes frames: pixels whose reservoir holds a
+sample after spatial reuse), read from the device by `count_device`
+while recording only.
 """
 from __future__ import annotations
 
@@ -67,6 +71,16 @@ def count(name: str, n: int):
     """Add the host integer `n` to the counter `name` while recording."""
     if _recorder is not None:
         _recorder.count(name, n)
+
+
+def count_device(name: str, value):
+    """Add the device count `value()` (a function returning an integer
+    tensor) to the counter `name` while recording, read inside a `sync`
+    span; not recording, `value` is not called, so nothing is read from
+    the device."""
+    if _recorder is not None:
+        with _recorder.scope("sync"):
+            _recorder.count(name, int(value()))
 
 
 @contextlib.contextmanager
