@@ -103,9 +103,14 @@ its seconds):
      two-level trace call, K5 and K6 not at all; 360p: `mt_dense_fused`
      once per dense trace call, K1 and K7 not at all; both: the surface
      fetch once per load_surface call, K3 not at all, K4 FILL once per
-     FILL bounce and K4 not at all) and the frame to be finite and not
-     black. Then the
-     port on the card against the port on the CPU (programmer-art 64x48,
+     FILL bounce and K4 not at all; ReLAX's three passes and the TAA
+     resolve launched) and the frame to be finite and not black; then
+     one more frame with ReLAX's and TAA's wrappers captured: every call's
+     kernels (csrc/relax.cu: the temporal and the variance pass, one
+     launch each, one launch an a-trous iteration, the TAA resolve)
+     counted and bit-equal to the plain version on the call's inputs,
+     timed beside it (CUDA events) with their bytes at 3.35 TB/s. Then
+     the port on the card against the port on the CPU (programmer-art 64x48,
      2 frames, PSNR > 40 dB), and the estimator oracle of
      tests/test_ref_vs_realtime.py on the card on stable planes (phase 8
      runs it on PSR-lite): the mean of 32 `ref-vs-realtime` frames at
@@ -121,17 +126,19 @@ its seconds):
      first NEE trace that casts a ray and the ReSTIR visibility trace;
      3 timed frames each with one `bvh8_trace_2l` or `mt_dense_fused` per
      trace call, one surface fetch per load_surface, one K4 per bounce
-     and no K4 FILL. The city at 960x540 upscaled by TAAU to 1920x1080 on
+     and no K4 FILL, then ReLAX's and TAA's kernels on one more frame, as
+     in 7. The city at 960x540 upscaled by TAAU to 1920x1080 on
      RealtimeRenderer defaults (its kernels checked at 518,400 lanes, 3
-     timed frames of 1920x1080). The city at 1920x1080 denoised by ReBLUR
-     (3 timed frames with the launch checks). GPU vs CPU (PSNR > 40 dB,
-     64x48, frame 2): PSR-lite, its ref-vs-realtime preset, ReBLUR on both
-     pipelines, TAAU from 32x24 to 64x48, and photo_denoise_auto on a
-     2-spp reference render. The estimator oracle on PSR-lite (the
-     reference's own configuration). Denoiser quality
-     (tests/test_denoise_quality.py): 4 frames at 64x48 against a 64-spp
-     reference render, ReLAX and ReBLUR each more than 1.5 dB above the
-     raw frame and above 18 dB;
+     timed frames of 1920x1080, ReLAX's kernels as in 7.; TAAU takes
+     TAA's place). The city at 1920x1080 denoised by ReBLUR (3 timed
+     frames with the launch checks, the TAA resolve among them). GPU vs
+     CPU (PSNR > 40 dB, 64x48, frame 2): PSR-lite, its ref-vs-realtime
+     preset, ReBLUR on both pipelines, TAAU from 32x24 to 64x48, and
+     photo_denoise_auto on a 2-spp reference render. The estimator
+     oracle on PSR-lite (the reference's own configuration). Denoiser
+     quality (tests/test_denoise_quality.py): 4 frames at 64x48 against
+     a 64-spp reference render, ReLAX and ReBLUR each more than 1.5 dB
+     above the raw frame and above 18 dB;
   9. foliage dense: programmer-art and 1,500 alpha-MASK leaf cards in
      the default camera's view (8,160 triangles, the dense tier; 2048x2048
      leaf base color + alpha and normal map, 1024x1024 metal-rough, all
@@ -154,7 +161,8 @@ its seconds):
      the surface fetch, K2 and K4; the 1920x1080 2-spp render with the
      city's launch checks; 3 frames of the default realtime pipeline at
      1920x1080 after the two warm-ups (the first counting the re-queue),
-     with the realtime city's launch checks; 64x36 1-spp GPU vs CPU;
+     with the realtime city's launch checks, and ReLAX's and TAA's
+     kernels on one more frame, as in 7.; 64x36 1-spp GPU vs CPU;
   11. the glTF loader: a .scene.json written to a temporary directory,
      whose model is a .gltf of the 1,500 cards over a floor with one PNG
      base color + alpha and one BC1 .dds metal-rough, rendered through
@@ -181,7 +189,7 @@ its seconds):
      vs CPU. `--animate` realtime at 1920x1080 (the default pipeline): the
      path's kernels on the first frame, then 3 frames with the animate
      call before each, with the realtime launch checks (K5 once per trace
-     call);
+     call), and ReLAX's and TAA's kernels on one more frame, as in 7.;
   13. instanced city: build_city() written as a glTF (3,219 mesh nodes
      over the four meshes, one glTF mesh per mesh and material, one
      animation that moves 64 of the spheres; 404,186 triangles): the gate
@@ -215,9 +223,11 @@ its seconds):
      each rank prints its ms per frame, the halo and gather bytes and ms
      per frame (CUDA events around each exchange) and its launches per
      kernel. The launches, summed over the ranks, are the kernels line's
-     path `realtime_sharded`; then every rank renders one more frame, of
+     path `realtime_sharded`; then every rank renders two more frames, of
      which rank 0 holds the path's kernels against their plain versions
-     on its rows' launches (the path's numbers in the kernels line).
+     on its rows' launches (the first frame's; ReLAX's on its rows and
+     their halo, TAA's on the gathered frame, the second's, as in 7.; the
+     path's numbers in the kernels line).
      Last, 3 city frames without TAA on every rank, against one device's:
      every pixel within rtol 1e-4 / atol 1e-5 on the rows beyond the
      reach of a seam, the frame's edge and (from the second frame) the
@@ -328,24 +338,51 @@ KERNELS = {
     "rng_start_effect": ("rng_start_effect", "rtxpt_tpu_torch/csrc/rng.cu",
                          None),
     "rng_next": ("rng_next", "rtxpt_tpu_torch/csrc/rng.cu", None),
+    # ReLAX's passes and the TAA resolve: no TPU kernel (the reference's
+    # denoiser and TAA are XLA code)
+    "relax_temporal": ("relax_temporal", "rtxpt_tpu_torch/csrc/relax.cu",
+                       None),
+    "relax_variance": ("relax_variance", "rtxpt_tpu_torch/csrc/relax.cu",
+                       None),
+    "relax_atrous": ("relax_atrous", "rtxpt_tpu_torch/csrc/relax.cu", None),
+    "taa_resolve": ("taa_resolve", "rtxpt_tpu_torch/csrc/relax.cu", None),
 }
 # the sample generator's wrappers (core/rng.py) by launch counter
 RNG_CALLS = {"make": "rng_make", "start_effect": "rng_start_effect",
              "next_1d": "rng_next", "next_2d": "rng_next",
              "next_3d": "rng_next"}
-# the kernels each main path must launch
+# ReLAX's and TAA's wrappers (denoise/relax.py, post/taa.py) by launch
+# counter
+DENOISER_CALLS = {"temporal_accumulate": "relax_temporal",
+                  "estimate_variance": "relax_variance",
+                  "atrous_filter": "relax_atrous", "resolve": "taa_resolve"}
+# the bytes a pixel one launch of each reads and writes: the temporal
+# pass's history (40 B) and frame (36 B) in, 24 B out; the variance pass's
+# radiance, moments and history in, 4 B out; an a-trous iteration's
+# radiance, variance, normal and depth in (specular: and roughness),
+# radiance and variance out; TAA's history, colour and motion in (and the
+# relax mask), the colour out
+DENOISER_BYTES = {"temporal_accumulate": 100, "estimate_variance": 28,
+                  "atrous_filter": 48, "resolve": 44}
+# the kernels each main path must launch; the realtime pipelines' post:
+# ReLAX's passes, then TAA
+RELAX = ("relax_temporal", "relax_variance", "relax_atrous")
+RELAX_TAA = RELAX + ("taa_resolve",)
 BENCH_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
               "shade_nee")
 CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface", "shade_nee")
 RT_CITY_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
-                "shade_nee_fill")
+                "shade_nee_fill") + RELAX_TAA
 RT_ART_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
-               "shade_nee_fill")
+               "shade_nee_fill") + RELAX_TAA
+# TAAU's upscale takes TAA's place, ReBLUR takes ReLAX's
+RT_CITY_TAAU_PATH = RT_CITY_PATH[:4] + RELAX
+RT_CITY_REBLUR_PATH = RT_CITY_PATH[:4] + ("taa_resolve",)
 # the PSR-lite pipeline's paths: the non-FILL K4 once per bounce
 RT_CITY_PSR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface",
-                    "shade_nee")
+                    "shade_nee") + RELAX_TAA
 RT_ART_PSR_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
-                   "shade_nee")
+                   "shade_nee") + RELAX_TAA
 # the textured, alpha-MASK paths: the foliage scenes' reference renders
 FOLIAGE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                 "shade_nee")
@@ -359,7 +396,7 @@ CITY_REGIR_PATH = ("bvh8_trace_2l", "gather_rows", "gather_surface")
 SKINNED_BVH8_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
                      "shade_nee")
 RT_SKINNED_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
-                   "shade_nee_fill")
+                   "shade_nee_fill") + RELAX_TAA
 SKINNED_DENSE_PATH = ("mt_dense_fused", "gather_rows", "gather_surface",
                       "shade_nee")
 INSTANCED_PATH = ("bvh8_trace", "gather_rows", "gather_surface",
@@ -380,7 +417,7 @@ PATHS = {"bench": BENCH_PATH, "city": CITY_PATH,
          "realtime_city": RT_CITY_PATH, "realtime_360p": RT_ART_PATH,
          "realtime_city_psr": RT_CITY_PSR_PATH,
          "realtime_360p_psr": RT_ART_PSR_PATH,
-         "realtime_city_taau": RT_CITY_PATH,
+         "realtime_city_taau": RT_CITY_TAAU_PATH,
          "foliage_dense": FOLIAGE_PATH, "city_foliage": CITY_PATH,
          "realtime_city_foliage": RT_CITY_PATH, "gltf_scene": FOLIAGE_PATH,
          "skinned_bvh8": SKINNED_BVH8_PATH,
@@ -526,7 +563,10 @@ class Capture:
                "shade_nee_fill": "rtxpt_tpu_torch.pt.shade_kernel",
                "trace_bvh8_2l": "rtxpt_tpu_torch.ops.traverse_bvh8",
                "trace_bvh8": "rtxpt_tpu_torch.ops.traverse_bvh8",
-               **dict.fromkeys(RNG_CALLS, "rtxpt_tpu_torch.core.rng")}
+               **dict.fromkeys(RNG_CALLS, "rtxpt_tpu_torch.core.rng"),
+               **dict.fromkeys(DENOISER_CALLS,
+                               "rtxpt_tpu_torch.denoise.relax"),
+               "resolve": "rtxpt_tpu_torch.post.taa"}
     # (module, function, which calls count: None for all): the realtime
     # frame's stages, as models/realtime.py calls them, and the visibility
     # traces that cast at least one ray
@@ -2193,6 +2233,77 @@ def check_realtime_kernels(r, w, h, label, frame_kw=None,
     return out
 
 
+def tensors_of(x) -> list:
+    """The tensors of a result: a tensor, or those in its tuples."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in tensors_of(y)]
+    return []
+
+
+def check_denoiser_kernels(r, w, h, label, frame_kw=None) -> dict:
+    """ReLAX's and TAA's kernels (csrc/relax.cu) on every call of their
+    wrappers in one more frame of the realtime renderer `r` (render_frame's
+    keywords `frame_kw`; after the timed frames, so most pixels hold four
+    frames of history or more, past the variance pass's switch, and TAA a
+    valid one): each call's launches counted (one a pass, one an a-trous
+    iteration) and its outputs bit-equal to the plain version's on the
+    captured inputs; the call's device time (CUDA events over 10 calls)
+    beside the plain version's (CUDA events, one call) and the bound: its
+    launches' bytes at 3.35 TB/s -> {launch counter: summed over the
+    frame's calls}."""
+    import importlib
+    from rtxpt_tpu_torch.ops import cuda_lib
+    with Capture(dict.fromkeys(DENOISER_CALLS, 64)) as cap:
+        r.render_frame(w, h, **(frame_kw or {}))
+        torch.cuda.synchronize()
+    out = {}
+    for name, counter in DENOISER_CALLS.items():
+        mod = importlib.import_module(Capture.MODULES[name])
+        for i, (args, kw) in enumerate(cap.calls[name]):
+            kern = lambda: getattr(mod, name)(*args, **kw)
+            plain = lambda: getattr(mod, name + "_plain")(*args, **kw)
+            before = cuda_lib.launch_counts()[counter]
+            got = tensors_of(kern())
+            launches = cuda_lib.launch_counts()[counter] - before
+            ref, pms = timed_call(plain)
+            ref = tensors_of(ref)
+            what = f"{counter} {label} call {i}"
+            if name == "atrous_filter":
+                roughness = kw.get("roughness",
+                                   args[4] if len(args) > 4 else None)
+                want = kw.get("iterations", args[5] if len(args) > 5 else 5)
+                px_bytes = DENOISER_BYTES[name] + 4 * (roughness is not None)
+            else:
+                mask = kw.get("relax_mask") if name == "resolve" else None
+                want = 1
+                px_bytes = DENOISER_BYTES[name] + 4 * (mask is not None)
+            require(launches == want, f"{what}: {launches} launches, "
+                    f"expected {want}")
+            require(len(got) == len(ref) and all(
+                torch.equal(a, b) for a, b in zip(got, ref)),
+                f"{what}: differs from the plain version")
+            px = got[0].shape[0] * got[0].shape[1]
+            nbytes = px * px_bytes * launches
+            ms = time_ms(kern, 10)
+            acc = out.setdefault(counter, dict(
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=None,
+                bound_ms=0.0, bound_by="bytes", calls=0, launches=0,
+                bytes=0))
+            for key, v in (("ms", ms), ("plain_ms", pms),
+                           ("bound_ms", bound(nbytes, 0)[0]), ("calls", 1),
+                           ("launches", launches), ("bytes", nbytes)):
+                acc[key] += v
+    for counter, acc in out.items():
+        print(f"{counter} {label}: {acc['calls']} calls of a frame, "
+              f"{acc['launches']} launches, bit-equal to the plain version; "
+              f"kernel {acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, "
+              f"bound {acc['bound_ms']:.4f} ms ({acc['bytes'] / 1e6:.1f} MB)",
+              flush=True)
+    return out
+
+
 def realtime_frames(r, w, h, label, card, path, warmups=2,
                     frames=3, frame_kw=None, before=None) -> dict:
     """`warmups` frames (the no-history and the history variant: 2 from a
@@ -2277,6 +2388,8 @@ def realtime(results: dict, card: str, host_city, kept: dict) -> dict:
     # the captured frame was the no-history warm-up
     launches["realtime_city"] = realtime_frames(r, w, h, "city", card,
                                                 RT_CITY_PATH, warmups=1)
+    results["realtime_city"].update(
+        check_denoiser_kernels(r, w, h, "realtime city"))
     kept["stable"] = keep_stable(r)
     del r
     torch.cuda.empty_cache()
@@ -2290,6 +2403,8 @@ def realtime(results: dict, card: str, host_city, kept: dict) -> dict:
         check_realtime_kernels(r, w, h, "realtime 360p"))
     launches["realtime_360p"] = realtime_frames(r, w, h, "programmer-art",
                                                 card, RT_ART_PATH, warmups=1)
+    results["realtime_360p"].update(
+        check_denoiser_kernels(r, w, h, "realtime 360p"))
 
     # ---- the port on the card against the port on the CPU
     realtime_gpu_vs_cpu(host, "realtime")
@@ -2395,6 +2510,8 @@ def realtime_pipelines(results: dict, card: str, host_city,
     torch.cuda.empty_cache()
     launches["realtime_city_psr"] = realtime_frames(
         r, w, h, "city PSR-lite", card, RT_CITY_PSR_PATH, warmups=1)
+    results["realtime_city_psr"].update(
+        check_denoiser_kernels(r, w, h, "realtime city PSR-lite"))
     kept["psr"] = dict(frame_outputs=r.last_outputs)
     del r
     torch.cuda.empty_cache()
@@ -2410,6 +2527,8 @@ def realtime_pipelines(results: dict, card: str, host_city,
     launches["realtime_360p_psr"] = realtime_frames(
         r, w, h, "programmer-art PSR-lite", card, RT_ART_PSR_PATH,
         warmups=1)
+    results["realtime_360p_psr"].update(
+        check_denoiser_kernels(r, w, h, "realtime 360p PSR-lite"))
     del r
 
     # ---- the city rendered at 960x540 and upscaled by TAAU to 1920x1080
@@ -2421,8 +2540,10 @@ def realtime_pipelines(results: dict, card: str, host_city,
     results["realtime_city_taau"].update(check_realtime_kernels(
         r, w, h, "realtime city TAAU", frame_kw=display))
     launches["realtime_city_taau"] = realtime_frames(
-        r, w, h, "city TAAU", card, RT_CITY_PATH, warmups=1,
+        r, w, h, "city TAAU", card, RT_CITY_TAAU_PATH, warmups=1,
         frame_kw=display)
+    results["realtime_city_taau"].update(check_denoiser_kernels(
+        r, w, h, "realtime city TAAU", frame_kw=display))
     del r
     torch.cuda.empty_cache()
 
@@ -2435,7 +2556,7 @@ def realtime_pipelines(results: dict, card: str, host_city,
                                          denoiser_method="reblur"),
                          device="cuda")
     launches["realtime_city_reblur"] = realtime_frames(
-        r, w, h, "city ReBLUR", card, RT_CITY_PATH)
+        r, w, h, "city ReBLUR", card, RT_CITY_REBLUR_PATH)
     del r
     torch.cuda.empty_cache()
 
@@ -2849,6 +2970,8 @@ def city_foliage(results: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     launches["realtime_city_foliage"] = realtime_frames(
         rr, w, h, "city foliage", card, RT_CITY_PATH, warmups=1)
+    results["realtime_city_foliage"].update(
+        check_denoiser_kernels(rr, w, h, "realtime city foliage"))
     del rr
     torch.cuda.empty_cache()
     gpu_vs_cpu(host, procedural.city_camera, cfg, 64, 36, 1, "city foliage")
@@ -3281,6 +3404,8 @@ def skinned(results: dict, card: str) -> dict:
         launches["realtime_skinned"] = realtime_frames(
             r, rw, rh, "skinned figure --animate", card, RT_SKINNED_PATH,
             warmups=1, before=tick)
+        results["realtime_skinned"].update(
+            check_denoiser_kernels(r, rw, rh, "realtime skinned"))
         del r
         torch.cuda.empty_cache()
         # the realtime CLI's flags on the card
@@ -3498,8 +3623,8 @@ def city_frames_no_taa(host_city, mesh=None):
 def sharded_rank(mesh, host_city, shade):
     """One rank of phase 14: the parity cases, the city frames (then
     rank 0 holds the city path's kernels against their plain versions on
-    the launches of one more frame, its rows' shapes, while the other
-    ranks render that frame and wait), and the city without TAA."""
+    the launches of two more frames, its rows' shapes, while the other
+    ranks render those frames and wait), and the city without TAA."""
     import torch.distributed as dist
     from rtxpt_tpu_torch.scene import procedural
     from tools_torch import sharded_frames
@@ -3513,7 +3638,9 @@ def sharded_rank(mesh, host_city, shade):
         if mesh.rank == 0:
             got = check_realtime_kernels(r, w, h, "realtime sharded",
                                          lanes=w * h // mesh.size)
+            got.update(check_denoiser_kernels(r, w, h, "realtime sharded"))
         else:
+            r.render_frame(w, h)
             r.render_frame(w, h)
         dist.barrier()
         return got

@@ -11,6 +11,12 @@ The published ReLAX structure, as tensor stencils over (H, W) buffers:
      young pixels;
   3. N edge-aware a-trous wavelet passes with variance-guided luminance,
      normal and depth edge-stopping (specular: roughness-sharpened).
+
+`temporal_accumulate`, `estimate_variance` and `atrous_filter` decide by
+their tensors' device (`cuda_lib.on_cuda`): CUDA tensors launch one kernel
+per pass and per a-trous iteration (``csrc/relax.cu``, bit-equal to the
+plain version on the card), CPU tensors take the plain version (the
+``*_plain`` functions), which the tests hold against the reference.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import mathutils as mu
+from ..ops import cuda_lib
 
 
 class DenoiserState(NamedTuple):
@@ -101,9 +108,9 @@ def _grid(h: int, w: int, device):
     return yy, xx
 
 
-def temporal_accumulate(state: DenoiserState, radiance, normal, view_z,
-                        motion, max_history: float = 32.0,
-                        history_clamp: float = 3.0) -> DenoiserState:
+def temporal_accumulate_plain(state: DenoiserState, radiance, normal,
+                              view_z, motion, max_history: float = 32.0,
+                              history_clamp: float = 3.0) -> DenoiserState:
     """Reproject the history with the motion vectors (prev - cur, px),
     validate the geometry, clamp the history to mean +- k sigma of the
     current 3x3 neighbourhood (NRD's anti-lag clamp) and blend."""
@@ -155,7 +162,7 @@ def _box_blur_zero(x, radius: int):
     return sum(rows[:, dx:dx + w] for dx in range(k)) * (1.0 / (k * k))
 
 
-def estimate_variance(state: DenoiserState):
+def estimate_variance_plain(state: DenoiserState):
     m1 = state.moments[..., 0]
     m2 = state.moments[..., 1]
     temporal_var = torch.clamp(m2 - m1 * m1, min=0.0)
@@ -166,9 +173,9 @@ def estimate_variance(state: DenoiserState):
     return torch.where(state.history < 4.0, spatial_var, temporal_var)
 
 
-def atrous_filter(radiance, variance, normal, view_z, roughness=None,
-                  iterations: int = 5, phi_lum: float = 4.0,
-                  phi_normal: float = 64.0, phi_z: float = 1.0):
+def atrous_filter_plain(radiance, variance, normal, view_z, roughness=None,
+                        iterations: int = 5, phi_lum: float = 4.0,
+                        phi_normal: float = 64.0, phi_z: float = 1.0):
     """Edge-aware a-trous wavelet passes (the SVGF / ReLAX core). With
     `roughness` the channel is specular: the normal edge-stopper sharpens
     as roughness drops and a roughness edge-stopper keeps materials
@@ -221,6 +228,91 @@ def atrous_filter(radiance, variance, normal, view_z, roughness=None,
         radiance = acc / torch.clamp(acc_w[..., None], min=1e-8)
         variance = acc_v / torch.clamp(acc_w * acc_w, min=1e-8)
     return radiance
+
+
+@cuda_lib.counted("relax_temporal")
+def temporal_accumulate(state: DenoiserState, radiance, normal, view_z,
+                        motion, max_history: float = 32.0,
+                        history_clamp: float = 3.0) -> DenoiserState:
+    """Reproject, validate, clamp and blend the history
+    (`temporal_accumulate_plain`); on CUDA tensors one launch that reads
+    the history's fields in place."""
+    if not cuda_lib.on_cuda(radiance, normal, view_z, motion, *state):
+        return temporal_accumulate_plain(state, radiance, normal, view_z,
+                                         motion, max_history, history_clamp)
+    h, w = radiance.shape[0], radiance.shape[1]
+    ins = [cuda_lib.kernel_operand(t, name, (h, w) + c) for t, name, c in (
+        (state.radiance, "state.radiance", (3,)),
+        (state.moments, "state.moments", (2,)),
+        (state.history, "state.history", ()),
+        (state.normal, "state.normal", (3,)),
+        (state.view_z, "state.view_z", ()),
+        (radiance, "radiance", (3,)), (normal, "normal", (3,)),
+        (view_z, "view_z", ()), (motion, "motion", (2,)))]
+    new = lambda *c: torch.empty((h, w) + c, dtype=torch.float32,
+                                 device=radiance.device)
+    rad, mom, hist = new(3), new(2), new()
+    if h * w:
+        cuda_lib.bump("relax_temporal")
+        cuda_lib.launch("rtxpt_relax_temporal",
+                        *(t.data_ptr() for t in ins), rad.data_ptr(),
+                        mom.data_ptr(), hist.data_ptr(), h, w, max_history,
+                        history_clamp)
+    return DenoiserState(radiance=rad, moments=mom, history=hist,
+                         normal=normal, view_z=view_z)
+
+
+@cuda_lib.counted("relax_variance")
+def estimate_variance(state: DenoiserState):
+    """Per-pixel luminance variance (`estimate_variance_plain`); on CUDA
+    tensors one launch."""
+    if not cuda_lib.on_cuda(state.radiance, state.moments, state.history):
+        return estimate_variance_plain(state)
+    h, w = state.history.shape[0], state.history.shape[1]
+    rad = cuda_lib.kernel_operand(state.radiance, "state.radiance", (h, w, 3))
+    mom = cuda_lib.kernel_operand(state.moments, "state.moments", (h, w, 2))
+    hist = cuda_lib.kernel_operand(state.history, "state.history", (h, w))
+    out = torch.empty((h, w), dtype=torch.float32, device=hist.device)
+    if h * w:
+        cuda_lib.bump("relax_variance")
+        cuda_lib.launch("rtxpt_relax_variance", rad.data_ptr(),
+                        mom.data_ptr(), hist.data_ptr(), out.data_ptr(), h, w)
+    return out
+
+
+@cuda_lib.counted("relax_atrous")
+def atrous_filter(radiance, variance, normal, view_z, roughness=None,
+                  iterations: int = 5, phi_lum: float = 4.0,
+                  phi_normal: float = 64.0, phi_z: float = 1.0):
+    """The a-trous passes (`atrous_filter_plain`); on CUDA tensors one
+    launch per iteration (step 1, 2, 4, ...), ping-ponging between two
+    pairs of buffers."""
+    guides = (normal, view_z) if roughness is None else (normal, view_z,
+                                                         roughness)
+    if not cuda_lib.on_cuda(radiance, variance, *guides):
+        return atrous_filter_plain(radiance, variance, normal, view_z,
+                                   roughness, iterations, phi_lum,
+                                   phi_normal, phi_z)
+    h, w = radiance.shape[0], radiance.shape[1]
+    rad = cuda_lib.kernel_operand(radiance, "radiance", (h, w, 3))
+    var = cuda_lib.kernel_operand(variance, "variance", (h, w))
+    nrm = cuda_lib.kernel_operand(normal, "normal", (h, w, 3))
+    z = cuda_lib.kernel_operand(view_z, "view_z", (h, w))
+    rough = None if roughness is None else cuda_lib.kernel_operand(
+        roughness, "roughness", (h, w))
+    bufs = [(torch.empty_like(rad), torch.empty_like(var))
+            for _ in range(min(iterations, 2))]
+    for it in range(iterations):
+        o_rad, o_var = bufs[it % 2]
+        if h * w:
+            cuda_lib.bump("relax_atrous")
+            cuda_lib.launch("rtxpt_relax_atrous", rad.data_ptr(),
+                            var.data_ptr(), nrm.data_ptr(), z.data_ptr(),
+                            None if rough is None else rough.data_ptr(),
+                            o_rad.data_ptr(), o_var.data_ptr(), h, w,
+                            1 << it, phi_lum, phi_normal, phi_z)
+        rad, var = o_rad, o_var
+    return rad
 
 
 def denoise(state: Optional[DenoiserState], radiance, normal, view_z,

@@ -478,11 +478,14 @@ def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
                 / torch.clamp(diff_est, min=eps)
             s_in = committed_spec[:, p, :3].reshape(shp + (3,)) \
                 / torch.clamp(spec_est, min=eps)
-            normal = sp.normal[:, p].reshape(shp + (3,))
-            view_z = sp.view_z[:, p].reshape(shp)
             valid = (sp.branch_id[:, p] != SPM.INVALID_BRANCH).reshape(
                 shp)[..., None]
             if use_den:
+                # the plane's guides in a buffer of their own: the
+                # denoiser's passes, and next frame's through its state,
+                # read them as they are
+                normal = sp.normal[:, p].reshape(shp + (3,)).contiguous()
+                view_z = sp.view_z[:, p].reshape(shp).contiguous()
                 dd, ds = den_states[p]
                 # ReBLUR's radius follows the channel's hit distance
                 hit_d = dict(hit_t=committed_diff[:, p, 3].reshape(shp)) \

@@ -32,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("gather.cu", "mt_dense.cu", "shade_kernel.cu", "bvh8_trace.cu",
-           "rng.cu")
+           "rng.cu", "relax.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false")
@@ -63,6 +63,12 @@ SIGNATURES = {
                        P, P, P, P, I, P),
     "rtxpt_rng_start_effect": (P, I, P, I, P, I, U, U, U, U, P, P, P, I, P),
     "rtxpt_rng_next": (P, I, P, I, P, I, P, I, I, I, I, P, P, P, I, P),
+    # csrc/relax.cu: float32 images, then (h, w) and the passes' parameters
+    "rtxpt_relax_temporal": (P, P, P, P, P, P, P, P, P, P, P, P, I, I, F, F,
+                             P),
+    "rtxpt_relax_variance": (P, P, P, P, I, I, P),
+    "rtxpt_relax_atrous": (P, P, P, P, P, P, P, I, I, I, F, F, F, P),
+    "rtxpt_taa_resolve": (P, P, P, P, P, I, I, F, F, P),
 }
 
 _lib = None
@@ -119,6 +125,17 @@ def check(t: torch.Tensor, name: str, dtype, shape=None):
                 s is not None and s != ts for s, ts in zip(shape, t.shape)):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                              f"expected {shape}")
+
+
+def kernel_operand(t: torch.Tensor, name: str, shape) -> torch.Tensor:
+    """`t` as a float32 kernel operand of `shape`, contiguous (a strided
+    view is copied), with 32-bit offsets."""
+    t = t.contiguous()
+    check(t, name, torch.float32, shape)
+    if t.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {t.numel()} elements, kernels index "
+                         "with 32 bits")
+    return t
 
 
 def _nvcc() -> str:

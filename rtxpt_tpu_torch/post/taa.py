@@ -3,6 +3,11 @@ TemporalAntiAliasingPass, taa_cs.hlsl, wired at Sample.cpp:1469-1482):
 Catmull-Rom history resampling, variance clipping of the history to
 mean +- k sigma of the 3x3 window, exponential blend. The R2 jitter
 sequence is models/renderer.r2_jitter.
+
+`resolve` decides by its tensors' device (`cuda_lib.on_cuda`): with a
+valid history, CUDA tensors launch one kernel (``csrc/relax.cu``,
+bit-equal to the plain version on the card), CPU tensors take the plain
+version, `resolve_plain`.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import torch
 
 from ..core import mathutils as mu
 from ..denoise.relax import _grid, _pad_edge, _tap
+from ..ops import cuda_lib
 
 
 class TAAState(NamedTuple):
@@ -53,8 +59,9 @@ def _catmull_rom_gather(img, x, y):
     return acc / torch.clamp(wacc[..., None], min=1e-8)
 
 
-def resolve(state: Optional[TAAState], color, motion, blend: float = 0.1,
-            clip_sigma: float = 1.0, relax_mask=None):
+def resolve_plain(state: Optional[TAAState], color, motion,
+                  blend: float = 0.1, clip_sigma: float = 1.0,
+                  relax_mask=None):
     """color: (H,W,3) current frame; motion: (H,W,2) px (prev - cur).
     Returns (resolved, new state). relax_mask (H,W) in [0,1]: the
     denoiser's history-reset signal; where it is high the blend snaps to
@@ -94,4 +101,30 @@ def resolve(state: Optional[TAAState], color, motion, blend: float = 0.1,
                                                          1.0))
     out = torch.where(in_bounds, mu.lerp(hist, color, blend_eff[..., None]),
                       color)
+    return out, TAAState(history=out, valid=True)
+
+
+@cuda_lib.counted("taa_resolve")
+def resolve(state: Optional[TAAState], color, motion, blend: float = 0.1,
+            clip_sigma: float = 1.0, relax_mask=None):
+    """`resolve_plain`; with a valid history on CUDA tensors one launch,
+    the Catmull-Rom texels and the 3x3 window read by clamped index."""
+    masks = () if relax_mask is None else (relax_mask,)
+    if state is None or not state.valid or not cuda_lib.on_cuda(
+            state.history, color, motion, *masks):
+        return resolve_plain(state, color, motion, blend, clip_sigma,
+                             relax_mask)
+    h, w = color.shape[0], color.shape[1]
+    hist = cuda_lib.kernel_operand(state.history, "state.history", (h, w, 3))
+    col = cuda_lib.kernel_operand(color, "color", (h, w, 3))
+    mot = cuda_lib.kernel_operand(motion, "motion", (h, w, 2))
+    mask = None if relax_mask is None else cuda_lib.kernel_operand(
+        relax_mask, "relax_mask", (h, w))
+    out = torch.empty_like(col)
+    if h * w:
+        cuda_lib.bump("taa_resolve")
+        cuda_lib.launch("rtxpt_taa_resolve", hist.data_ptr(), col.data_ptr(),
+                        mot.data_ptr(),
+                        None if mask is None else mask.data_ptr(),
+                        out.data_ptr(), h, w, blend, clip_sigma)
     return out, TAAState(history=out, valid=True)

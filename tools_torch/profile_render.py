@@ -16,11 +16,12 @@ inside a `sync` span), and once each under torch.profiler without and
 with recording (the profiler's stretch with and without the program's
 ranges). Prints the card; the walls; the device time and launches of the
 recorded profiled render grouped by kernel: the two-level trace, K6, K5,
-the fused dense trace, K1, K7, K4, K2/K3, the sample generator and the
-PyTorch kernels of the tensor code, with the device's busy share; the span table: a row per
-span name with its calls per render call, host self ms per untraced
-recorded call, and the device ms and kernels of the profiled render that
-start inside its device span (the innermost); the bounce loop's lane
+the fused dense trace, K1, K7, K4, K2/K3, the sample generator, ReLAX's
+and TAA's kernels and the PyTorch kernels of the tensor code, with the
+device's busy share; the span table: a row per span name with its calls
+per render call, host self ms per untraced recorded call, and the device
+ms and kernels of the profiled render that start inside its device span
+(the innermost); the bounce loop's lane
 occupancy (sum of `bounce.live` over `bounce.width`), the host share
 inside `sync` spans, `build/accel` seconds and the device ms of the
 surface fetch and shade step (kernels starting inside `surface` and
@@ -70,7 +71,10 @@ GROUPS = (("two-level trace (bvh8_trace_2l)", ("bvh8_2l_kernel",)),
           ("K2/K3 gathers", ("gather_rows_kernel", "gather_interp_kernel",
                              "gather_surface_kernel")),
           ("sample generator (rng_make, rng_start_effect, rng_next)",
-           ("rng_make_kernel", "rng_start_effect_kernel", "rng_next_kernel")))
+           ("rng_make_kernel", "rng_start_effect_kernel", "rng_next_kernel")),
+          ("ReLAX and TAA (relax_temporal, relax_variance, relax_atrous, "
+           "taa_resolve)", ("relax_temporal_kernel", "relax_variance_kernel",
+                            "relax_atrous_kernel", "taa_resolve_kernel")))
 HOST_MIN_NS = 20_000     # shorter host ops cannot name an idle gap
 
 
