@@ -32,13 +32,17 @@ stages a span "realtime/<stage>" (utils/profiling.py; recorded, and ranges
 named "rtxpt:realtime/<stage>" in a torch.profiler trace, only while
 recording).
 
+Both pipelines run the same ReSTIR DI and GI stages (`_restir_di`,
+`_restir_gi`) on their G-buffer, in the row window `Window`.
+
 With a `mesh` of more than one rank (parallel/meshutils.py; one process a
 device) each rank renders its slab of rows: stage 1 on its rows when the
-height divides by the mesh size (pt_frame_sharded), else on the whole
-frame on every rank; the denoiser on its rows with the neighbours' halo
-rows (denoise_taa_sharded); then the ranks gather the composed colour and
-the motion, and TAA or TAAU runs on the whole frame on every rank, which
-returns the whole frame.
+height divides by the mesh size, the previous frame's buffers padded with
+the neighbours' halo rows (meshutils.exchange_prev_halos), else on the
+whole frame on every rank; the denoiser on its rows with the neighbours'
+halo rows (denoise_taa_sharded); then the ranks gather the composed colour
+and the motion, and TAA or TAAU runs on the whole frame on every rank,
+which returns the whole frame.
 """
 from __future__ import annotations
 
@@ -89,50 +93,152 @@ class FrameOutputs(NamedTuple):
     gb_view_z: torch.Tensor         # (N,)
 
 
-def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
-              prev_res: Optional[Reservoir],
-              prev_gi: Optional[gi.GIReservoir], prev_gb_normal, prev_gb_z,
-              px, py, consts, *, cfg: C.PTConfig, width: int, height: int,
-              has_prev: bool, y0: int = 0, rows: Optional[int] = None,
-              prev_rows: Optional[int] = None) -> FrameOutputs:
-    """PSR-lite stage 1: the G-buffer, ReSTIR DI, the indirect paths and
-    ReSTIR GI.
+class StableOutputs(NamedTuple):
+    """What the stable-planes stage 1 hands stage 2 and the next frame;
+    per pixel, flat (N, ...)."""
+    planes: SPM.StablePlanes
+    committed_diff: torch.Tensor    # (N,P,4)
+    committed_spec: torch.Tensor
+    spec_motion: torch.Tensor       # (N,P,2)
+    restir_initial: tuple           # (DI, GI) reservoirs before temporal
+    #                                 reuse: the candidates and the
+    #                                 path-traced secondary sample
+    reservoir: Reservoir            # DI feedback
+    gi_reservoir: gi.GIReservoir    # GI feedback
+    gb_normal: torch.Tensor         # (N,3)
+    gb_view_z: torch.Tensor         # (N,)
 
-    The row window (parallel/meshutils.pt_frame_sharded): px, py are
-    `rows` rows of the frame from global row y0, and the previous frame's
-    buffers `prev_rows` rows centred on them (halo rows above and below).
-    The defaults are the whole frame."""
-    rows = height if rows is None else rows
-    prev_rows = rows if prev_rows is None else prev_rows
-    win = dict(y0=y0, rows=rows)
-    prev_win = dict(win, prev_y0=y0 - (prev_rows - rows) // 2,
-                    prev_rows=prev_rows)
+
+class Feedback(NamedTuple):
+    """The previous frame's stage-1 buffers that the temporal passes read:
+    the fields of these names of its FrameOutputs or StableOutputs. None
+    before the first frame and where the pass is off."""
+    reservoir: Optional[Reservoir]
+    gi_reservoir: Optional[gi.GIReservoir]
+    gb_normal: Optional[torch.Tensor]
+    gb_view_z: Optional[torch.Tensor]
+
+
+class Window(NamedTuple):
+    """The rows stage 1 renders: px, py are `rows` rows of the (width,
+    height) frame from global row y0, and the previous frame's buffers
+    hold `prev_rows` rows from prev_y0 (on a mesh, the rank's rows with
+    the neighbours' halo rows above and below)."""
+    width: int
+    height: int
+    y0: int
+    rows: int
+    prev_y0: int
+    prev_rows: int
+
+    @property
+    def spatial(self) -> dict:
+        """The spatial passes' window arguments."""
+        return dict(y0=self.y0, rows=self.rows)
+
+    @property
+    def temporal(self) -> dict:
+        """The temporal passes' window arguments."""
+        return dict(self.spatial, prev_y0=self.prev_y0,
+                    prev_rows=self.prev_rows)
+
+
+class DIStage(NamedTuple):
+    """What the ReSTIR DI stage hands the frame."""
+    reservoir: Reservoir            # after spatial reuse: the shading's
+    feedback: Reservoir             # after temporal reuse: the next frame's
+    initial: Reservoir              # the candidates
+    diffuse: torch.Tensor           # (N,3) DI-only final shading
+    specular: torch.Tensor
+
+
+class GIStage(NamedTuple):
+    """What the ReSTIR GI stage hands the frame: the final shading of DI
+    and GI, and GI's reservoirs."""
+    di_diffuse: torch.Tensor        # (N,3)
+    di_specular: torch.Tensor
+    gi_diffuse: torch.Tensor
+    gi_specular: torch.Tensor
+    feedback: gi.GIReservoir        # after temporal reuse
+    initial: gi.GIReservoir         # the path-traced secondary sample
+
+
+def _restir_di(assets, gb: GB.GBuffer, px, py, frame: int, prev: Feedback,
+               win: Window, cfg: C.PTConfig, zeros) -> DIStage:
+    """ReSTIR DI on `gb` (RtxdiPass): presample -> candidates -> temporal
+    (on prev.reservoir, where given) -> spatial, then the DI-only final
+    shading. With GI on, the GI stage shades DI too (one visibility
+    trace), and the shading here is `zeros`, an (N,3) zero tensor. Off:
+    empty reservoirs."""
+    if not cfg.use_restir_di:
+        empty = Reservoir.empty(px.shape[0], px.device)
+        return DIStage(empty, empty, empty, zeros, zeros)
+    with profiling.span("realtime/restir_di"):
+        ris = di.presample_lights(assets, frame)
+        r = initial = di.generate_candidates(assets, gb, px, py, frame, ris)
+        if prev.reservoir is not None:
+            r = di.temporal_resample(assets, gb, r, prev.reservoir,
+                                     prev.gb_normal, prev.gb_view_z, px, py,
+                                     win.width, win.height, frame,
+                                     **win.temporal)
+        # the temporal output, not the spatial one, feeds the next frame
+        # (RTXDI: spatially merged feedback loops energy)
+        feedback = r
+        r = di.spatial_resample(assets, gb, r, px, py, win.width, win.height,
+                                frame, **win.spatial)
+        profiling.count_device("restir_di.valid",
+                               lambda: (r.light != di.LIGHT_INVALID).sum())
+        diffuse = specular = zeros
+        if not cfg.use_restir_gi:
+            diffuse, specular = di.final_shade(
+                assets, gb, r, exact_alpha=cfg.exact_alpha_test)
+    return DIStage(r, feedback, initial, diffuse, specular)
+
+
+def _restir_gi(assets, gb: GB.GBuffer, initial, px, py, frame: int,
+               prev: Feedback, win: Window, cfg: C.PTConfig, d: DIStage,
+               zeros) -> GIStage:
+    """ReSTIR GI on `gb`: the path-traced secondary sample (`initial()`
+    gives gi.make_initial's position, normal, validity, Lo and source pdf,
+    made inside the stage's span) -> temporal (on prev.gi_reservoir, where
+    given) -> spatial -> the final shading, fused with DI's (one
+    visibility trace) where DI is on. The DI shading is `d`'s own where
+    the fused shading does not replace it; off, the GI shading is
+    `zeros` and the reservoirs are empty."""
+    if not cfg.use_restir_gi:
+        empty = gi.GIReservoir.empty(px.shape[0], px.device)
+        return GIStage(d.diffuse, d.specular, zeros, zeros, empty, empty)
+    with profiling.span("realtime/restir_gi"):
+        gr = first = gi.make_initial(gb, *initial())
+        if prev.gi_reservoir is not None:
+            gr = gi.temporal_resample(gb, gr, prev.gi_reservoir,
+                                      prev.gb_normal, prev.gb_view_z, px, py,
+                                      win.width, win.height, frame,
+                                      **win.temporal)
+        feedback = gr
+        gr = gi.spatial_resample(gb, gr, px, py, win.width, win.height,
+                                 frame, **win.spatial)
+        profiling.count_device("restir_gi.valid", lambda: gr.valid.sum())
+        if cfg.use_restir_di:
+            shaded = di.fused_final_shade(assets, gb, d.reservoir, gr,
+                                          exact_alpha=cfg.exact_alpha_test)
+        else:
+            shaded = (d.diffuse, d.specular, *gi.final_shade(
+                assets, gb, gr, exact_alpha=cfg.exact_alpha_test))
+    return GIStage(*shaded, feedback, first)
+
+
+def _pt_frame(assets, cam: CameraData, prev_cam: CameraData, prev: Feedback,
+              px, py, consts, win: Window, cfg: C.PTConfig) -> FrameOutputs:
+    """PSR-lite stage 1: the G-buffer, ReSTIR DI, the indirect paths and
+    ReSTIR GI, on the window's rows."""
     n = px.shape[0]
     dev = px.device
     with profiling.span("realtime/gbuffer"):
         gb = GB.trace_gbuffer(assets, cam, prev_cam, px, py)
     frame = int(consts.sample_base_index)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-
-    # ReSTIR DI; the temporal output, not the spatial one, feeds the next
-    # frame (RTXDI: spatially merged feedback loops energy)
-    di_d = di_s = z3
-    if cfg.use_restir_di:
-        with profiling.span("realtime/restir_di"):
-            ris = di.presample_lights(assets, frame)
-            r = di.generate_candidates(assets, gb, px, py, frame, ris)
-            if has_prev and prev_res is not None:
-                r = di.temporal_resample(assets, gb, r, prev_res,
-                                         prev_gb_normal, prev_gb_z, px, py,
-                                         width, height, frame, **prev_win)
-            r_feedback = r
-            r = di.spatial_resample(assets, gb, r, px, py, width, height,
-                                    frame, **win)
-            if not cfg.use_restir_gi:
-                di_d, di_s = di.final_shade(
-                    assets, gb, r, exact_alpha=cfg.exact_alpha_test)
-    else:
-        r_feedback = Reservoir.empty(n, dev)
+    d = _restir_di(assets, gb, px, py, frame, prev, win, cfg, z3)
 
     # indirect: one BSDF bounce at the primary surface, then the bounce
     # loop from the secondary vertex
@@ -166,7 +272,8 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
         # lobes only (its visibility rays leave on the view side); the
         # others keep their BSDF-sampled emissive and env MIS
         # (PathTracerNEE.hlsli:321-330)
-        restir_covers = ~is_delta & ~is_trans if cfg.use_restir_di             else torch.zeros_like(is_delta)
+        restir_covers = ~is_delta & ~is_trans if cfg.use_restir_di \
+            else torch.zeros_like(is_delta)
         mis0 = torch.where(restir_covers, 0.0, 1.0)
         spread = cam.pixel_cone_spread_angle
         cone_spread = torch.where(
@@ -197,44 +304,34 @@ def _pt_frame(assets, cam: CameraData, prev_cam: CameraData,
     to_diffuse = (primary_diffuse | ~gb.valid)[..., None]
     ind_d = torch.where(to_diffuse, plain_ind, 0.0)
     ind_s = torch.where(to_diffuse, 0.0, plain_ind)
+    # ReSTIR GI takes the non-delta reflections whose secondary surface
+    # the paths found; the others keep their path-traced indirect light
+    g = _restir_gi(
+        assets, gb, lambda: (
+            sec_pos, sec_nrm,
+            active & sec_found & ~is_delta & ~is_trans & (bs["pdf"] > 0.0),
+            lo, bs["pdf"]),
+        px, py, frame, prev, win, cfg, d, z3)
     if cfg.use_restir_gi:
-        with profiling.span("realtime/restir_gi"):
-            gi_ok = active & sec_found & ~is_delta & ~is_trans & \
-                (bs["pdf"] > 0.0)
-            gr = gi.make_initial(gb, sec_pos, sec_nrm, gi_ok, lo, bs["pdf"])
-            if has_prev and prev_gi is not None:
-                gr = gi.temporal_resample(gb, gr, prev_gi, prev_gb_normal,
-                                          prev_gb_z, px, py, width, height,
-                                          frame, **prev_win)
-            gi_feedback = gr
-            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame,
-                                     **win)
-            if cfg.use_restir_di:
-                di_d, di_s, gi_d, gi_s = di.fused_final_shade(
-                    assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
-            else:
-                gi_d, gi_s = gi.final_shade(
-                    assets, gb, gr, exact_alpha=cfg.exact_alpha_test)
-        ind_d = torch.where(gi_ok[..., None], gi_d, ind_d)
-        ind_s = torch.where(gi_ok[..., None], gi_s, ind_s)
-    else:
-        gi_feedback = gi.GIReservoir.empty(n, dev)
+        gi_ok = g.initial.valid[..., None]
+        ind_d = torch.where(gi_ok, g.gi_diffuse, ind_d)
+        ind_s = torch.where(gi_ok, g.gi_specular, ind_s)
 
     # the background and the primary emission; the sky seen through a
     # delta chain is weighed by the chain's throughput
     env_bg = torch.where(gb.valid[..., None], 0.0,
                          gb.psr_thp * EM.eval_dir(assets.env, gb.view_dir))
-    shp = (rows, width)
+    shp = (win.rows, win.width)
     r3 = lambda a: a.reshape(shp + (3,))
     return FrameOutputs(
-        di_diffuse=r3(di_d), di_specular=r3(di_s),
+        di_diffuse=r3(g.di_diffuse), di_specular=r3(g.di_specular),
         indirect_diffuse=r3(ind_d), indirect_specular=r3(ind_s),
         motion=gb.motion.reshape(shp + (2,)), normal=r3(gb.normal),
         view_z=gb.view_z.reshape(shp), diffuse_albedo=r3(gb.diffuse_albedo),
         specular_albedo=r3(gb.specular_albedo),
         roughness=gb.roughness.reshape(shp),
         emission_bg=r3(gb.emission + env_bg), psr_thp=r3(gb.psr_thp),
-        reservoir=r_feedback, gi_reservoir=gi_feedback,
+        reservoir=d.feedback, gi_reservoir=g.feedback,
         gb_normal=gb.normal, gb_view_z=gb.view_z)
 
 
@@ -300,24 +397,10 @@ def dominant_gbuffer(assets, sp: SPM.StablePlanes) -> GB.GBuffer:
 
 
 def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
-                     prev_res: Optional[Reservoir],
-                     prev_gi: Optional[gi.GIReservoir], prev_gb_normal,
-                     prev_gb_z, px, py, consts, *, cfg: C.PTConfig,
-                     width: int, height: int, has_prev: bool, y0: int = 0,
-                     rows: Optional[int] = None,
-                     prev_rows: Optional[int] = None):
+                     prev: Feedback, px, py, consts, win: Window,
+                     cfg: C.PTConfig) -> StableOutputs:
     """Stage 1: BUILD -> ReSTIR DI on the dominant plane -> FILL -> ReSTIR
-    GI -> the per-plane radiance channels. Returns (planes, committed
-    diffuse (N,P,4), committed specular (N,P,4), specular motion (N,P,2),
-    DI feedback reservoir, GI feedback reservoir, G-buffer normal and
-    view depth, (DI, GI) initial reservoirs: the candidates and the
-    path-traced secondary sample before temporal reuse). y0/rows/
-    prev_rows: the row window, as in _pt_frame."""
-    rows = height if rows is None else rows
-    prev_rows = rows if prev_rows is None else prev_rows
-    win = dict(y0=y0, rows=rows)
-    prev_win = dict(win, prev_y0=y0 - (prev_rows - rows) // 2,
-                    prev_rows=prev_rows)
+    GI -> the per-plane radiance channels, on the window's rows."""
     n = px.shape[0]
     dev = px.device
     P = cfg.stable_plane_count
@@ -331,29 +414,7 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
         gb = dominant_gbuffer(assets, sp)
     z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     frame = int(consts.sample_base_index)
-
-    di_d = di_s = gi_d = gi_s = z3
-    if cfg.use_restir_di:
-        with profiling.span("realtime/restir_di"):
-            ris = di.presample_lights(assets, frame)
-            r = di.generate_candidates(assets, gb, px, py, frame, ris)
-            r_initial = r
-            if has_prev and prev_res is not None:
-                r = di.temporal_resample(assets, gb, r, prev_res,
-                                         prev_gb_normal, prev_gb_z, px, py,
-                                         width, height, frame, **prev_win)
-            # the temporal output, not the spatial one, feeds the next
-            # frame (RTXDI: spatially merged feedback loops energy)
-            r_feedback = r
-            r = di.spatial_resample(assets, gb, r, px, py, width, height,
-                                    frame, **win)
-            profiling.count_device("restir_di.valid",
-                                   lambda: (r.light != di.LIGHT_INVALID).sum())
-            if not cfg.use_restir_gi:
-                di_d, di_s = di.final_shade(
-                    assets, gb, r, exact_alpha=cfg.exact_alpha_test)
-    else:
-        r_feedback = r_initial = Reservoir.empty(n, dev)
+    d = _restir_di(assets, gb, px, py, frame, prev, win, cfg, z3)
 
     # ---- FILL from the plane-0 base (firstHitFromBasePlane)
     with profiling.span("realtime/fill"):
@@ -392,30 +453,16 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
     committed_diff = fill["committed_diff"]
     committed_spec = fill["committed_spec"]
 
-    if cfg.use_restir_gi:
-        with profiling.span("realtime/restir_gi"):
-            sec_pos, sec_nrm, sec_found = fill["first"]
-            lo = fill["gi_l"] / torch.clamp(fill["gi_thp"], min=1e-6)
-            gr = gi.make_initial(gb, sec_pos, sec_nrm,
-                                 fill["gi_valid"] & sec_found, lo,
-                                 fill["gi_pdf"])
-            gr_initial = gr
-            if has_prev and prev_gi is not None:
-                gr = gi.temporal_resample(gb, gr, prev_gi, prev_gb_normal,
-                                          prev_gb_z, px, py, width, height,
-                                          frame, **prev_win)
-            gi_feedback = gr
-            gr = gi.spatial_resample(gb, gr, px, py, width, height, frame,
-                                     **win)
-            profiling.count_device("restir_gi.valid", lambda: gr.valid.sum())
-            if cfg.use_restir_di:
-                di_d, di_s, gi_d, gi_s = di.fused_final_shade(
-                    assets, gb, r, gr, exact_alpha=cfg.exact_alpha_test)
-            else:
-                gi_d, gi_s = gi.final_shade(
-                    assets, gb, gr, exact_alpha=cfg.exact_alpha_test)
-    else:
-        gi_feedback = gr_initial = gi.GIReservoir.empty(n, dev)
+    def gi_sample():
+        # FILL's secondary sample, its Lo without the throughput FILL
+        # carried to it
+        sec_pos, sec_nrm, sec_found = fill["first"]
+        lo = fill["gi_l"] / torch.clamp(fill["gi_thp"], min=1e-6)
+        return (sec_pos, sec_nrm, fill["gi_valid"] & sec_found, lo,
+                fill["gi_pdf"])
+
+    g = _restir_gi(assets, gb, gi_sample, px, py, frame, prev, win, cfg, d,
+                   z3)
 
     # fold the ReSTIR DI + GI radiance at the dominant base (weighted by
     # the plane throughput, like the committed channels) into the
@@ -428,8 +475,8 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
         add = (add * thp_dom)[:, None] * torch.ones((1, P, 1), device=dev)
         return torch.where(dom_oh, SPM.combine_hit_t(chan, add, hit_td), chan)
 
-    committed_diff = fold(committed_diff, di_d + gi_d)
-    committed_spec = fold(committed_spec, di_s + gi_s)
+    committed_diff = fold(committed_diff, g.di_diffuse + g.gi_diffuse)
+    committed_spec = fold(committed_spec, g.di_specular + g.gi_specular)
 
     # hitT-based virtual reprojection of specular (NRD virtual motion): a
     # mirror-like surface's specular history lies at the reflected point
@@ -442,8 +489,11 @@ def _pt_frame_stable(assets, cam: CameraData, prev_cam: CameraData,
         (spec_hit_t > 0.0)
     spec_motion = sp.motion + (prev_xy_virt - cur_xy - sp.motion) \
         * w_virt[..., None]
-    return (sp, committed_diff, committed_spec, spec_motion, r_feedback,
-            gi_feedback, gb.normal, gb.view_z, (r_initial, gr_initial))
+    return StableOutputs(
+        planes=sp, committed_diff=committed_diff,
+        committed_spec=committed_spec, spec_motion=spec_motion,
+        restir_initial=(d.initial, g.initial), reservoir=d.feedback,
+        gi_reservoir=g.feedback, gb_normal=gb.normal, gb_view_z=gb.view_z)
 
 
 def dominant_motion(sp: SPM.StablePlanes, height: int, width: int):
@@ -454,16 +504,17 @@ def dominant_motion(sp: SPM.StablePlanes, height: int, width: int):
         height, width, 2)
 
 
-def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
-                       den_states, taa_state, *, width: int, height: int,
-                       use_den: bool, use_taa: bool, method: str = "relax",
-                       den=None):
+def _post_frame_stable(out: StableOutputs, den_states, taa_state, *,
+                       width: int, height: int, use_den: bool, use_taa: bool,
+                       method: str = "relax", den=None):
     """Stage 2: per plane demodulate -> denoise (ReLAX, or ReBLUR with the
     channel's hit distance; `den`'s `denoise` where given: the mesh's
     ReLAX) -> remodulate -> merge with the stable
     radiance -> TAA (Sample::Denoise, Sample.cpp:2398-2440, and
     PostProcess's final merge). Returns (colour, denoiser states, TAA
     state, per-plane (diffuse, specular) outputs)."""
+    sp, committed_diff, committed_spec, spec_motion = (
+        out.planes, out.committed_diff, out.committed_spec, out.spec_motion)
     P = committed_diff.shape[1]
     shp = (height, width)
     eps = 1e-3
@@ -522,6 +573,26 @@ def _post_frame_stable(sp, committed_diff, committed_spec, spec_motion,
                                                relax_mask=relax_mask)
     return color, new_den, taa_state, (torch.stack(plane_diff),
                                        torch.stack(plane_spec))
+
+
+def _rank_rows(mesh, out, width: int, height: int):
+    """This rank's rows of a stage-1 result of the whole frame, for the
+    post: every per-pixel field ((H, W, ...) in FrameOutputs, flat
+    (H * W, ...) in StableOutputs, the planes field by field) padded as
+    meshutils.shard_rows pads; the next frame's feedback and the initial
+    reservoirs stay whole."""
+    flat = isinstance(out, StableOutputs)
+
+    def cut(a):
+        if isinstance(a, tuple):
+            return type(a)(*map(cut, a))
+        rows = meshutils.shard_rows(mesh, a.reshape(
+            (height, width) + a.shape[1 if flat else 2:]))
+        return rows.reshape((-1,) + a.shape[1:])
+
+    keep = Feedback._fields + ("restir_initial",)
+    return out._replace(**{f: cut(getattr(out, f)) for f in out._fields
+                           if f not in keep})
 
 
 class RealtimeRenderer(Renderer):
@@ -611,77 +682,62 @@ class RealtimeRenderer(Renderer):
             viewport=self._to_device([width, height], torch.float32))
         px, py = self._pixel_grid(width, height)
         consts = C.default_constants(sample_base_index=self.frame_index)
-        has_prev = self.prev_reservoir is not None
+        cfg = self.cfg
+        # only the temporal passes read the previous frame's buffers
+        prev = Feedback(self.prev_reservoir if cfg.use_restir_di else None,
+                        self.prev_gi if cfg.use_restir_gi else None,
+                        self.prev_gb_normal, self.prev_gb_z)
+        y0, rows, prev_rows = 0, height, height
         sharded = self._shard_stage1(height)
         if sharded:
-            rows = height // self.mesh.size
-            own = slice(self.mesh.rank * rows * width,
-                        (self.mesh.rank + 1) * rows * width)
+            rows = prev_rows = height // self.mesh.size
+            y0 = self.mesh.rank * rows
+            own = slice(y0 * width, (y0 + rows) * width)
             px, py = px[own], py[own]
-        n = px.shape[0]
-        z = lambda *s: torch.zeros((n,) + s, dtype=torch.float32,
-                                   device=self.device)
-        prev_n = self.prev_gb_normal if has_prev else z(3)
-        prev_z = self.prev_gb_z if has_prev else z()
-        use_den = self.cfg.denoiser_enabled if denoise is None else denoise
+            if prev.reservoir is not None or prev.gi_reservoir is not None:
+                prev, prev_rows = meshutils.exchange_prev_halos(
+                    self.mesh, prev, rows, width)
+        win = Window(width, height, y0, rows, y0 - (prev_rows - rows) // 2,
+                     prev_rows)
+        stage1 = _pt_frame_stable if cfg.use_stable_planes else _pt_frame
+        out = stage1(self.assets, cam, self.prev_cam, prev, px, py, consts,
+                     win, cfg)
+        use_den = cfg.denoiser_enabled if denoise is None else denoise
         taa = taa and display_size is None
         # the post runs on each rank's rows where stage 1 did or the
         # denoiser needs it (the reference's rule); else as one device
         post_sharded = self.mesh is not None and self.mesh.size > 1 and (
             sharded or use_den)
-        method = self.cfg.denoiser_method
-        frame = dict(width=width, height=height, has_prev=has_prev)
-        stage1_args = (self.assets, cam, self.prev_cam, self.prev_reservoir,
-                       self.prev_gi, prev_n, prev_z, px, py, consts)
-        kind = "stable" if self.cfg.use_stable_planes else "psr"
-        if sharded:
-            out = meshutils.pt_frame_sharded(self.mesh, kind, self.cfg,
-                                             *stage1_args, **frame)
-        else:
-            out = (_pt_frame_stable if kind == "stable" else _pt_frame)(
-                *stage1_args, cfg=self.cfg, **frame)
-        post = dict(use_den=use_den, method=method,
+        post = dict(use_den=use_den, method=cfg.denoiser_method,
                     use_taa=taa and not post_sharded)
+        post_in = out
         if post_sharded:
             # ReLAX on the rank's rows; TAA on the gathered frame below
             post["den"] = meshutils.ShardedReLAX(self.mesh, height)
-        if kind == "stable":
-            (sp, cdiff, cspec, smot, r_fb, gi_fb, gb_normal, gb_z,
-             self.last_restir_initial) = out
-            if self.den_states is None:
-                self.den_states = [(None, None)] * \
-                    self.cfg.stable_plane_count
-            self.last_plane_radiance = (cdiff, cspec)
-            self.last_stable_planes = sp
-            if post_sharded and not sharded:
+            if not sharded:
                 # stage 1 ran on the whole frame: the post takes the
                 # rank's rows
-                flat = lambda a: meshutils.shard_rows(self.mesh, a.reshape(
-                    (height, width) + a.shape[1:])).reshape(
-                        (-1,) + a.shape[1:])
-                sp = type(sp)(*map(flat, sp))
-                cdiff, cspec, smot = flat(cdiff), flat(cspec), flat(smot)
-            rows = sp.dominant.shape[0] // width
+                post_in = _rank_rows(self.mesh, out, width, height)
+        if cfg.use_stable_planes:
+            if self.den_states is None:
+                self.den_states = [(None, None)] * cfg.stable_plane_count
+            self.last_restir_initial = out.restir_initial
+            self.last_plane_radiance = (out.committed_diff,
+                                        out.committed_spec)
+            self.last_stable_planes = out.planes
+            post_rows = post_in.planes.dominant.shape[0] // width
             (color, self.den_states, self.taa_state,
              self.last_plane_denoised) = _post_frame_stable(
-                sp, cdiff, cspec, smot, self.den_states, self.taa_state,
-                width=width, height=rows, **post)
-            motion = dominant_motion(sp, rows, width) \
+                post_in, self.den_states, self.taa_state, width=width,
+                height=post_rows, **post)
+            motion = dominant_motion(post_in.planes, post_rows, width) \
                 if post_sharded or display_size is not None else None
         else:
             self.last_outputs = out
-            r_fb, gi_fb = out.reservoir, out.gi_reservoir
-            gb_normal, gb_z = out.gb_normal, out.gb_view_z
-            if post_sharded and not sharded:
-                out = out._replace(**{
-                    f: meshutils.shard_rows(self.mesh, getattr(out, f))
-                    for f in out._fields
-                    if f not in ("reservoir", "gi_reservoir", "gb_normal",
-                                 "gb_view_z")})
             color, self.den_diff, self.den_spec, self.taa_state = \
-                _post_frame(out, self.den_diff, self.den_spec,
+                _post_frame(post_in, self.den_diff, self.den_spec,
                             self.taa_state, **post)
-            motion = out.motion
+            motion = post_in.motion
         if post_sharded:
             # what cannot be split by rows runs on the gathered frame
             color, motion = self._gather_frame(
@@ -694,10 +750,8 @@ class RealtimeRenderer(Renderer):
                     color, self.taa_state = taa_mod.resolve(
                         self.taa_state, color, motion)
         self.prev_cam = cam
-        self.prev_reservoir = r_fb
-        self.prev_gi = gi_fb
-        self.prev_gb_normal = gb_normal
-        self.prev_gb_z = gb_z
+        self.prev_reservoir, self.prev_gi = out.reservoir, out.gi_reservoir
+        self.prev_gb_normal, self.prev_gb_z = out.gb_normal, out.gb_view_z
         self.frame_index += 1
         if display_size is not None:
             with profiling.span("realtime/taau"):

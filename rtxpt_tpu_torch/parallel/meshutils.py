@@ -8,8 +8,9 @@ pixels are sharded: each rank owns a contiguous slab of rows (in
 reference mode, of the flattened pixel list), paths never migrate, and
 the ranks communicate only
   * by halo exchange (parallel/halo.py) for the row-sharded stencils:
-    the previous frame's ReSTIR reservoirs and G-buffer (stage 1), the
-    denoiser's inputs and history (stage 2);
+    the previous frame's ReSTIR reservoirs and G-buffer (stage 1,
+    `exchange_prev_halos`), the denoiser's inputs and history (stage 2,
+    `denoise_taa_sharded`);
   * by all_gather where a rank needs the whole frame: the returned image,
     and TAA or TAAU, which run on the whole frame on every rank.
 
@@ -246,52 +247,31 @@ def render_image_sharded(assets, cam, cfg, consts, width: int, height: int,
     return gather_rows(mesh, radiance, n).reshape(height, width, 3)
 
 
-def pt_frame_sharded(mesh: Mesh, kind: str, cfg, assets, cam, prev_cam,
-                     prev_res, prev_gi, prev_gb_normal, prev_gb_z, px, py,
-                     consts, *, width: int, height: int, has_prev: bool,
-                     halo: int = STAGE1_HALO):
-    """Realtime stage 1 on this rank's rows: the G-buffer or the BUILD
-    pass, ReSTIR DI and GI and the paths or FILL (kind "psr":
-    models.realtime._pt_frame, "stable": _pt_frame_stable) with the row
-    window y0 = rank * rows. px, py and the previous frame's per-pixel
-    buffers (DI and GI reservoirs, G-buffer normal and view z) are this
-    rank's rows; the previous buffers get `halo` rows of the neighbours
-    (one exchange), so temporal reprojection reads across the seams.
-    Returns what the frame function returns, for this rank's rows: the
-    feedback stays on the rank."""
-    from ..models import realtime as RT
-    if height % mesh.size:
-        raise ValueError(f"height {height} is not divisible by the mesh "
-                         f"size {mesh.size}")
-    rows = height // mesh.size
-    if px.shape[0] != rows * width:
-        raise ValueError(f"px holds {px.shape[0]} pixels, not this rank's "
-                         f"{rows} rows of {width}")
+def exchange_prev_halos(mesh: Mesh, prev, rows: int, width: int,
+                        halo: int = STAGE1_HALO):
+    """The previous frame's buffers of a row-sharded stage 1, padded with
+    `halo` rows of the ranks above and below (edge-clamped at the frame's
+    border), so temporal reprojection reads across the seams. `prev`: a
+    NamedTuple whose fields are this rank's flat (rows * width, ...)
+    tensors, NamedTuples of them (a reservoir) or None; one exchange
+    carries them all. Returns (`prev` padded, of the same structure, and
+    the rows each buffer holds)."""
     halo = min(halo, max(rows - 1, 1))
-    fn = RT._pt_frame if kind == "psr" else RT._pt_frame_stable
-    # only the temporal passes read the previous frame's buffers
-    prev_res = prev_res if cfg.use_restir_di else None
-    prev_gi = prev_gi if cfg.use_restir_gi else None
-    prev_rows = rows
-    if has_prev and (prev_res is not None or prev_gi is not None):
-        # one exchange for every previous-frame buffer
-        flat = [*(prev_res or ()), *(prev_gi or ()), prev_gb_normal,
-                prev_gb_z]
-        padded = exchange_row_halos(
-            [a.reshape((rows, width) + a.shape[1:]) for a in flat], halo,
-            mesh)
-        it = iter(a.reshape(((rows + 2 * halo) * width,) + a.shape[2:])
-                  for a in padded)
-        if prev_res is not None:
-            prev_res = type(prev_res)(*[next(it) for _ in prev_res])
-        if prev_gi is not None:
-            prev_gi = type(prev_gi)(*[next(it) for _ in prev_gi])
-        prev_gb_normal, prev_gb_z = next(it), next(it)
-        prev_rows = rows + 2 * halo
-    return fn(assets, cam, prev_cam, prev_res, prev_gi, prev_gb_normal,
-              prev_gb_z, px, py, consts, cfg=cfg, width=width, height=height,
-              has_prev=has_prev, y0=mesh.rank * rows, rows=rows,
-              prev_rows=prev_rows)
+    tensors = lambda b: () if b is None else b if isinstance(b, tuple) \
+        else (b,)
+    slabs = [a.reshape((rows, width) + a.shape[1:])
+             for b in prev for a in tensors(b)]
+    padded = iter(a.reshape((-1,) + a.shape[2:])
+                  for a in exchange_row_halos(slabs, halo, mesh))
+
+    def refill(b):
+        if b is None:
+            return None
+        if isinstance(b, tuple):
+            return type(b)(*[next(padded) for _ in b])
+        return next(padded)
+
+    return type(prev)(*map(refill, prev)), rows + 2 * halo
 
 
 def denoise_taa_sharded(mesh: Mesh, den_state, taa_state, radiance, normal,
@@ -339,10 +319,9 @@ def denoise_taa_sharded(mesh: Mesh, den_state, taa_state, radiance, normal,
 
 
 class ShardedReLAX:
-    """Stage 2's denoiser on a mesh (models/realtime.py `_post_frame`'s
-    `den`): ReLAX on this rank's rows with the neighbours' halo, without
-    TAA, which runs on the gathered frame. `height`: the frame's unpadded
-    height."""
+    """Stage 2's denoiser on a mesh (the realtime post's `den`): ReLAX on
+    this rank's rows with the neighbours' halo, without TAA, which runs on
+    the gathered frame. `height`: the frame's unpadded height."""
 
     def __init__(self, mesh: Mesh, height: int):
         self.mesh, self.height = mesh, height

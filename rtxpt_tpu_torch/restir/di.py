@@ -225,9 +225,10 @@ def temporal_resample(assets, gb: GBuffer, cur: Reservoir, prev: Reservoir,
     the geometry, clamp the history M, merge, boiling filter.
 
     y0/rows: the row window of the current buffers (row-sharded stage 1,
-    parallel/meshutils.pt_frame_sharded); prev_y0/prev_rows: the window
-    of the previous frame's buffers, which carry halo rows. The defaults
-    are the whole frame."""
+    models/realtime.py `Window`); prev_y0/prev_rows: the window of the
+    previous frame's buffers, which carry halo rows
+    (parallel/meshutils.exchange_prev_halos). The defaults are the whole
+    frame."""
     rows = height if rows is None else rows
     prev_rows = height if prev_rows is None else prev_rows
     g = rng.make(px, py, 0, sample_index)

@@ -24,7 +24,10 @@ and the port's single-device render and frames.
 - With the denoiser and TAA on (48x40, and 48x42, whose rows do not
   divide, so stage 1 runs whole on every rank) every rank returns the same
   finite whole frame.
-- ReBLUR with a mesh raises; no rank imports jax or rtxpt_tpu."""
+- ReBLUR with a mesh raises; no rank imports jax or rtxpt_tpu.
+- No module of rtxpt_tpu_torch/parallel/ imports the model layer."""
+import ast
+import pathlib
 import time
 from types import SimpleNamespace
 
@@ -251,6 +254,33 @@ def test_reblur_with_mesh_raises(ranks):
 def test_ranks_import_no_jax(ranks):
     for r in ranks.res:
         assert r["imports_jax"] == []
+
+
+def test_parallel_imports_no_models():
+    """parallel/ sits below the model layer: no module of it imports
+    rtxpt_tpu_torch.models, at module level or inside a function, by a
+    relative or an absolute name. The renderer drives the sharded frame."""
+    pkg = pathlib.Path(meshutils.__file__).parent
+    found = []
+    for path in sorted(pkg.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                targets = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = "rtxpt_tpu_torch.parallel".split(".")
+                base = base[:len(base) - node.level + 1] if node.level \
+                    else []
+                module = ".".join(base + ([node.module] if node.module
+                                          else []))
+                targets = [module] + [f"{module}.{a.name}"
+                                      for a in node.names]
+            else:
+                continue
+            found += [f"{path.name}:{node.lineno} {t}" for t in targets
+                      if t == "rtxpt_tpu_torch.models"
+                      or t.startswith("rtxpt_tpu_torch.models.")]
+    assert len(list(pkg.glob("*.py"))) >= 3
+    assert found == []
 
 
 def test_one_rank_mesh_is_single_device():
